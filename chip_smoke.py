@@ -1,0 +1,303 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (lrs_pnp_dip_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+  1. build   — compile kernel B1 (csrc/ista.cu) with nvcc for sm_90a;
+  2. check   — kernel B1 against its plain PyTorch version on the card, at
+               the main-path shape (nB 144, P 1296, K 512, 100 iterations,
+               the shipped dictionary, masks of synthetic_sample(36, 36,
+               128), trace4 alpha), a ragged nB 13 and nB 2304 (the 144x144
+               cube), with f32 and bf16 operands;
+  3. timing  — B1 at the main-path shape with CUDA events, beside its bound,
+               its plain version and the 2 n_iter torch.matmul calls;
+  4. solve   — api.inpaint(variant="dip", n_iters=3) at full width (36x36x128,
+               skip-128, 144 blocks, default DIP cap and early stop) on the
+               card, counting B1's launches; then one short outer step on
+               the card against the same step on the CPU;
+  5. report  — the card's name and power limit, a {"kernels": [...]} line
+               and, last, {"ok": true, "device": {...}}.
+
+Without a CUDA device, or without the package beside it, it exits non-zero
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+# Published dense peaks of the H100 SXM (NVIDIA data sheet): f32 on the CUDA
+# cores, bf16 on the tensor cores, device-memory bandwidth.
+H100_PEAKS = {"f32_flops": 67e12, "bf16_flops": 989e12, "bytes_per_s": 3.35e12}
+# Kernel against the plain loop with the same operand type: the kernel sums
+# the products in another order than cuBLAS.
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
+# With bf16 operands the summation order also flips an operand's rounding
+# now and then, so the limit is on max |delta| over max |ref|.  It is below
+# the gap that skipping the rounding of any operand leaves at the main-path
+# shape (tests/test_torch_ista.py), so the check catches that.
+BF16_MATCH = 1e-5
+# bf16 kernel against the f32 plain loop, as tests/test_ista_pallas.py.
+BF16_DRIFT = 0.02
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def peaks_for(name: str) -> dict:
+    if "H100" not in name:
+        raise RuntimeError(f"no peaks for {name!r}: bound_ms is defined for an H100 only")
+    return H100_PEAKS
+
+
+def time_cuda(fn, warmup: int = 2, reps: int = 7) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, each bracketed by
+    CUDA events, after ``warmup`` runs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def problem(height: int, width: int, seed: int, dictionary, device="cuda"):
+    """Blocks, masks and trace4 alpha of a synthetic cube, as the first
+    outer step of the dip solve hands them to the sparse prox."""
+    from lrs_pnp_dip_tpu_torch.data import synthetic_sample
+    from lrs_pnp_dip_tpu_torch.ops import block_grid, extract_blocks
+    from lrs_pnp_dip_tpu_torch.solvers import make_consts
+    from lrs_pnp_dip_tpu_torch.utils.config import dip_preset
+
+    sample = synthetic_sample(height, width, 128, seed=seed)
+    cfg = dip_preset()
+    consts = make_consts(sample, dictionary, cfg, device=device)
+    grid = block_grid((height * width, 128), cfg.block_size, cfg.stride)
+    return extract_blocks(consts.Y, grid), consts.mask_blocks, consts.D, consts.alpha
+
+
+def check_kernel(blocks, masks, D, alpha, matmul_dtype: str) -> float:
+    """Kernel B1 against the plain version on the same card tensors;
+    returns max |delta|, raises when outside the tolerance.  With bf16
+    operands it also holds the kernel to the f32 plain loop, and checks
+    that the f32 kernel's output would fail the bf16 match."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    def run(fn, mm):
+        cfg = SparseProxConfig(n_iter=100, alpha_mode="trace4", matmul_dtype=mm)
+        return fn(blocks, masks, D, cfg, alpha=alpha)
+
+    got = run(pnp_ista_blocks_fused, matmul_dtype)
+    torch.cuda.synchronize()
+    ref = run(pnp_ista_blocks, matmul_dtype)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("kernel output is not finite")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    note = ""
+    if matmul_dtype == "float32":
+        torch.testing.assert_close(got, ref, **F32_TOL)
+    else:
+        if not err < BF16_MATCH * scale:
+            raise AssertionError(f"bf16 kernel vs bf16 plain: {err:.3g} >= {BF16_MATCH} * {scale:.3g}")
+        f32_ref = run(pnp_ista_blocks, "float32")
+        drift = float((got - f32_ref).abs().max())
+        if not drift < BF16_DRIFT * float(f32_ref.abs().max()):
+            raise AssertionError(f"bf16 kernel vs f32 plain: {drift:.3g} >= {BF16_DRIFT} * max|ref|")
+        f32_gap = float((run(pnp_ista_blocks_fused, "float32") - ref).abs().max())
+        if not f32_gap >= BF16_MATCH * scale:
+            raise AssertionError(f"the bf16 match cannot tell f32 operands: gap {f32_gap:.3g}")
+        note = f" vs-f32-plain={drift:.3e} f32-kernel-gap={f32_gap:.3e}"
+    log(f"  nB={blocks.shape[0]:5d} {matmul_dtype:9s} max|delta|={err:.3e} "
+        f"max|ref|={scale:.3e}{note} ok")
+    return err
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    try:
+        import lrs_pnp_dip_tpu_torch as port
+        from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
+        from lrs_pnp_dip_tpu_torch.models import Skip
+        from lrs_pnp_dip_tpu_torch.ops import (
+            ISTA_KERNEL, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused,
+        )
+        from lrs_pnp_dip_tpu_torch.solvers import Solver
+        from lrs_pnp_dip_tpu_torch.utils import resolve_device
+        from lrs_pnp_dip_tpu_torch.utils.config import DipConfig, SolverConfig, SparseProxConfig
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
+        return 1
+
+    resolve_device("cuda")  # TF32 off for matmuls and cuDNN convolutions
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, card {name} ({smi})")
+    peaks = peaks_for(name)
+
+    # 1. build
+    t0 = time.perf_counter()
+    ISTA_KERNEL.build()
+    log(f"[build] kernel B1 built in {time.perf_counter() - t0:.2f} s")
+    for line in ISTA_KERNEL.build_log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # 2. kernel against its plain version
+    D_np = load_trained_dictionary(512)
+    log("[check] kernel B1 vs plain pnp_ista_blocks, 100 iterations, trace4 alpha")
+    main = problem(36, 36, 0, D_np)
+    main_err = check_kernel(*main, "float32")
+    check_kernel(*main, "bfloat16")
+    ragged = tuple(t[:13] for t in main[:2]) + (main[2], main[3][:13])
+    for mm in ("float32", "bfloat16"):
+        check_kernel(*ragged, mm)
+    big = problem(144, 144, 1, D_np)
+    if big[0].shape[0] != 2304:
+        raise AssertionError(f"expected 2304 blocks, got {big[0].shape[0]}")
+    for mm in ("float32", "bfloat16"):
+        check_kernel(*big, mm)
+    del big
+
+    # 3. timing at the main-path shape
+    blocks, masks, D, alpha = main
+    nB, P = blocks.shape
+    K, n_iter = D.shape[1], 100
+    flops = 4 * nB * P * K * n_iter
+    io_bytes = (2 * nB * P + P * K + 2 * nB + nB * K) * 4
+    timing = {}
+    for mm, peak in (("float32", peaks["f32_flops"]), ("bfloat16", peaks["bf16_flops"])):
+        cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
+        k_ms = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha))
+        p_ms = time_cuda(lambda: pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha), reps=5)
+        ops_ms, bytes_ms = flops / peak * 1e3, io_bytes / peaks["bytes_per_s"] * 1e3
+        timing[mm] = dict(
+            ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        )
+    x = torch.zeros((nB, K), device="cuda")
+    r = torch.zeros((nB, P), device="cuda")
+
+    def matmuls():
+        for _ in range(n_iter):
+            torch.matmul(x, D.T)
+            torch.matmul(r, D)
+
+    library_ms = time_cuda(matmuls)
+    log(f"[timing] B1 at nB={nB}, P={P}, K={K}, n_iter={n_iter}: {flops:.3e} flops, "
+        f"{io_bytes} bytes in+out; card {smi}")
+    for mm, t in timing.items():
+        log(f"  {mm:9s} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) -> {t['bound_ms'] / t['ms']:.1%} of bound")
+    log(f"  library_ms={library_ms:.4f}: the {2 * n_iter} torch.matmul calls of the two f32 "
+        "products alone — a partial yardstick, since no single PyTorch call computes "
+        "the fused loop with its NLM")
+
+    # 4. the dip solve through the user entry point
+    log("[solve] api.inpaint(variant='dip', n_iters=3) on synthetic_sample(36, 36, 128, seed=0)")
+    sample = synthetic_sample(36, 36, 128, seed=0)
+    input_mpsnr = float(mpsnr(torch.from_numpy(sample.clean), torch.from_numpy(sample.noisy)))
+    torch.cuda.reset_peak_memory_stats()
+    ISTA_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    cube, hist = port.inpaint(sample.noisy, sample.mask, variant="dip", clean=sample.clean, n_iters=3)
+    solve_s = time.perf_counter() - t0
+    launches = ISTA_KERNEL.launches
+    for i in range(3):
+        dip_ms = (hist["seconds"][i] * 1e3 - timing["float32"]["ms"]) / max(hist["dip_iters"][i], 1)
+        log(f"  step {i}: mpsnr={hist['mpsnr'][i]:.4f} ssim={hist['ssim'][i]:.4f} "
+            f"dip_iters={int(hist['dip_iters'][i])} wall_s={hist['seconds'][i]:.3f} "
+            f"(~{dip_ms:.3f} ms per DIP iteration besides B1)")
+    log(f"  input mpsnr={input_mpsnr:.4f}; solve {solve_s:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; B1 launches {launches} "
+        f"({launches / 3:g} per outer step)")
+    if cube.shape != (36, 36, 128) or not bool(torch.isfinite(torch.from_numpy(cube)).all()):
+        raise AssertionError("the recovered cube is not a finite (36, 36, 128) array")
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), hist["mpsnr"] + hist["ssim"])):
+        raise AssertionError("non-finite metrics")
+    if launches != 3:
+        raise AssertionError(f"B1 launched {launches} times in 3 outer steps, expected 3")
+    if not hist["mpsnr"][-1] > input_mpsnr:
+        raise AssertionError(f"final MPSNR {hist['mpsnr'][-1]:.4f} not above input {input_mpsnr:.4f}")
+
+    # the same short outer step on the card and on the CPU, same DIP init
+    small = synthetic_sample(12, 12, 16, missing=0.1, seed=3)
+    rng_D = torch.Generator().manual_seed(0)
+    D_small = torch.randn((36, 48), generator=rng_D)
+    D_small = (D_small / D_small.norm(dim=0, keepdim=True)).numpy()
+    cfg_small = SolverConfig(
+        block_size=6, stride=6, sparse=SparseProxConfig(n_iter=20),
+        dip=DipConfig(num_iter=20, buffer_size=3, patience=2, learning_rate=0.01),
+    )
+    net_kw = dict(num_input_channels=16, num_output_channels=16, channels_down=(8, 8),
+                  channels_up=(8, 8), channels_skip=(4, 4), pad="reflection")
+    init_net = Skip(**net_kw)
+    init_net.reset_parameters(torch.Generator().manual_seed(1))
+    init = {k: v.clone() for k, v in init_net.state_dict().items()}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        solver = Solver(small, D_small, cfg_small, net=Skip(**net_kw), device=dev,
+                        dip_init=lambda itr: init)
+        state, aux = solver.step(solver.init_state())
+        outs[dev] = (state.X.cpu(), aux.dip_iters)
+    scale = float(outs["cpu"][0].abs().max())
+    err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    log(f"  small outer step, card vs CPU: max|dX|={err:.3e} (scale {scale:.3e}), "
+        f"dip_iters {outs['cuda'][1]} vs {outs['cpu'][1]}")
+    if outs["cuda"][1] != outs["cpu"][1] or not err < 1e-3 * scale:
+        raise AssertionError("the card's outer step disagrees with the CPU's")
+
+    # 5. report
+    t = timing["float32"]
+    kernels = [{
+        "name": "pnp_ista_fused",
+        "route": "cuda",
+        "source": "lrs_pnp_dip_tpu_torch/csrc/ista.cu",
+        "replaces": "lrs_pnp_dip_tpu/ops/ista_pallas.py:179",
+        "launches": launches,
+        "max_abs_err": main_err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": library_ms,
+    }]
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,156 @@
+"""Patch-wise dictionary sparse coding via plug-and-play ISTA (counterpart of
+``lrs_pnp_dip_tpu/ops/ista.py``).
+
+Masked ISTA: for ``H = D[kept_rows]`` the pruned-row gradient equals
+``x + D^T (m * (y - D x)) / alpha``, so every block runs with static shapes:
+
+    gradient = x + D^T (m * (y - D x)) / alpha
+    x        = NLM(gradient, h = h_scale * lambda / (2 alpha))
+
+and the reconstruction uses the full dictionary, ``Phi_z = x D^T``.
+
+:func:`pnp_ista_blocks` is the plain PyTorch loop and
+:func:`pnp_ista_blocks_fused` the same loop through kernel B1
+(``csrc/ista.cu``, CUDA tensors only).  :func:`sparse_prox` dispatches on
+the tensor's device: the kernel for tensors on the card, the plain loop for
+CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.config import SparseProxConfig
+from .ista_cuda import ISTA_KERNEL
+from .nlm import nlm_column_batch_fast
+
+
+def _check_denoiser(cfg: SparseProxConfig) -> None:
+    if cfg.denoiser in ("nlm_classic", "bm3d"):
+        raise NotImplementedError(
+            f"denoiser={cfg.denoiser!r} is not ported yet: nlm_classic is ROADMAP "
+            "Queue A item 13 (MATLAB twin), bm3d is item 14 (long tail)"
+        )
+    if cfg.denoiser != "nlm_fast":
+        raise ValueError(f"unknown denoiser {cfg.denoiser!r}")
+
+
+def _alpha_trace4(D: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """alpha_j = 4 * sum_r m_jr ||D[r,:]||^2  — per block (nB,)."""
+    row_normsq = torch.sum(D * D, dim=1)
+    return 4.0 * (M @ row_normsq)
+
+
+def _alpha_specnorm(D: torch.Tensor, M: torch.Tensor, n_steps: int) -> torch.Tensor:
+    """alpha_j = lambda_max(D^T diag(m_j) D) via batched power iteration."""
+    nB = M.shape[0]
+    K = D.shape[1]
+    v = torch.ones((nB, K), dtype=D.dtype, device=D.device) / (K ** 0.5)
+    for _ in range(n_steps):
+        u = (M * (v @ D.T)) @ D
+        v = u / (torch.linalg.norm(u, dim=1, keepdim=True) + 1e-30)
+    u = (M * (v @ D.T)) @ D
+    return torch.sum(v * u, dim=1)  # Rayleigh quotient (v unit-norm)
+
+
+def compute_alpha(
+    D: torch.Tensor, mask_blocks: torch.Tensor, cfg: SparseProxConfig
+) -> torch.Tensor:
+    """Per-block ISTA step sizes (nB,) for the configured ``alpha_mode``,
+    clamped at 1e-12 (a fully missing block gets the clamp)."""
+    M = mask_blocks.to(torch.float32)
+    D = D.to(torch.float32)
+    if cfg.alpha_mode == "trace4":
+        alpha = _alpha_trace4(D, M)
+    elif cfg.alpha_mode == "specnorm":
+        alpha = _alpha_specnorm(D, M, cfg.power_iters)
+    else:
+        raise ValueError(cfg.alpha_mode)
+    return torch.clamp(alpha, min=1e-12)
+
+
+def _round_operand(t: torch.Tensor, matmul_dtype: str) -> torch.Tensor:
+    """The value a matrix-product operand takes: itself in f32, or rounded
+    to bf16 and held in f32.  A product of two bf16 values is exact in f32,
+    so an f32 product of rounded operands is a bf16-operand product with
+    f32 accumulation."""
+    if matmul_dtype == "float32":
+        return t
+    if matmul_dtype == "bfloat16":
+        return t.to(torch.bfloat16).to(torch.float32)
+    raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
+
+
+def _prepare(blocks, mask_blocks, D, cfg: SparseProxConfig, alpha):
+    """The loop's inputs in f32: (Ym = M * Y, M, D, alpha, per-block NLM h)."""
+    _check_denoiser(cfg)
+    Y = blocks.to(torch.float32)
+    M = mask_blocks.to(torch.float32)
+    D = D.to(torch.float32)
+    if alpha is None:
+        alpha = compute_alpha(D, M, cfg)
+    else:
+        alpha = torch.clamp(alpha.to(torch.float32), min=1e-12)
+    h = cfg.h_scale * cfg.lambda_ista / (2.0 * alpha)
+    return M * Y, M, D, alpha, h
+
+
+def pnp_ista_blocks(
+    blocks: torch.Tensor,  # (nB, P) target blocks (of X + lambda_1/mu_1)
+    mask_blocks: torch.Tensor,  # (nB, P) 1 = observed entry
+    D: torch.Tensor,  # (P, K) dictionary
+    cfg: SparseProxConfig = SparseProxConfig(),
+    alpha=None,  # optional precomputed per-block step sizes (nB,)
+) -> torch.Tensor:
+    """Masked PnP-ISTA on every block from x0 = 0, plain PyTorch; returns
+    the coefficients (nB, K).  This is the plain version of kernel B1."""
+    Ym, M, D, alpha, h = _prepare(blocks, mask_blocks, D, cfg, alpha)
+    Dm = _round_operand(D, cfg.matmul_dtype)
+    x = torch.zeros((Ym.shape[0], D.shape[1]), dtype=torch.float32, device=Ym.device)
+    for _ in range(cfg.n_iter):
+        pred = _round_operand(x, cfg.matmul_dtype) @ Dm.T  # (nB, P)
+        resid = Ym - M * pred
+        grad = x + (_round_operand(resid, cfg.matmul_dtype) @ Dm) / alpha[:, None]
+        x = nlm_column_batch_fast(grad, h)
+    return x
+
+
+def pnp_ista_blocks_fused(
+    blocks: torch.Tensor,
+    mask_blocks: torch.Tensor,
+    D: torch.Tensor,
+    cfg: SparseProxConfig = SparseProxConfig(),
+    alpha=None,
+) -> torch.Tensor:
+    """:func:`pnp_ista_blocks` in one launch of kernel B1; takes CUDA
+    tensors only and raises on anything else."""
+    for name, t in (("blocks", blocks), ("mask_blocks", mask_blocks), ("D", D)):
+        if t.device.type != "cuda" or t.device != blocks.device:
+            raise ValueError(f"{name} must be on the CUDA device {blocks.device}, got {t.device}")
+    if mask_blocks.shape != blocks.shape or D.ndim != 2 or D.shape[0] != blocks.shape[1]:
+        raise ValueError(
+            f"shapes do not fit: blocks {tuple(blocks.shape)}, mask_blocks "
+            f"{tuple(mask_blocks.shape)}, D {tuple(D.shape)}"
+        )
+    if cfg.matmul_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown matmul_dtype {cfg.matmul_dtype!r}")
+    Ym, M, D, alpha, h = _prepare(blocks, mask_blocks, D, cfg, alpha)
+    nih = -1.0 / torch.clamp(h * h * 9.0, min=1e-30)
+    return ISTA_KERNEL.launch(
+        Ym, M.contiguous(), D, 1.0 / alpha, nih, cfg.n_iter, cfg.matmul_dtype == "bfloat16"
+    )
+
+
+def sparse_prox(
+    blocks: torch.Tensor,
+    mask_blocks: torch.Tensor,
+    D: torch.Tensor,
+    cfg: SparseProxConfig = SparseProxConfig(),
+    alpha=None,
+) -> torch.Tensor:
+    """Full sparse-coding prox: ISTA coefficients + full-dictionary
+    reconstruction (reference ``Phi_z[:, j] = D @ Coefs``).  Returns the
+    reconstructed blocks (nB, P)."""
+    ista = pnp_ista_blocks_fused if blocks.is_cuda else pnp_ista_blocks
+    coefs = ista(blocks, mask_blocks, D, cfg, alpha=alpha)
+    return coefs @ D.to(torch.float32).T

@@ -1,0 +1,288 @@
+"""The ADMM-style outer solver (counterpart of ``lrs_pnp_dip_tpu/solvers/admm.py``).
+
+Per outer iteration (``main_LRS_PnP_DIP_pro.py:355-528``):
+
+  1. sparse prox:   blocks(X + l1/mu1) -> per-block PnP-ISTA -> Phi_z
+  2. DIP prox:      U = DIP-train(target=noisy, input=X + l2/mu2)
+  3. closed-form X update (mask-aware data fidelity)
+  4. dual updates l1 += mu1(X - IMout), l2 += mu2(X - U)
+  5. diagnostics: MPSNR, SSIM, log||state - prev||
+
+Only ``variant='dip'`` is ported; ``lrs_pnp`` (SVT) and ``dip_1lip`` are
+ROADMAP Queue A items 8 and 9.  ``run_scanned`` has no counterpart: the
+port steps the outer loop from Python.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Mapping, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..data.io import HsiSample
+from ..models import dip_skip_128
+from ..ops.blocks import block_grid, extract_blocks, scatter_blocks
+from ..ops.fidelity import data_fidelity_update, dual_updates
+from ..ops.ista import compute_alpha, sparse_prox
+from ..ops.metrics import mpsnr
+from ..ops.ssim import ssim
+from ..utils.config import SolverConfig
+from ..utils.device import resolve_device
+from .dip import make_dip_fit
+
+
+class SolverState(NamedTuple):
+    """Carried ADMM state."""
+
+    X: torch.Tensor  # (P, B) current estimate
+    lambda1: torch.Tensor  # (P, B) sparsity dual
+    lambda2: torch.Tensor  # (P, B) low-rank dual
+    generator: torch.Generator  # draws the fresh DIP init of each step
+    itr: int  # outer iteration counter
+
+
+class ProblemConsts(NamedTuple):
+    """Per-problem constants (``clean`` is a NaN cube without ground truth)."""
+
+    Y: torch.Tensor  # (P, B) observed matricized image
+    mask2d: torch.Tensor  # (P, B) observation mask
+    mask_blocks: torch.Tensor  # (nB, bb*bb) observed-entry mask per block
+    D: torch.Tensor  # (bb*bb, K) dictionary
+    clean: torch.Tensor  # (H, W, B) ground truth (or NaN)
+    dip_target: torch.Tensor  # (1, H, W, B) fixed noisy target
+    dip_mask: torch.Tensor  # (1, H, W, 1) observation mask for the DIP loss
+    alpha: torch.Tensor  # (nB,) per-block ISTA step sizes, once per problem
+
+
+class StepAux(NamedTuple):
+    """Per-iteration diagnostics."""
+
+    mpsnr: torch.Tensor  # vs clean (NaN when no ground truth)
+    ssim: torch.Tensor
+    x_dist: torch.Tensor  # log||X - X_prev||
+    l1_dist: torch.Tensor
+    l2_dist: torch.Tensor
+    dip_iters: int  # DIP iterations run
+    dip_loss: torch.Tensor
+    U: torch.Tensor  # DIP prox output
+    phi_scatter: torch.Tensor  # sparse-prox image
+
+
+def _log_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.linalg.norm(a - b))
+
+
+class SolverDiverged(RuntimeError):
+    """Raised when the iterate goes non-finite or stalls exactly."""
+
+
+def default_net(config: SolverConfig, n_bands: int):
+    """skip-128, the `dip` variant's net."""
+    if config.dip_net != "default":
+        raise NotImplementedError(
+            f"dip_net={config.dip_net!r} is not ported yet (ROADMAP Queue A, item 14)"
+        )
+    return dip_skip_128(num_channels=n_bands)
+
+
+def _check_variant(config: SolverConfig) -> None:
+    if config.variant == "lrs_pnp":
+        raise NotImplementedError(
+            "variant='lrs_pnp' (SVT prox) is not ported yet (ROADMAP Queue A, item 8)"
+        )
+    if config.variant == "dip_1lip":
+        raise NotImplementedError(
+            "variant='dip_1lip' is not ported yet (ROADMAP Queue A, item 9)"
+        )
+    if config.variant != "dip":
+        raise ValueError(f"unknown variant {config.variant!r}")
+
+
+def build_step(
+    config: SolverConfig,
+    image_shape: tuple,  # (H, W, B)
+    net=None,
+    dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
+    device="cuda",
+) -> Callable[[SolverState, ProblemConsts], tuple]:
+    """Build the outer-step function ``step(state, consts) -> (state, aux)``.
+
+    ``net`` replaces the default skip-128 DIP net; ``dip_init(itr)``, when
+    given, returns the state dict each outer step's DIP fit starts from
+    (else the net is re-drawn from ``state.generator``)."""
+    _check_variant(config)
+    device = resolve_device(device)
+    cfg = config
+    if cfg.dip.input_mode != "iterate":
+        raise NotImplementedError(
+            "DipConfig.input_mode='noise' is not ported yet (ROADMAP Queue A, item 10)"
+        )
+    h, w, b = image_shape
+    grid = block_grid((h * w, b), cfg.block_size, cfg.stride)
+    net = (net or default_net(cfg, b)).to(device)
+    dip_fit = make_dip_fit(net, cfg.dip)
+
+    def step(state: SolverState, consts: ProblemConsts):
+        # 1. sparse-coding prox over blocks
+        blocks = extract_blocks(state.X + state.lambda1 / cfg.mu1, grid)
+        phi = sparse_prox(blocks, consts.mask_blocks, consts.D, cfg.sparse, alpha=consts.alpha)
+        # 2. DIP prox, input = the iterate X + lambda2 / mu2
+        Z = state.X + state.lambda2 / cfg.mu2
+        res = dip_fit(
+            Z.reshape(1, h, w, b), consts.dip_target, consts.dip_mask,
+            init=None if dip_init is None else dip_init(state.itr),
+            generator=state.generator,
+        )
+        U = res.out.reshape(h * w, b)
+        # 3. closed-form X
+        X, im_out = data_fidelity_update(
+            consts.Y, consts.mask2d, phi, U, state.lambda1, state.lambda2,
+            grid, cfg.gamma, cfg.mu1, cfg.mu2,
+        )
+        # 4. duals
+        l1, l2 = dual_updates(state.lambda1, state.lambda2, X, im_out, U, cfg.mu1, cfg.mu2)
+        # 5. diagnostics
+        cube = X.reshape(h, w, b)
+        aux = StepAux(
+            mpsnr=mpsnr(consts.clean, cube),
+            ssim=ssim(consts.clean, cube),
+            x_dist=_log_dist(X, state.X),
+            l1_dist=_log_dist(l1, state.lambda1),
+            l2_dist=_log_dist(l2, state.lambda2),
+            dip_iters=res.n_iters,
+            dip_loss=res.loss,
+            U=U,
+            phi_scatter=scatter_blocks(phi, grid) / grid.weight(X.device),
+        )
+        new_state = SolverState(X, l1, l2, state.generator, state.itr + 1)
+        return new_state, aux
+
+    return step
+
+
+def make_consts(
+    sample: HsiSample, dictionary, config: SolverConfig, device="cuda"
+) -> ProblemConsts:
+    """Assemble the per-problem constants on ``device``."""
+    device = resolve_device(device)
+    h, w, b = sample.shape
+    noisy = torch.as_tensor(np.asarray(sample.noisy, np.float32), device=device)
+    mask_hw = torch.as_tensor(np.asarray(sample.mask, np.float32), device=device)
+    Y = noisy.reshape(h * w, b)
+    mask2d = mask_hw.reshape(h * w, 1).expand(h * w, b).contiguous()
+    grid = block_grid((h * w, b), config.block_size, config.stride)
+    # missing entries located once from the observed blocks
+    # (reference ``blocks_copy``, ``main_LRS_PnP_DIP_pro.py:347``)
+    mask_blocks = (extract_blocks(Y, grid) != 0).to(torch.float32)
+    if sample.clean is not None:
+        clean = torch.as_tensor(np.asarray(sample.clean, np.float32), device=device)
+    else:
+        clean = torch.full((h, w, b), float("nan"), dtype=torch.float32, device=device)
+    D = torch.as_tensor(np.asarray(dictionary, np.float32), device=device)
+    return ProblemConsts(
+        Y=Y,
+        mask2d=mask2d,
+        mask_blocks=mask_blocks,
+        D=D,
+        clean=clean,
+        dip_target=noisy[None],
+        dip_mask=mask_hw[None, :, :, None],
+        alpha=compute_alpha(D, mask_blocks, config.sparse),
+    )
+
+
+def init_state(sample_or_Y, seed: int = 0, device="cuda") -> SolverState:
+    """X starts at the observed image, the duals at zero
+    (reference ``main_LRS_PnP_DIP_pro.py:324-334``)."""
+    device = resolve_device(device)
+    if isinstance(sample_or_Y, HsiSample):
+        h, w, b = sample_or_Y.shape
+        Y = np.asarray(sample_or_Y.noisy, np.float32).reshape(h * w, b)
+    else:
+        Y = sample_or_Y
+    Y = torch.as_tensor(Y, dtype=torch.float32, device=device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return SolverState(
+        X=Y, lambda1=torch.zeros_like(Y), lambda2=torch.zeros_like(Y),
+        generator=generator, itr=0,
+    )
+
+
+class Solver:
+    """Single-problem LRS-PnP-DIP engine.  Runs on ``device`` ('cuda' by
+    default; raises without a card unless ``device='cpu'``)."""
+
+    def __init__(
+        self,
+        sample: HsiSample,
+        dictionary: np.ndarray,
+        config: SolverConfig,
+        net=None,
+        device="cuda",
+        dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
+    ):
+        self.device = resolve_device(device)
+        self.sample = sample
+        self.config = config
+        self.height, self.width, self.n_bands = sample.shape
+        self._step = build_step(
+            config, sample.shape, net=net, dip_init=dip_init, device=self.device
+        )
+        self.consts = make_consts(sample, dictionary, config, device=self.device)
+
+    def init_state(self, seed: Optional[int] = None) -> SolverState:
+        return init_state(
+            self.sample, self.config.seed if seed is None else seed, device=self.device
+        )
+
+    def step(self, state: SolverState):
+        return self._step(state, self.consts)
+
+    def run(
+        self,
+        n_iters: Optional[int] = None,
+        state: Optional[SolverState] = None,
+        callback: Optional[Callable[[int, SolverState, StepAux], None]] = None,
+    ):
+        """Run the outer loop; returns (final_state, history dict).
+
+        ``history['seconds']`` holds each outer step's wall time; reading
+        the step's scalars waits for the device, so it covers the device
+        work too."""
+        n = self.config.outer_iters if n_iters is None else n_iters
+        state = self.init_state() if state is None else state
+        keys = ("mpsnr", "ssim", "x_dist", "l1_dist", "l2_dist", "dip_iters")
+        hist = {k: [] for k in keys + ("seconds",)}
+        best = (-np.inf, None)
+        for i in range(n):
+            t0 = time.perf_counter()
+            state, aux = self.step(state)
+            for k in keys:
+                hist[k].append(float(getattr(aux, k)))
+            hist["seconds"].append(time.perf_counter() - t0)
+            # x_dist is log||dX||: NaN/+inf means a non-finite iterate, -inf
+            # an exactly stalled one, which a healthy DIP step never gives
+            if not np.isfinite(hist["x_dist"][-1]):
+                kind = (
+                    "exactly-stalled (||dX|| == 0)"
+                    if hist["x_dist"][-1] == -np.inf
+                    else "non-finite"
+                )
+                raise SolverDiverged(
+                    f"{kind} iterate at outer iteration {i} "
+                    f"(variant={self.config.variant}); last finite MPSNR "
+                    f"{best[0]:.3f} — checkpoint and inspect duals/step sizes"
+                )
+            if hist["mpsnr"][-1] > best[0]:
+                best = (hist["mpsnr"][-1], state.X.detach().cpu().numpy())
+            if callback is not None:
+                callback(i, state, aux)
+        hist["best_mpsnr"] = best[0]
+        hist["best_X"] = best[1]
+        return state, hist
+
+    def result_cube(self, state: SolverState) -> np.ndarray:
+        return state.X.detach().cpu().numpy().reshape(self.height, self.width, self.n_bands)

@@ -1,0 +1,95 @@
+"""Per-image Deep-Image-Prior training — the DIP prox of the ADMM loop
+(counterpart of ``lrs_pnp_dip_tpu/solvers/dip.py``).
+
+Reference semantics (``get_DIP_out``, ``main_LRS_PnP_DIP_pro.py:211-274``):
+every outer iteration starts a fresh network, trains it with Adam (lr 0.1)
+on the masked MSE ``mean((target*mask - out*mask)^2)`` against the fixed
+noisy target, with the current iterate as the network input, and returns
+the output at the windowed-variance early stop.
+
+Ordering follows the JAX loop exactly: the output recorded in the window,
+and returned as ``last``, is the forward output computed *before* that
+iteration's Adam step; the early stop is checked when ``i % show_every ==
+0``.  ``torch.optim.Adam``'s defaults equal optax's (b1 0.9, b2 0.999,
+eps 1e-8, eps added after the bias-corrected square root).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from ..utils.config import DipConfig
+from .early_stop import init_early_stop, update_early_stop
+
+
+class DipResult(NamedTuple):
+    out: torch.Tensor  # network output at stop (N, H, W, C)
+    loss: torch.Tensor  # final masked-MSE loss
+    n_iters: int  # iterations actually run
+    stopped: bool  # whether early stop fired
+
+
+def make_dip_fit(model: nn.Module, cfg: DipConfig = DipConfig()):
+    """Build ``fit(dip_input, target, mask, init=None, generator=None) -> DipResult``.
+
+    ``dip_input``/``target``: (N, H, W, C); ``mask`` broadcastable to them.
+    The net starts from ``init`` (a state dict) when given, else it is
+    re-initialised in place from ``generator``: one module serves every
+    outer step, each fit starting from fresh parameters and a fresh Adam.
+    """
+    if cfg.return_mode not in ("last", "window_mean"):
+        raise ValueError(
+            f"DipConfig.return_mode must be 'last' or 'window_mean', "
+            f"got {cfg.return_mode!r}"
+        )
+    if cfg.es_mode not in ("exact", "incremental"):
+        raise ValueError(
+            f"DipConfig.es_mode must be 'exact' or 'incremental', got {cfg.es_mode!r}"
+        )
+    if cfg.es_mode == "incremental" or cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "es_mode='incremental' and compute_dtype='bfloat16' (the dip_fast "
+            "preset) are not ported yet (ROADMAP Queue A, item 10)"
+        )
+
+    def fit(
+        dip_input: torch.Tensor,
+        target: torch.Tensor,
+        mask: torch.Tensor,
+        init: Optional[Mapping[str, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> DipResult:
+        if init is not None:
+            model.load_state_dict(init)
+        else:
+            model.reset_parameters(generator)
+        model.train()
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
+        es = init_early_stop(cfg.buffer_size, target.numel(), device=target.device)
+        target_masked = target * mask
+        out = torch.zeros_like(target, dtype=torch.float32)
+        loss = torch.tensor(math.inf, dtype=torch.float32, device=target.device)
+        i = 0
+        while not es.stop and i < cfg.num_iter:
+            pred = model(dip_input)
+            loss_t = torch.mean((target_masked - pred * mask) ** 2)
+            opt.zero_grad(set_to_none=True)
+            loss_t.backward()
+            opt.step()
+            out, loss = pred.detach(), loss_t.detach()
+            if i % cfg.show_every == 0:
+                update_early_stop(es, out.reshape(-1), i, cfg.patience)
+            i += 1
+        if cfg.return_mode == "window_mean":
+            n_seen = min(es.count, cfg.buffer_size)
+            if n_seen > 0:
+                out = torch.mean(es.window, dim=0).reshape(target.shape) * (
+                    cfg.buffer_size / n_seen
+                )
+        return DipResult(out=out, loss=loss, n_iters=i, stopped=es.stop)
+
+    return fit
