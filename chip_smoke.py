@@ -10,9 +10,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the main-path shape (nB 144, P 1296, K 512, 100 iterations,
                the shipped dictionary, masks of synthetic_sample(36, 36,
                128), trace4 alpha), a ragged nB 13 and nB 2304 (the 144x144
-               cube), with f32 and bf16 operands;
-  3. timing  — B1 at the main-path shape with CUDA events, beside its bound,
-               its plain version and the 2 n_iter torch.matmul calls;
+               cube), with f32 and bf16 operands, printing the tiling the
+               plan chose for each; the same at the lrs_pnp sparse settings
+               (80 iterations, specnorm alpha, h_scale 0.1); and two
+               launches on the same inputs must give equal bits;
+  3. timing  — B1 at the main-path shape and at nB 2304 with CUDA events,
+               beside its bound, its plain version and (main shape) the
+               2 n_iter torch.matmul calls;
   4. solve   — api.inpaint(variant="dip", n_iters=3) at full width (36x36x128,
                skip-128, 144 blocks, default DIP cap and early stop) on the
                card, counting B1's launches; then one short outer step on
@@ -43,6 +47,12 @@ F32_TOL = dict(rtol=1e-4, atol=1e-5)
 # the gap that skipping the rounding of any operand leaves at the main-path
 # shape (tests/test_torch_ista.py), so the check catches that.
 BF16_MATCH = 1e-5
+# At the lrs_pnp sparse settings (h_scale 0.1) the NLM's weights are ten times
+# as sharp in h, and the bf16 plain loop itself moves by 1.1e-5 to 1.3e-5 of
+# max |ref| when only the order of its sums changes (rows of D permuted, on
+# the CPU: tests/test_torch_ista.py), so no kernel can meet 1e-5 there.  The
+# limit is some 8 times that sensitivity; an f32 product still fails it.
+BF16_MATCH_SHARP = 1e-4
 # bf16 kernel against the f32 plain loop, as tests/test_ista_pallas.py.
 BF16_DRIFT = 0.02
 
@@ -91,19 +101,23 @@ def problem(height: int, width: int, seed: int, dictionary, device="cuda"):
     return extract_blocks(consts.Y, grid), consts.mask_blocks, consts.D, consts.alpha
 
 
-def check_kernel(blocks, masks, D, alpha, matmul_dtype: str) -> float:
+def check_kernel(blocks, masks, D, alpha, matmul_dtype: str, bf16_match=BF16_MATCH, **sparse) -> float:
     """Kernel B1 against the plain version on the same card tensors;
     returns max |delta|, raises when outside the tolerance.  With bf16
     operands it also holds the kernel to the f32 plain loop, and checks
-    that the f32 kernel's output would fail the bf16 match."""
+    that the f32 kernel's output would fail the bf16 match.  ``sparse``
+    overrides fields of the SparseProxConfig (100 iterations, trace4)."""
+    import dataclasses
+
     import torch
 
-    from lrs_pnp_dip_tpu_torch.ops import pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
+    base = dataclasses.replace(SparseProxConfig(n_iter=100, alpha_mode="trace4"), **sparse)
+
     def run(fn, mm):
-        cfg = SparseProxConfig(n_iter=100, alpha_mode="trace4", matmul_dtype=mm)
-        return fn(blocks, masks, D, cfg, alpha=alpha)
+        return fn(blocks, masks, D, dataclasses.replace(base, matmul_dtype=mm), alpha=alpha)
 
     got = run(pnp_ista_blocks_fused, matmul_dtype)
     torch.cuda.synchronize()
@@ -116,19 +130,56 @@ def check_kernel(blocks, masks, D, alpha, matmul_dtype: str) -> float:
     if matmul_dtype == "float32":
         torch.testing.assert_close(got, ref, **F32_TOL)
     else:
-        if not err < BF16_MATCH * scale:
-            raise AssertionError(f"bf16 kernel vs bf16 plain: {err:.3g} >= {BF16_MATCH} * {scale:.3g}")
+        if not err < bf16_match * scale:
+            raise AssertionError(f"bf16 kernel vs bf16 plain: {err:.3g} >= {bf16_match} * {scale:.3g}")
         f32_ref = run(pnp_ista_blocks, "float32")
         drift = float((got - f32_ref).abs().max())
         if not drift < BF16_DRIFT * float(f32_ref.abs().max()):
             raise AssertionError(f"bf16 kernel vs f32 plain: {drift:.3g} >= {BF16_DRIFT} * max|ref|")
         f32_gap = float((run(pnp_ista_blocks_fused, "float32") - ref).abs().max())
-        if not f32_gap >= BF16_MATCH * scale:
+        if not f32_gap >= bf16_match * scale:
             raise AssertionError(f"the bf16 match cannot tell f32 operands: gap {f32_gap:.3g}")
         note = f" vs-f32-plain={drift:.3e} f32-kernel-gap={f32_gap:.3e}"
+    plan = ISTA_KERNEL.plan(blocks.shape[0], blocks.shape[1], D.shape[1], matmul_dtype == "bfloat16")
     log(f"  nB={blocks.shape[0]:5d} {matmul_dtype:9s} max|delta|={err:.3e} "
         f"max|ref|={scale:.3e}{note} ok")
+    log(f"        plan: {plan.n_clusters} clusters of {plan.cluster_size} CTAs ({plan.resident} resident, "
+        f"{plan.waves} wave(s)), {plan.rows} rows per cluster, {plan.slice_rows} rows of D and "
+        f"{plan.seg} columns of x per CTA, {plan.smem_bytes} B of shared memory")
     return err
+
+
+def check_same_bits(blocks, masks, D, alpha, matmul_dtype: str) -> None:
+    """Two launches of kernel B1 on the same inputs must give equal bits:
+    its reductions run in a fixed order, without atomics."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    cfg = SparseProxConfig(n_iter=100, matmul_dtype=matmul_dtype)
+    first = pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
+    # other work between the two launches, so that the second does not
+    # find the card as the first left it
+    torch.matmul(blocks, D)
+    second = pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        differing = int((first != second).sum())
+        raise AssertionError(f"two launches differ in {differing} of {first.numel()} values")
+    log(f"  nB={blocks.shape[0]:5d} {matmul_dtype:9s} two launches give equal bits")
+
+
+def bound_ms(nB: int, P: int, K: int, n_iter: int, matmul_dtype: str, peaks: dict):
+    """The least time the card could take for B1's work: the larger of
+    its operations over the peak rate for the operand type and its bytes
+    (each input read once, the output written once) over the memory rate.
+    Returns (ms, "operations" or "bytes", flops, bytes)."""
+    flops = 4 * nB * P * K * n_iter
+    io_bytes = (2 * nB * P + P * K + nB + nB * K) * 4
+    peak = peaks["f32_flops"] if matmul_dtype == "float32" else peaks["bf16_flops"]
+    ops_ms, bytes_ms = flops / peak * 1e3, io_bytes / peaks["bytes_per_s"] * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flops, io_bytes
 
 
 def main() -> int:
@@ -145,7 +196,7 @@ def main() -> int:
         from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
         from lrs_pnp_dip_tpu_torch.models import Skip
         from lrs_pnp_dip_tpu_torch.ops import (
-            ISTA_KERNEL, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused,
+            ISTA_KERNEL, compute_alpha, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused,
         )
         from lrs_pnp_dip_tpu_torch.solvers import Solver
         from lrs_pnp_dip_tpu_torch.utils import resolve_device
@@ -185,24 +236,27 @@ def main() -> int:
         raise AssertionError(f"expected 2304 blocks, got {big[0].shape[0]}")
     for mm in ("float32", "bfloat16"):
         check_kernel(*big, mm)
-    del big
+    log("[check] the same at the lrs_pnp sparse settings: 80 iterations, specnorm alpha, h_scale 0.1")
+    lrs_pnp = dict(n_iter=80, alpha_mode="specnorm", h_scale=0.1)
+    specnorm_alpha = compute_alpha(main[2], main[1], SparseProxConfig(**lrs_pnp))
+    for mm in ("float32", "bfloat16"):
+        check_kernel(*main[:3], specnorm_alpha, mm, bf16_match=BF16_MATCH_SHARP, **lrs_pnp)
+    log("[check] two launches on the same inputs")
+    for mm in ("float32", "bfloat16"):
+        check_same_bits(*main, mm)
+        check_same_bits(*big, mm)
 
     # 3. timing at the main-path shape
     blocks, masks, D, alpha = main
     nB, P = blocks.shape
     K, n_iter = D.shape[1], 100
-    flops = 4 * nB * P * K * n_iter
-    io_bytes = (2 * nB * P + P * K + 2 * nB + nB * K) * 4
     timing = {}
-    for mm, peak in (("float32", peaks["f32_flops"]), ("bfloat16", peaks["bf16_flops"])):
+    for mm in ("float32", "bfloat16"):
         cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
         k_ms = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha))
         p_ms = time_cuda(lambda: pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha), reps=5)
-        ops_ms, bytes_ms = flops / peak * 1e3, io_bytes / peaks["bytes_per_s"] * 1e3
-        timing[mm] = dict(
-            ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        )
+        b_ms, by, flops, io_bytes = bound_ms(nB, P, K, n_iter, mm, peaks)
+        timing[mm] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
     x = torch.zeros((nB, K), device="cuda")
     r = torch.zeros((nB, P), device="cuda")
 
@@ -220,6 +274,15 @@ def main() -> int:
     log(f"  library_ms={library_ms:.4f}: the {2 * n_iter} torch.matmul calls of the two f32 "
         "products alone — a partial yardstick, since no single PyTorch call computes "
         "the fused loop with its NLM")
+
+    nB_big = big[0].shape[0]
+    log(f"[timing] B1 at nB={nB_big} (the 144x144 cube), 16 times the main shape's work")
+    for mm in ("float32", "bfloat16"):
+        cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
+        k_ms = time_cuda(lambda: pnp_ista_blocks_fused(*big[:3], cfg, alpha=big[3]), warmup=1, reps=3)
+        b_ms, by, _, _ = bound_ms(nB_big, P, K, n_iter, mm, peaks)
+        log(f"  {mm:9s} kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({by}) -> {b_ms / k_ms:.1%} of bound")
+    del big
 
     # 4. the dip solve through the user entry point
     log("[solve] api.inpaint(variant='dip', n_iters=3) on synthetic_sample(36, 36, 128, seed=0)")

@@ -12,51 +12,176 @@
 //                     * nih), nih = -1/(9 h^2), applied forward and
 //                     backward; self weight 8; out = num / den.
 //
-// Inputs: Ym = M*Y and M (nB, P), D (P, K), 1/alpha and nih (nB,), all f32
-// and contiguous.  Output: the coefficients x (nB, K) f32.  With bf16 = 1
-// the two products take operands rounded to bf16 and accumulate in f32 (a
+// Inputs: Y and M (nB, P), D (P, K), alpha (nB,), all f32 and contiguous,
+// and the scalar h_coef with h = h_coef / (2 alpha).  Ym = M*Y, 1/alpha and
+// nih are derived in the kernel, so a call launches nothing else.  Output:
+// the coefficients x (nB, K) f32.  In bf16 mode the
+// two products take operands rounded to bf16 and accumulate in f32 (a
 // product of two bf16 values is exact in f32); the NLM and the carried x
 // stay f32.
 //
 // Bound.  At the main-path shape (nB 144, P 1296, K 512, 100 iterations)
 // the work is 4 nB P K n_iter = 3.8e10 flops on 4.5 MB of inputs and
-// outputs, so it is bound by operations: in f32 on the CUDA cores
-// (67 TFLOP/s on an H100 SXM) no kernel can take less than about 0.57 ms.
+// outputs, so it is bound by operations: 0.57 ms in f32 on the CUDA cores
+// (67 TFLOP/s on an H100 SXM), 0.039 ms with bf16 operands on the tensor
+// cores (989 TFLOP/s).
 //
-// Design.  The NLM stencil reaches 4 columns either side along K between
-// the two products, so one CTA owns whole rows: a tile of kRows = 8 blocks
-// with all K columns.  x, the bf16 operand copy of x, g and the residual
-// live in shared memory for the whole loop (90.6 KB at the main shape), so
-// nothing but the final x goes back to device memory.  D does not fit in
-// shared memory (2.65 MB f32), so every iteration streams it from L2, once
-// as D^T (K, P) for pred and once as D (P, K) for the gradient: both
-// products then read D with neighbouring threads on neighbouring addresses
-// and take x and the residual as shared-memory broadcasts, without
-// cross-lane reductions.  A small prep kernel writes D^T (and the
-// bf16-rounded D) into scratch the wrapper allocates.
+// Design.  D (2.65 MB in f32) does not fit one CTA's 227 KB of shared
+// memory, but it fits a thread block cluster's.  A cluster of C CTAs owns R
+// block rows for the whole loop, and CTA c keeps the slice D[p_c, :]
+// (P/C rows, all K columns) in its shared memory from the first iteration to
+// the last: D is read from device memory once per cluster and never again.
+// That one slice serves both products:
 //
-// Trade-off.  Each CTA reads D twice per iteration whatever its row count,
-// so fewer, wider tiles re-read D from L2 less often in total, but leave
-// SMs idle: at 8 rows there are 18 CTAs on 132 SMs for nB = 144.  8 rows
-// balance the per-CTA FMA work (8 FMAs per D element read) against the
-// per-SM L2 read rate; 4 rows would double the total L2 traffic for the
-// same per-CTA read time.  The ragged last tile is masked (rows past nB
-// read zeros and are not stored).  wgmma, TMA and splitting K across a
-// cluster are left for a later change.
+//   1. pred[:, p_c] = x D[p_c, :]^T needs all K of x for the R rows (every
+//      CTA holds a copy of x) and gives the CTA's own residual slice
+//      r[:, p_c] = Ym - M * pred, which never leaves the CTA;
+//   2. the partial gradient r[:, p_c] D[p_c, :] (R, K) stays in the CTA's
+//      shared memory;                                   -- cluster.sync --
+//   3. CTA c owns K/C columns.  It sums the C partials of those columns and
+//      of a halo of 4 either side (the NLM's reach) through distributed
+//      shared memory, in a ring order that is fixed for the CTA (from its
+//      successor on, so that the peers are not all read at once), so two
+//      launches give the same bits; it
+//      adds the carried x, runs the NLM on its columns and writes the new x
+//      into every peer's operand copy.                  -- cluster.sync --
+//
+// Clusters are independent of each other (rows never interact), so the grid
+// may hold more clusters than the card keeps resident; they run in waves.
+// With one CTA per SM an H100 SXM keeps 15 clusters of 8 or 7 clusters of 16
+// resident (scripts/probe_clusters.cu); the wrapper asks the card and the
+// plan in ops/ista_cuda.py sizes R for the answer.
+//
+// f32 mode is exact f32 on the CUDA cores.  The f32 slice is resident at
+// C = 16 (81 x 512 x 4 B = 166 KB at the main shape), a cluster size that
+// needs cudaFuncAttributeNonPortableClusterSizeAllowed.  Product 1 gives
+// each warp an eighth of K and each lane up to 3 columns p for all 11 rows
+// (33 accumulators; x is a shared-memory broadcast, D a conflict-free
+// 16-byte load thanks to a row stride of K + 4 floats); the 8 partial tiles
+// are summed in warp order.  Product 2 gives each thread 4 columns k for all
+// 11 rows (44 accumulators) over half of the slice's rows, and the two
+// halves are added in a fixed order.
+//
+// bf16 mode stores the slice in bf16 (half the bytes: resident at C = 8)
+// and runs both products on the tensor cores with mma.sync.m16n8k16, f32
+// accumulators: the row tile is 16, of which R <= 16 rows are real.  The
+// slice [p][k] is the "col" B operand of product 1 as it lies (ldmatrix) and
+// of product 2 through ldmatrix.trans, so one copy serves both.  x and the
+// residual are rounded to bf16 once, when they are written as operands.  The
+// f32 -> bf16 conversion of D happens while the slice is loaded, inside the
+// launch; nothing is cached between launches.
+//
+// What bounds it now (scripts/profile_b1_phases.py, NVIDIA H100 80GB HBM3,
+// 700.00 W, main shape): in f32 the two products take about 60% of an
+// iteration and run FMAs at about 45% of the SM's rate, the broadcast loads
+// of x and r costing a quarter of that time; step 3 and the two cluster
+// syncs take the rest.  Step 3 moves about 50 KB per CTA and iteration
+// through distributed shared memory at some 10 bytes per clock, and nothing
+// overlaps it: the next product needs every CTA's new x.  In bf16 the
+// products take half the cycles of the f32 ones, and step 3 and the syncs
+// are half of the time.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kRows = 8;      // block rows per CTA
 constexpr int kThreads = 256;
-constexpr int kColsA = 6;     // pred columns per thread per pass (1536 >= P = 1296)
-constexpr int kColsB = 2;     // gradient columns per thread per pass (512 = K)
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsF32 = 11;   // rows of the f32 register tiles (R <= 11)
+constexpr int kRowsBf16 = 16;  // rows of the mma tile (R <= 16)
+constexpr int kColsP = 3;      // f32 product 1: columns p per lane (slice rows <= 96)
+constexpr int kTilesP = 3;     // bf16 product 1: 8-wide p tiles per warp (slice rows <= 192)
+constexpr int kPairsK = 5;     // bf16 product 2: 16-wide k tiles per warp (K <= 640)
+constexpr int kHalo = 4;       // the NLM's reach along K
+constexpr int kLdR = 12;       // f32 residual: floats per p (11 rows and a pad)
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// With -DISTA_PROFILE thread 0 of CTA 0 adds up the clock cycles of the
+// phases of an iteration (scripts/profile_b1_phases.py reads them); without
+// it the clock compiles to nothing.
+#ifdef ISTA_PROFILE
+__device__ long long g_phase_cycles[8];
+struct PhaseClock {
+  long long t;
+  __device__ __forceinline__ void begin() { t = clock64(); }
+  __device__ __forceinline__ void end(int phase) {
+    if (threadIdx.x == 0 && blockIdx.x == 0) {
+      const long long now = clock64();
+      g_phase_cycles[phase] += now - t;
+      t = now;
+    }
+  }
+};
+#else
+struct PhaseClock {
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void end(int) {}
+};
+#endif
+
+__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Byte offsets of the buffers in dynamic shared memory.  ops/ista_cuda.py
+// computes the same total in its plan.
+struct Layout {
+  int kp;    // K padded: to 4 floats (f32) or 32 bf16 values
+  int ld;    // row stride of the slice and of the operand x, in elements
+  int pcp;   // slice rows padded (bf16: to 16)
+  int ldg;   // row stride of the partial gradient: kp + 8 floats, so that the
+             // mma accumulators' rows fall into different banks
+  int d, x, g, r, xown, vec, total;
+};
+
+__host__ __device__ inline Layout make_layout(int bf16, int R, int Pc, int K, int seg) {
+  Layout L;
+  int bytes_d, bytes_x, bytes_g, bytes_r;
+  if (bf16) {
+    L.kp = round_up(K, 32);
+    L.ld = L.kp + 8;
+    L.ldg = L.kp + 8;
+    L.pcp = round_up(Pc, 16);
+    bytes_d = L.pcp * L.ld * 2;
+    bytes_x = kRowsBf16 * L.ld * 2;
+    bytes_g = R * L.ldg * 4;
+    bytes_r = imax(kRowsBf16 * (L.pcp + 8) * 2, R * (seg + 2 * kHalo) * 4);
+  } else {
+    L.kp = round_up(K, 4);
+    L.ld = L.kp + 4;
+    L.ldg = L.kp + 8;
+    L.pcp = Pc;
+    bytes_d = Pc * L.ld * 4;
+    bytes_x = kRowsF32 * L.kp * 4;
+    bytes_g = imax(R * L.ldg, kWarps * R * Pc) * 4;
+    bytes_r = imax(Pc * kLdR, R * (seg + 2 * kHalo)) * 4;
+  }
+  L.d = 0;
+  L.x = L.d + round_up(bytes_d, 16);
+  L.g = L.x + round_up(bytes_x, 16);
+  L.r = L.g + round_up(bytes_g, 16);
+  L.xown = L.r + round_up(bytes_r, 16);
+  L.vec = L.xown + round_up(2 * R * seg * 4, 16);
+  L.total = L.vec + 2 * kRowsBf16 * 4;
+  return L;
 }
+
+struct Args {
+  const float* y;      // (nB, P) target blocks
+  const float* m;      // (nB, P) mask
+  const float* d;      // (P, K) dictionary
+  const float* alpha;  // (nB,) step sizes
+  float h_coef;        // the NLM's h is h_coef / (2 alpha)
+  float* out;
+  int nB, P, K, n_iter;
+  int R;    // rows per cluster
+  int Pc;   // rows of D per CTA (the last slices may be shorter or empty)
+  int seg;  // columns of x per CTA in step 3, a multiple of 4
+};
 
 // Index into a row of length K after reflect padding (edge not repeated),
 // for offsets within (-K, 2K - 1).
@@ -65,199 +190,608 @@ __device__ __forceinline__ int reflect_index(int j, int K) {
   return j >= K ? 2 * K - 2 - j : j;
 }
 
-// Dt[k, p] = op(D[p, k]); in bf16 mode also Dm[p, k] = op(D[p, k]).
-__global__ void prep_dictionary(const float* __restrict__ D,
-                                float* __restrict__ Dt,
-                                float* __restrict__ Dm, int P, int K,
-                                int bf16) {
-  __shared__ float tile[32][33];
-  const int k0 = blockIdx.x * 32, p0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;  // block (32, 8)
-  for (int i = ty; i < 32; i += 8) {
-    const int p = p0 + i, k = k0 + tx;
-    if (p < P && k < K) {
-      float v = D[(size_t)p * K + k];
-      if (bf16) {
-        v = round_bf16(v);
-        Dm[(size_t)p * K + k] = v;
-      }
-      tile[i][tx] = v;
+// Four consecutive values of x as product operands: f32 as they are, or
+// rounded to bf16.
+__device__ __forceinline__ void store_operand4(float* x, float4 v) {
+  *reinterpret_cast<float4*>(x) = v;
+}
+__device__ __forceinline__ void store_operand4(__nv_bfloat16* x, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(x) = packed;
+}
+
+// Step 3 of an iteration, between the two cluster syncs: the partial
+// gradients of every CTA are complete in s_g.  Sums them for this CTA's
+// columns and halo in rank order, adds the carried x, runs the NLM and
+// writes the new x: in f32 into this CTA's s_xown[nxt], and as a product
+// operand into every CTA's s_x.
+template <typename OperandT>
+__device__ __forceinline__ void reduce_nlm_push(
+    cg::cluster_group& cluster, const Args& a, const Layout& L, float* s_g,
+    float* s_gseg, float* s_xown, OperandT* s_x, int ld_x, const float* s_ia,
+    const float* s_nih, int nrows, int cur, PhaseClock& clock) {
+  const int C = cluster.num_blocks();
+  const int tid = threadIdx.x;
+  const int K = a.K, seg = a.seg, R = a.R;
+  const int rank = cluster.block_rank();
+  const int k0 = min(K, rank * seg);
+  const int k1 = min(K, k0 + seg);
+  const int lo = max(0, k0 - kHalo), hi = min(K, k1 + kHalo);
+  const int ldgs = seg + 2 * kHalo;
+  // k0, lo, seg and every row stride are multiples of 4, so the columns
+  // [lo, hi) go as 16-byte accesses; a last group may reach past K into
+  // padding that holds zeros.
+  const int nquad = k1 > k0 ? (hi - lo + 3) / 4 : 0;
+
+  for (int e = tid; e < nrows * nquad; e += kThreads) {
+    const int r = e / nquad, col = lo + 4 * (e - r * nquad);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    // Peers in ring order from this CTA's successor, so that the CTAs of a
+    // cluster do not all read the same peer at once; the order is fixed for
+    // a rank, so the sum is reproducible.
+#pragma unroll 8
+    for (int i = 0; i < C; ++i) {
+      const int c = (rank + 1 + i) & (C - 1);
+      const float4 v =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(s_g, c) + r * L.ldg + col);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
     }
+    const int owner = col / seg;
+    const float4 xo = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(s_xown, owner) + (cur * R + r) * seg + (col - owner * seg));
+    const float ia = s_ia[r];
+    *reinterpret_cast<float4*>(s_gseg + r * ldgs + (col - k0 + kHalo)) =
+        make_float4(xo.x + s.x * ia, xo.y + s.y * ia, xo.z + s.z * ia, xo.w + s.w * ia);
   }
   __syncthreads();
-  for (int i = ty; i < 32; i += 8) {
-    const int k = k0 + i, p = p0 + tx;
-    if (p < P && k < K) Dt[(size_t)k * P + p] = tile[tx][i];
+  clock.end(4);
+
+  const int nseg = k1 - k0;
+  float* x_new = s_xown + (cur ^ 1) * R * seg;
+  for (int e = tid; e < nrows * nseg; e += kThreads) {
+    const int r = e / nseg, k = k0 + (e - r * nseg);
+    const float* g = s_gseg + r * ldgs + (kHalo - k0);  // g[col] for col in [lo, hi)
+    const float nh = s_nih[r];
+    float v[9];  // v[4 + j] = padded g at offset j from k
+#pragma unroll
+    for (int j = -4; j <= 4; ++j) v[4 + j] = g[reflect_index(k + j, K)];
+    float num = 8.f * v[4];
+    float den = 8.f;
+#pragma unroll
+    for (int delta = 1; delta <= 3; ++delta) {
+      // forward: the window about row k, partner k + delta
+      float p = v[3] - v[3 + delta], q = v[4] - v[4 + delta], s = v[5] - v[5 + delta];
+      const float wf = 7.f * expf(3.f * (p * p + q * q + s * s) * nh);
+      num += wf * v[4 + delta];
+      den += wf;
+      // backward: the window about row k - delta, partner k
+      p = v[3 - delta] - v[3];
+      q = v[4 - delta] - v[4];
+      s = v[5 - delta] - v[5];
+      const float wb = 7.f * expf(3.f * (p * p + q * q + s * s) * nh);
+      num += wb * v[4 - delta];
+      den += wb;
+    }
+    x_new[r * seg + (k - k0)] = num / den;
+  }
+  __syncthreads();
+  clock.end(5);
+
+  // The new x of this CTA's columns, 4 at a time, into every CTA's operand
+  // copy (columns past K hold zeros on both sides).
+  const int nsq = (nseg + 3) / 4;
+  for (int e = tid; e < C * nrows * nsq; e += kThreads) {
+    const int i = e / (nrows * nsq), rem = e - i * (nrows * nsq);
+    const int c = (rank + 1 + i) & (C - 1);
+    const int r = rem / nsq, j = 4 * (rem - r * nsq);
+    const float4 x = *reinterpret_cast<const float4*>(x_new + r * seg + j);
+    store_operand4(cluster.map_shared_rank(s_x, c) + r * ld_x + k0 + j, x);
+  }
+  clock.end(6);
+}
+
+// Zeroes the carried x and derives the per-row scalars, common to both kernels.
+__device__ __forceinline__ void init_rows(const Args& a, float* s_xown, float* s_ia,
+                                          float* s_nih, int row0, int nrows) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 2 * a.R * a.seg; i += kThreads) s_xown[i] = 0.f;
+  if (tid < kRowsBf16) {
+    // 1/alpha and -1/(9 h^2), with the clamps of the plain version
+    float ia = 0.f, nih = -1.f;
+    if (tid < nrows) {
+      const float alpha = fmaxf(a.alpha[row0 + tid], 1e-12f);
+      const float h = a.h_coef / (2.0f * alpha);
+      ia = 1.0f / alpha;
+      nih = -1.0f / fmaxf(h * h * 9.0f, 1e-30f);
+    }
+    s_ia[tid] = ia;
+    s_nih[tid] = nih;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-pnp_ista_kernel(const float* __restrict__ ym, const float* __restrict__ m,
-                const float* __restrict__ Dm, const float* __restrict__ Dt,
-                const float* __restrict__ inv_alpha,
-                const float* __restrict__ nih, float* __restrict__ out,
-                int nB, int P, int K, int n_iter, int bf16) {
+__device__ __forceinline__ void write_out(cg::cluster_group& cluster, const Args& a,
+                                          const float* s_xown, int row0, int nrows, int cur) {
+  const int k0 = min(a.K, (int)cluster.block_rank() * a.seg);
+  const int nseg = min(a.K, k0 + a.seg) - k0;
+  for (int e = threadIdx.x; e < nrows * nseg; e += kThreads) {
+    const int r = e / nseg, k = e - r * nseg;
+    a.out[(size_t)(row0 + r) * a.K + k0 + k] = s_xown[(cur * a.R + r) * a.seg + k];
+  }
+}
+
+// ---------------------------------------------------------------- f32 ----
+
+__global__ void __launch_bounds__(kThreads) pnp_ista_cluster_f32(const Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
-  float* s_x = reinterpret_cast<float*>(smem4);  // [kRows][K] carried x
-  float* s_xm = s_x + kRows * K;                 // [K][kRows] product operand of x
-  float* s_g = s_xm + kRows * K;                 // [kRows][K] gradient step
-  float* s_r = s_g + kRows * K;                  // [P][kRows] masked residual
+  char* smem = reinterpret_cast<char*>(smem4);
+  const Layout L = make_layout(0, a.R, a.Pc, a.K, a.seg);
+  float* s_d = reinterpret_cast<float*>(smem + L.d);     // [Pc][ld] slice of D
+  float* s_x = reinterpret_cast<float*>(smem + L.x);     // [11][kp] operand x
+  float* s_g = reinterpret_cast<float*>(smem + L.g);     // [R][ldg] partial gradient
+  float* s_part = s_g;                                   // [8][R][Pc] product 1 per warp
+  float* s_r = reinterpret_cast<float*>(smem + L.r);     // [Pc][12] residual
+  float* s_gseg = s_r;                                   // [R][seg + 8] in step 3
+  float* s_xown = reinterpret_cast<float*>(smem + L.xown);  // [2][R][seg] carried x
+  float* s_ia = reinterpret_cast<float*>(smem + L.vec);
+  float* s_nih = s_ia + kRowsBf16;
 
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, nB - row0);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = cluster.block_rank();
+  const int cluster_id = blockIdx.x / cluster.num_blocks();
+  const int row0 = cluster_id * a.R;
+  const int nrows = min(a.R, a.nB - row0);
+  const int p0 = min(a.P, rank * a.Pc);
+  const int pc = min(a.P, p0 + a.Pc) - p0;  // this CTA's rows of D
+  const int K = a.K, kp = L.kp, ld = L.ld;
 
-  float ia[kRows], nh[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    ia[r] = r < nrows ? inv_alpha[row0 + r] : 0.f;
-    nh[r] = r < nrows ? nih[row0 + r] : -1.f;
+  // The slice of D, zero in the padded columns; x = 0.
+  if (K % 4 == 0) {  // rows of D are 16-byte aligned
+    const float4* d4 = reinterpret_cast<const float4*>(a.d + (size_t)p0 * K);
+    const int nq4 = K / 4;
+#pragma unroll 4
+    for (int i = tid; i < pc * nq4; i += kThreads) {
+      const int p = i / nq4, q = i - p * nq4;
+      reinterpret_cast<float4*>(s_d + p * ld)[q] = __ldg(d4 + i);
+    }
+  } else {
+    for (int i = tid; i < pc * kp; i += kThreads) {
+      const int p = i / kp, k = i - p * kp;
+      s_d[p * ld + k] = k < K ? a.d[(size_t)(p0 + p) * K + k] : 0.f;
+    }
   }
-  for (int i = tid; i < kRows * K; i += kThreads) {
-    s_x[i] = 0.f;
-    s_xm[i] = 0.f;
-  }
-  __syncthreads();
+  for (int i = tid; i < kRowsF32 * kp; i += kThreads) s_x[i] = 0.f;
+  init_rows(a, s_xown, s_ia, s_nih, row0, nrows);
 
-  for (int it = 0; it < n_iter; ++it) {
-    // 1. residual r = Ym - M * (x D^T); thread owns columns p.
-    for (int p0 = 0; p0 < P; p0 += kThreads * kColsA) {
-      float acc[kColsA][kRows];
-      int pc[kColsA];
+  // Ym and M of the residual elements this thread finishes in step 1.
+  constexpr int kRes = (kRowsF32 * 32 * kColsP + kThreads - 1) / kThreads;
+  float ymr[kRes], mr[kRes];
 #pragma unroll
-      for (int c = 0; c < kColsA; ++c) {
-        pc[c] = p0 + tid + c * kThreads;
+  for (int i = 0; i < kRes; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e / max(pc, 1), p = e - r * max(pc, 1);
+    const bool ok = pc > 0 && r < nrows;
+    mr[i] = ok ? a.m[(size_t)(row0 + r) * a.P + p0 + p] : 0.f;
+    ymr[i] = ok ? mr[i] * a.y[(size_t)(row0 + r) * a.P + p0 + p] : 0.f;
+  }
+  cluster.sync();
+
+  const int nq = kp / 4;                      // float4 columns of K
+  const int qpw = (nq + kWarps - 1) / kWarps; // per warp in product 1
+  const int qa = min(nq, warp * qpw), qb = min(nq, qa + qpw);
+  const int half = tid >> 7, tq = tid & 127;  // product 2
+  const int ph = (pc + 1) / 2;
+  const int pa = half ? ph : 0, pb = half ? pc : ph;
+
+  int cur = 0;
+  PhaseClock clock;
+  clock.begin();
+  for (int it = 0; it < a.n_iter; ++it) {
+    // 1. pred = x D_c^T over this warp's share of K, all rows, lane's columns p.
+    {
+      float acc[kColsP][kRowsF32];
+      const float4* drow[kColsP];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[c][r] = 0.f;
+      for (int j = 0; j < kColsP; ++j) {
+        const int p = lane + 32 * j;
+        drow[j] = reinterpret_cast<const float4*>(s_d + (p < pc ? p : 0) * ld);
+#pragma unroll
+        for (int r = 0; r < kRowsF32; ++r) acc[j][r] = 0.f;
       }
-#pragma unroll 2
-      for (int k = 0; k < K; ++k) {
-        const float4 xa = *reinterpret_cast<const float4*>(s_xm + k * kRows);
-        const float4 xb = *reinterpret_cast<const float4*>(s_xm + k * kRows + 4);
-        const float xr[kRows] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-        const float* drow = Dt + (size_t)k * P;
+      const float4* x4 = reinterpret_cast<const float4*>(s_x);
+#pragma unroll 1
+      for (int q = qa; q < qb; ++q) {
+        float dv[kColsP][4], xv[kRowsF32][4];
 #pragma unroll
-        for (int c = 0; c < kColsA; ++c) {
-          const float d = pc[c] < P ? __ldg(drow + pc[c]) : 0.f;
+        for (int j = 0; j < kColsP; ++j)
+          *reinterpret_cast<float4*>(dv[j]) = drow[j][q];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[c][r] = fmaf(xr[r], d, acc[c][r]);
+        for (int r = 0; r < kRowsF32; ++r)
+          *reinterpret_cast<float4*>(xv[r]) = x4[r * nq + q];
+        // neighbouring FMAs go to different accumulators
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int r = 0; r < kRowsF32; ++r)
+#pragma unroll
+            for (int j = 0; j < kColsP; ++j) acc[j][r] = fmaf(xv[r][i], dv[j][i], acc[j][r]);
+      }
+#pragma unroll
+      for (int j = 0; j < kColsP; ++j) {
+        const int p = lane + 32 * j;
+        if (p < pc) {
+#pragma unroll
+          for (int r = 0; r < kRowsF32; ++r)
+            if (r < a.R) s_part[(warp * a.R + r) * pc + p] = acc[j][r];
         }
       }
+    }
+    __syncthreads();
+    clock.end(0);
+    // residual r = Ym - M * pred, the warps' partial sums taken in warp order
 #pragma unroll
-      for (int c = 0; c < kColsA; ++c) {
-        if (pc[c] >= P) continue;
+    for (int i = 0; i < kRes; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < a.R * pc) {
+        const int r = e / pc, p = e - r * pc;
+        float pred = 0.f;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float v = 0.f;
-          if (r < nrows) {
-            const size_t idx = (size_t)(row0 + r) * P + pc[c];
-            v = ym[idx] - m[idx] * acc[c][r];
-            if (bf16) v = round_bf16(v);
+        for (int w = 0; w < kWarps; ++w) pred += s_part[w * a.R * pc + e];
+        s_r[p * kLdR + r] = ymr[i] - mr[i] * pred;
+      }
+    }
+    __syncthreads();
+    clock.end(1);
+
+    // 2. partial gradient r_c D_c: 4 columns k per thread, all rows, half of
+    // the slice's rows; the two halves are added in a fixed order.
+    for (int qbase = 0; qbase < nq; qbase += 128) {
+      const int q = qbase + tq;
+      const bool active = q < nq;
+      float4 acc[kRowsF32];
+#pragma unroll
+      for (int r = 0; r < kRowsF32; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (active) {
+#pragma unroll 8
+        for (int p = pa; p < pb; ++p) {
+          const float4 dv = reinterpret_cast<const float4*>(s_d + p * ld)[q];
+          const float4* rp = reinterpret_cast<const float4*>(s_r + p * kLdR);
+          const float4 ra = rp[0], rb = rp[1], rc = rp[2];
+          const float rr[kLdR] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y,
+                                  rb.z, rb.w, rc.x, rc.y, rc.z, rc.w};
+#pragma unroll
+          for (int r = 0; r < kRowsF32; ++r) {
+            acc[r].x = fmaf(rr[r], dv.x, acc[r].x);
+            acc[r].y = fmaf(rr[r], dv.y, acc[r].y);
+            acc[r].z = fmaf(rr[r], dv.z, acc[r].z);
+            acc[r].w = fmaf(rr[r], dv.w, acc[r].w);
           }
-          s_r[pc[c] * kRows + r] = v;
+        }
+      }
+      // s_part was read out before the last barrier; s_g takes its place
+      if (active && half == 1) {
+#pragma unroll
+        for (int r = 0; r < kRowsF32; ++r)
+          if (r < a.R) reinterpret_cast<float4*>(s_g + r * L.ldg)[q] = acc[r];
+      }
+      __syncthreads();
+      if (active && half == 0) {
+#pragma unroll
+        for (int r = 0; r < kRowsF32; ++r) {
+          if (r < a.R) {
+            float4* gp = reinterpret_cast<float4*>(s_g + r * L.ldg) + q;
+            const float4 o = *gp;
+            *gp = make_float4(acc[r].x + o.x, acc[r].y + o.y, acc[r].z + o.z, acc[r].w + o.w);
+          }
         }
       }
     }
-    __syncthreads();
+    clock.end(2);
+    cluster.sync();
+    clock.end(3);
 
-    // 2. g = x + (r D) * (1/alpha); thread owns columns k.
-    for (int k0 = 0; k0 < K; k0 += kThreads * kColsB) {
-      float acc[kColsB][kRows];
-      int kc[kColsB];
-#pragma unroll
-      for (int c = 0; c < kColsB; ++c) {
-        kc[c] = k0 + tid + c * kThreads;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[c][r] = 0.f;
-      }
-#pragma unroll 2
-      for (int p = 0; p < P; ++p) {
-        const float4 ra = *reinterpret_cast<const float4*>(s_r + p * kRows);
-        const float4 rb = *reinterpret_cast<const float4*>(s_r + p * kRows + 4);
-        const float rr[kRows] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
-        const float* drow = Dm + (size_t)p * K;
-#pragma unroll
-        for (int c = 0; c < kColsB; ++c) {
-          const float d = kc[c] < K ? __ldg(drow + kc[c]) : 0.f;
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[c][r] = fmaf(rr[r], d, acc[c][r]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kColsB; ++c) {
-        if (kc[c] >= K) continue;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          s_g[r * K + kc[c]] = s_x[r * K + kc[c]] + acc[c][r] * ia[r];
-      }
-    }
-    __syncthreads();
-
-    // 3. x = NLM1d(g), one output element per thread step.
-    for (int e = tid; e < kRows * K; e += kThreads) {
-      const int r = e / K, k = e - r * K;
-      const float* g = s_g + r * K;
-      float v[9];  // v[4 + j] = padded g at offset j from k
-#pragma unroll
-      for (int j = -4; j <= 4; ++j) v[4 + j] = g[reflect_index(k + j, K)];
-      float num = 8.f * v[4];
-      float den = 8.f;
-#pragma unroll
-      for (int delta = 1; delta <= 3; ++delta) {
-        // forward: the window about row k, partner k + delta
-        float a = v[3] - v[3 + delta], b = v[4] - v[4 + delta], c = v[5] - v[5 + delta];
-        const float wf = 7.f * expf(3.f * (a * a + b * b + c * c) * nh[r]);
-        num += wf * v[4 + delta];
-        den += wf;
-        // backward: the window about row k - delta, partner k
-        a = v[3 - delta] - v[3];
-        b = v[4 - delta] - v[4];
-        c = v[5 - delta] - v[5];
-        const float wb = 7.f * expf(3.f * (a * a + b * b + c * c) * nh[r]);
-        num += wb * v[4 - delta];
-        den += wb;
-      }
-      const float x = num / den;
-      s_x[e] = x;
-      s_xm[k * kRows + r] = bf16 ? round_bf16(x) : x;
-    }
-    __syncthreads();
+    // 3. reduce over the cluster, NLM, new x to every CTA
+    reduce_nlm_push(cluster, a, L, s_g, s_gseg, s_xown, s_x, kp, s_ia, s_nih, nrows, cur, clock);
+    cur ^= 1;
+    cluster.sync();
+    clock.end(7);
   }
+  write_out(cluster, a, s_xown, row0, nrows, cur);
+}
 
-  for (int e = tid; e < nrows * K; e += kThreads) out[(size_t)row0 * K + e] = s_x[e];
+// --------------------------------------------------------------- bf16 ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kThreads) pnp_ista_cluster_bf16(const Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const Layout L = make_layout(1, a.R, a.Pc, a.K, a.seg);
+  __nv_bfloat16* s_d = reinterpret_cast<__nv_bfloat16*>(smem + L.d);  // [pcp][ld] slice of D
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + L.x);  // [16][ld] operand x
+  float* s_g = reinterpret_cast<float*>(smem + L.g);                  // [R][ldg] partial gradient
+  __nv_bfloat16* s_r = reinterpret_cast<__nv_bfloat16*>(smem + L.r);  // [16][pcp + 8] residual
+  float* s_gseg = reinterpret_cast<float*>(smem + L.r);               // [R][seg + 8] in step 3
+  float* s_xown = reinterpret_cast<float*>(smem + L.xown);            // [2][R][seg] carried x
+  float* s_ia = reinterpret_cast<float*>(smem + L.vec);
+  float* s_nih = s_ia + kRowsBf16;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;  // the mma fragments' row and column pair
+  const int rank = cluster.block_rank();
+  const int cluster_id = blockIdx.x / cluster.num_blocks();
+  const int row0 = cluster_id * a.R;
+  const int nrows = min(a.R, a.nB - row0);
+  const int p0 = min(a.P, rank * a.Pc);
+  const int pc = min(a.P, p0 + a.Pc) - p0;
+  const int K = a.K, kp = L.kp, ld = L.ld, pcp = L.pcp, ldr = pcp + 8;
+
+  // The slice of D rounded to bf16, zero in the padded rows and columns.
+  if (K % 4 == 0) {  // rows of D are 16-byte aligned
+    const float4* d4 = reinterpret_cast<const float4*>(a.d + (size_t)p0 * K);
+    const int nq4 = kp / 4, nqk = K / 4;
+#pragma unroll 4
+    for (int i = tid; i < pcp * nq4; i += kThreads) {
+      const int p = i / nq4, q = i - p * nq4;
+      const float4 v = (p < pc && q < nqk) ? __ldg(d4 + p * nqk + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      store_operand4(s_d + p * ld + 4 * q, v);
+    }
+  } else {
+    for (int i = tid; i < pcp * kp; i += kThreads) {
+      const int p = i / kp, k = i - p * kp;
+      const float v = (p < pc && k < K) ? a.d[(size_t)(p0 + p) * K + k] : 0.f;
+      s_d[p * ld + k] = __float2bfloat16_rn(v);
+    }
+  }
+  for (int i = tid; i < kRowsBf16 * ld; i += kThreads) s_x[i] = __float2bfloat16_rn(0.f);
+  init_rows(a, s_xown, s_ia, s_nih, row0, nrows);
+
+  // Product 1: this warp's 8-wide tiles of p are warp, warp + 8, warp + 16.
+  // Ym and M at the accumulator positions: rows grp and grp + 8, columns
+  // 2 tig and 2 tig + 1 of each tile; zero outside the problem, so that the
+  // residual there is zero.
+  const int ntp = pcp / 8;
+  const int ntw = ntp > warp ? (ntp - warp + kWarps - 1) / kWarps : 0;  // this warp's tiles
+  float ymr[kTilesP][4], mr[kTilesP][4];
+#pragma unroll
+  for (int t = 0; t < kTilesP; ++t) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = grp + 8 * (i >> 1);
+      const int p = (warp + kWarps * t) * 8 + 2 * tig + (i & 1);
+      const bool ok = r < nrows && p < pc;
+      mr[t][i] = ok ? a.m[(size_t)(row0 + r) * a.P + p0 + p] : 0.f;
+      ymr[t][i] = ok ? mr[t][i] * a.y[(size_t)(row0 + r) * a.P + p0 + p] : 0.f;
+    }
+  }
+  // Product 2: this warp's 16-wide tiles of k are contiguous.
+  const int npk = kp / 16;
+  const int ppw = (npk + kWarps - 1) / kWarps;
+  const int pk0 = min(npk, warp * ppw);
+  const int npw = min(ppw, npk - pk0);  // this warp's tiles
+  cluster.sync();
+
+  int cur = 0;
+  PhaseClock clock;
+  clock.begin();
+  for (int it = 0; it < a.n_iter; ++it) {
+    // 1. pred = x D_c^T on the tensor cores, then r = Ym - M * pred as bf16.
+    {
+      float acc[kTilesP][4];
+#pragma unroll
+      for (int t = 0; t < kTilesP; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+      const __nv_bfloat16* a_ptr = s_x + (lane & 15) * ld + 8 * (lane >> 4);
+      // B for two k steps at once: 8 rows p, the four 8-wide groups of 32 k
+      const __nv_bfloat16* b_ptr = s_d + (lane & 7) * ld + 8 * (lane >> 3);
+#pragma unroll 2
+      for (int k = 0; k < kp; k += 32) {
+        uint32_t a0[4], a1[4], bf[kTilesP][4];
+        ldmatrix_x4(a0, a_ptr + k);
+        ldmatrix_x4(a1, a_ptr + k + 16);
+        // all loads first, so that they are in flight together
+#pragma unroll
+        for (int t = 0; t < kTilesP; ++t)
+          if (t < ntw) ldmatrix_x4(bf[t], b_ptr + (warp + kWarps * t) * 8 * ld + k);
+#pragma unroll
+        for (int t = 0; t < kTilesP; ++t) {
+          if (t < ntw) {
+            mma_bf16(acc[t], a0, bf[t][0], bf[t][1]);
+            mma_bf16(acc[t], a1, bf[t][2], bf[t][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kTilesP; ++t) {
+        const int tile = warp + kWarps * t;
+        if (tile < ntp) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float r0 = ymr[t][2 * h] - mr[t][2 * h] * acc[t][2 * h];
+            const float r1 = ymr[t][2 * h + 1] - mr[t][2 * h + 1] * acc[t][2 * h + 1];
+            *reinterpret_cast<__nv_bfloat162*>(s_r + (grp + 8 * h) * ldr + tile * 8 + 2 * tig) =
+                __floats2bfloat162_rn(r0, r1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    clock.end(1);
+
+    // 2. partial gradient r_c D_c on the tensor cores; B through ldmatrix.trans.
+    {
+      float acc[kPairsK][2][4];
+#pragma unroll
+      for (int j = 0; j < kPairsK; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][h][i] = 0.f;
+      const __nv_bfloat16* a_ptr = s_r + (lane & 15) * ldr + 8 * (lane >> 4);
+      const __nv_bfloat16* b_ptr = s_d + (lane & 15) * ld + 8 * (lane >> 4);
+#pragma unroll 2
+      for (int p = 0; p < pcp; p += 16) {
+        uint32_t af[4], bf[kPairsK][4];
+        ldmatrix_x4(af, a_ptr + p);
+#pragma unroll
+        for (int j = 0; j < kPairsK; ++j)
+          if (j < npw) ldmatrix_x4_trans(bf[j], b_ptr + p * ld + (pk0 + j) * 16);
+#pragma unroll
+        for (int j = 0; j < kPairsK; ++j) {
+          if (j < npw) {
+            mma_bf16(acc[j][0], af, bf[j][0], bf[j][1]);
+            mma_bf16(acc[j][1], af, bf[j][2], bf[j][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kPairsK; ++j) {
+        const int pair = pk0 + j;
+        if (j < npw) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = pair * 16 + 8 * h + 2 * tig;
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const int r = grp + 8 * v;
+              if (r < a.R)
+                *reinterpret_cast<float2*>(s_g + r * L.ldg + k) =
+                    make_float2(acc[j][h][2 * v], acc[j][h][2 * v + 1]);
+            }
+          }
+        }
+      }
+    }
+    clock.end(2);
+    cluster.sync();
+    clock.end(3);
+
+    // 3. reduce over the cluster, NLM, new x (rounded to bf16) to every CTA
+    reduce_nlm_push(cluster, a, L, s_g, s_gseg, s_xown, s_x, ld, s_ia, s_nih, nrows, cur, clock);
+    cur ^= 1;
+    cluster.sync();
+    clock.end(7);
+  }
+  write_out(cluster, a, s_xown, row0, nrows, cur);
+}
+
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, int cluster_size, int nclusters, int smem,
+                      cudaStream_t stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (cluster_size > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster_size * nclusters);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster_size;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the main kernel needs for (P, K), in bytes.
-int lrs_pnp_ista_smem_bytes(int P, int K) {
-  return (int)((3 * (size_t)kRows * K + (size_t)kRows * P) * sizeof(float));
+// Dynamic shared memory per CTA, in bytes, for a plan.
+int lrs_pnp_ista_smem_bytes(int bf16, int R, int Pc, int K, int seg) {
+  return make_layout(bf16, R, Pc, K, seg).total;
 }
 
-// Launches the prep and the fused loop on `stream`; returns the
-// cudaError_t of the launches (0 on success).  dt is (K, P) scratch and dm
-// (P, K) scratch, written and read in bf16 mode only (it may be null in f32
-// mode).
-int lrs_pnp_ista_launch(const float* ym, const float* m, const float* d,
-                        const float* inv_alpha, const float* nih, float* dt,
-                        float* dm, float* out, int nB, int P, int K,
-                        int n_iter, int bf16, void* stream) {
+// How many clusters of `cluster_size` CTAs with `smem` bytes each the device
+// keeps resident at once (cudaOccupancyMaxActiveClusters); negative: minus
+// the cudaError_t.
+int lrs_pnp_ista_max_clusters(int bf16, int cluster_size, int smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int n = 0;
+  cudaError_t err =
+      bf16 ? configure(pnp_ista_cluster_bf16, cluster_size, 1, smem, nullptr, &cfg, &attr)
+           : configure(pnp_ista_cluster_f32, cluster_size, 1, smem, nullptr, &cfg, &attr);
+  if (err == cudaSuccess) {
+    err = bf16 ? cudaOccupancyMaxActiveClusters(&n, pnp_ista_cluster_bf16, &cfg)
+               : cudaOccupancyMaxActiveClusters(&n, pnp_ista_cluster_f32, &cfg);
+  }
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Launches the fused loop on `stream` as nclusters clusters of cluster_size
+// CTAs; returns the cudaError_t (0 on success).  R rows per cluster, Pc rows
+// of D and seg columns of x per CTA, as the plan in ops/ista_cuda.py chose.
+int lrs_pnp_ista_launch(const float* y, const float* m, const float* d,
+                        const float* alpha, float h_coef, float* out, int nB, int P,
+                        int K, int n_iter, int bf16, int cluster_size, int nclusters, int R,
+                        int Pc, int seg, void* stream) {
+  const Args a = {y, m, d, alpha, h_coef, out, nB, P, K, n_iter, R, Pc, seg};
+  const int smem = make_layout(bf16, R, Pc, K, seg).total;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 tblock(32, 8), tgrid((K + 31) / 32, (P + 31) / 32);
-  prep_dictionary<<<tgrid, tblock, 0, s>>>(d, dt, dm, P, K, bf16);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int smem = lrs_pnp_ista_smem_bytes(P, K);
-  err = cudaFuncSetAttribute(pnp_ista_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (nB + kRows - 1) / kRows;
-  pnp_ista_kernel<<<grid, kThreads, smem, s>>>(ym, m, bf16 ? dm : d, dt,
-                                               inv_alpha, nih, out, nB, P, K,
-                                               n_iter, bf16);
+  cudaError_t err;
+  if (bf16) {
+    err = configure(pnp_ista_cluster_bf16, cluster_size, nclusters, smem, s, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_cluster_bf16, a);
+  } else {
+    err = configure(pnp_ista_cluster_f32, cluster_size, nclusters, smem, s, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_cluster_f32, a);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear the sticky launch error; the caller raises
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
+
+#ifdef ISTA_PROFILE
+// Copies the phase cycle counters to `cycles` (8 values) and zeroes them.
+int lrs_pnp_ista_phase_cycles(long long* cycles) {
+  cudaError_t err = cudaMemcpyFromSymbol(cycles, g_phase_cycles, sizeof(g_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const long long zero[8] = {};
+  return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

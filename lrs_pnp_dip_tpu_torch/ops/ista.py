@@ -122,8 +122,9 @@ def pnp_ista_blocks_fused(
     cfg: SparseProxConfig = SparseProxConfig(),
     alpha=None,
 ) -> torch.Tensor:
-    """:func:`pnp_ista_blocks` in one launch of kernel B1; takes CUDA
-    tensors only and raises on anything else."""
+    """:func:`pnp_ista_blocks` in one launch of kernel B1 and nothing else
+    on the card (with ``alpha`` given); takes CUDA tensors only and raises
+    on anything else, and on a shape the kernel does not take."""
     for name, t in (("blocks", blocks), ("mask_blocks", mask_blocks), ("D", D)):
         if t.device.type != "cuda" or t.device != blocks.device:
             raise ValueError(f"{name} must be on the CUDA device {blocks.device}, got {t.device}")
@@ -134,10 +135,17 @@ def pnp_ista_blocks_fused(
         )
     if cfg.matmul_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown matmul_dtype {cfg.matmul_dtype!r}")
-    Ym, M, D, alpha, h = _prepare(blocks, mask_blocks, D, cfg, alpha)
-    nih = -1.0 / torch.clamp(h * h * 9.0, min=1e-30)
+    _check_denoiser(cfg)
+    Y = blocks.to(torch.float32).contiguous()
+    M = mask_blocks.to(torch.float32).contiguous()
+    D = D.to(torch.float32)
+    if alpha is None:
+        alpha = compute_alpha(D, M, cfg)
+    # The kernel masks Y, clamps alpha and derives 1/alpha and the NLM's
+    # h = h_scale * lambda / (2 alpha) itself, as _prepare does for the plain loop.
     return ISTA_KERNEL.launch(
-        Ym, M.contiguous(), D, 1.0 / alpha, nih, cfg.n_iter, cfg.matmul_dtype == "bfloat16"
+        Y, M, D, alpha.to(torch.float32), cfg.h_scale * cfg.lambda_ista,
+        cfg.n_iter, cfg.matmul_dtype == "bfloat16",
     )
 
 

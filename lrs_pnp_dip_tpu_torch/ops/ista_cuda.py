@@ -2,13 +2,21 @@
 Hopper (``csrc/ista.cu``), the port of the TPU kernel
 ``lrs_pnp_dip_tpu/ops/ista_pallas.py:pnp_ista_blocks_pallas``.
 
+The kernel runs as thread block clusters: a cluster of C CTAs owns R block
+rows for the whole loop, CTA c keeps the slice ``D[p_c, :]`` in shared
+memory and the columns ``k_c`` of x in step 3 (see the note in the source).
+:func:`plan_ista` chooses C, R, the slices and the shared-memory bytes from
+(nB, P, K, operand type) in plain Python, so the tiling is testable without
+a card.
+
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (into ``csrc/build/``, named by the
 hash of the source and flags) and loaded with ``ctypes``.  Nothing is
 compiled or loaded when this module is imported.
 
 :func:`.ista.pnp_ista_blocks_fused` prepares the kernel's inputs and
-calls :meth:`FusedIstaKernel.launch`, which takes CUDA tensors only.
+calls :meth:`FusedIstaKernel.launch`, which takes CUDA tensors only.  A
+launch the card refuses (cluster size, shared memory) raises.
 """
 
 from __future__ import annotations
@@ -18,8 +26,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 
@@ -39,6 +48,134 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+# Limits of the kernel's register tiles (csrc/ista.cu).
+_F32_ROWS = 11  # kRowsF32: rows per cluster in f32 mode
+_BF16_ROWS = 16  # kRowsBf16: the mma tile's rows
+_F32_MAX_SLICE = 96  # 32 lanes x kColsP columns p
+_BF16_MAX_SLICE = 192  # 8 warps x kTilesP tiles of 8
+_BF16_MAX_K = 640  # 8 warps x kPairsK tiles of 16
+_WARPS = 8
+_HALO = 4  # the NLM's reach along K
+# Clusters of 8 and of 16 CTAs that an H100 SXM keeps resident with one CTA
+# per SM (cudaOccupancyMaxActiveClusters, scripts/probe_clusters.cu).  The
+# wrapper asks the card it runs on; these serve a plan made without one.
+H100_RESIDENT_CLUSTERS = {8: 15, 16: 7}
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def smem_bytes(bf16: bool, rows: int, slice_rows: int, K: int, seg: int) -> int:
+    """Dynamic shared memory of one CTA, as ``make_layout`` in csrc/ista.cu
+    lays it out."""
+    if bf16:
+        kp = _round_up(K, 32)
+        ld = kp + 8
+        pcp = _round_up(slice_rows, 16)
+        sizes = [
+            pcp * ld * 2,  # the slice of D
+            _BF16_ROWS * ld * 2,  # operand x
+            rows * (kp + 8) * 4,  # partial gradient
+            max(_BF16_ROWS * (pcp + 8) * 2, rows * (seg + 2 * _HALO) * 4),  # residual / g
+        ]
+    else:
+        kp = _round_up(K, 4)
+        sizes = [
+            slice_rows * (kp + 4) * 4,
+            _F32_ROWS * kp * 4,
+            max(rows * (kp + 8), _WARPS * rows * slice_rows) * 4,
+            max(slice_rows * 12, rows * (seg + 2 * _HALO)) * 4,
+        ]
+    sizes.append(2 * rows * seg * 4)  # carried x of the CTA's columns, two copies
+    return sum(_round_up(s, 16) for s in sizes) + 2 * _BF16_ROWS * 4
+
+
+@dataclass(frozen=True)
+class IstaPlan:
+    """The tiling of one launch of kernel B1."""
+
+    nB: int
+    P: int
+    K: int
+    bf16: bool
+    cluster_size: int  # C: CTAs per cluster
+    rows: int  # R: block rows per cluster
+    n_clusters: int
+    resident: int  # clusters the card keeps resident at once
+    slice_rows: int  # rows of D per CTA
+    seg: int  # columns of x per CTA in step 3
+    smem_bytes: int
+
+    @property
+    def waves(self) -> int:
+        return -(-self.n_clusters // self.resident)
+
+    def row_chunks(self):
+        """(first, past-last) block row of each cluster."""
+        return [(i * self.rows, min(self.nB, (i + 1) * self.rows)) for i in range(self.n_clusters)]
+
+    def p_slices(self):
+        """(first, past-last) row of D of each CTA of a cluster; the last
+        may be short or empty."""
+        return [
+            (min(self.P, c * self.slice_rows), min(self.P, (c + 1) * self.slice_rows))
+            for c in range(self.cluster_size)
+        ]
+
+    def k_segments(self):
+        """(first, past-last) column of x that each CTA reduces and denoises."""
+        return [
+            (min(self.K, c * self.seg), min(self.K, (c + 1) * self.seg))
+            for c in range(self.cluster_size)
+        ]
+
+
+def plan_ista(
+    nB: int, P: int, K: int, bf16: bool,
+    resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
+) -> IstaPlan:
+    """Choose the tiling for (nB, P, K, operand type): the smallest cluster
+    whose slice of D fits in shared memory, the most rows per cluster that
+    fit beside it, then as few waves of resident clusters as cover nB, with
+    the rows spread evenly over them.  Raises ValueError with the reason
+    for a shape the kernel does not take."""
+    if nB < 1 or P < 1 or K < 6:
+        raise ValueError(f"needs nB >= 1, P >= 1 and K >= 6 (nB={nB}, P={P}, K={K})")
+    if bf16 and _round_up(K, 32) > _BF16_MAX_K:
+        raise ValueError(f"K={K} is past the bf16 kernel's {_BF16_MAX_K} columns")
+    reasons = []
+    for C in (8, 16):
+        slice_rows = -(-P // C)
+        seg = _round_up(-(-K // C), 4)
+        limit = _BF16_MAX_SLICE if bf16 else _F32_MAX_SLICE
+        if (_round_up(slice_rows, 16) if bf16 else slice_rows) > limit:
+            reasons.append(f"cluster {C}: {slice_rows} rows of D per CTA (> {limit})")
+            continue
+        if resident.get(C, 0) < 1:
+            reasons.append(f"cluster {C}: the card keeps no such cluster resident")
+            continue
+        fits = [
+            r for r in range(_BF16_ROWS if bf16 else _F32_ROWS, 0, -1)
+            if smem_bytes(bf16, r, slice_rows, K, seg) <= _MAX_SMEM_BYTES
+        ]
+        if not fits:
+            need = smem_bytes(bf16, 1, slice_rows, K, seg)
+            reasons.append(f"cluster {C}: {need} B of shared memory (> {_MAX_SMEM_BYTES})")
+            continue
+        waves = -(-nB // (resident[C] * fits[0]))
+        rows = -(-nB // min(nB, waves * resident[C]))
+        return IstaPlan(
+            nB=nB, P=P, K=K, bf16=bf16, cluster_size=C, rows=rows,
+            n_clusters=-(-nB // rows), resident=resident[C], slice_rows=slice_rows,
+            seg=seg, smem_bytes=smem_bytes(bf16, rows, slice_rows, K, seg),
+        )
+    raise ValueError(
+        f"kernel B1 does not take P={P}, K={K} with {'bf16' if bf16 else 'f32'} operands: "
+        + "; ".join(reasons)
+    )
+
+
 class FusedIstaKernel:
     """Builds, loads and launches ``csrc/ista.cu``.
 
@@ -48,14 +185,17 @@ class FusedIstaKernel:
     source = _CSRC / "ista.cu"
     build_dir = _CSRC / "build"
 
-    def __init__(self):
+    def __init__(self, extra_flags: tuple = ()):
+        self.flags = _NVCC_FLAGS + tuple(extra_flags)
         self.launches = 0
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
+        self._resident: dict = {}
+        self._plans: dict = {}
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(_NVCC_FLAGS).encode()
+            self.source.read_bytes() + " ".join(self.flags).encode()
         ).hexdigest()[:16]
         return self.build_dir / f"libista_{digest}.so"
 
@@ -67,7 +207,7 @@ class FusedIstaKernel:
         if not lib_path.exists():
             self.build_dir.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+            cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
@@ -78,30 +218,50 @@ class FusedIstaKernel:
             os.replace(tmp, lib_path)
         lib = ctypes.CDLL(str(lib_path))
         ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.lrs_pnp_ista_launch.argtypes = [ptr] * 8 + [c_int] * 5 + [ptr]
+        lib.lrs_pnp_ista_launch.argtypes = [ptr] * 4 + [ctypes.c_float, ptr] + [c_int] * 10 + [ptr]
         lib.lrs_pnp_ista_launch.restype = c_int
-        lib.lrs_pnp_ista_smem_bytes.argtypes = [c_int, c_int]
+        lib.lrs_pnp_ista_smem_bytes.argtypes = [c_int] * 5
         lib.lrs_pnp_ista_smem_bytes.restype = c_int
+        lib.lrs_pnp_ista_max_clusters.argtypes = [c_int] * 3
+        lib.lrs_pnp_ista_max_clusters.restype = c_int
         self._lib = lib
         return lib
 
+    def resident_clusters(self, bf16: bool) -> dict:
+        """Clusters of 8 and of 16 CTAs that the current card keeps resident
+        at the largest shared-memory request, asked once per operand type."""
+        if bf16 not in self._resident:
+            lib = self.build()
+            self._resident[bf16] = {
+                C: lib.lrs_pnp_ista_max_clusters(int(bf16), C, _MAX_SMEM_BYTES) for C in (8, 16)
+            }
+        return self._resident[bf16]
+
+    def plan(self, nB: int, P: int, K: int, bf16: bool) -> IstaPlan:
+        """:func:`plan_ista` for the card this process runs on, kept per shape."""
+        key = (nB, P, K, bool(bf16))
+        if key not in self._plans:
+            self._plans[key] = plan_ista(nB, P, K, bf16, self.resident_clusters(bf16))
+        return self._plans[key]
+
     def launch(
         self,
-        ym: torch.Tensor,  # (nB, P) pre-masked targets
+        y: torch.Tensor,  # (nB, P) target blocks
         m: torch.Tensor,  # (nB, P) mask
         d: torch.Tensor,  # (P, K) dictionary
-        inv_alpha: torch.Tensor,  # (nB,)
-        nih: torch.Tensor,  # (nB,) -1 / (9 h^2)
+        alpha: torch.Tensor,  # (nB,) step sizes
+        h_coef: float,  # the NLM's h is h_coef / (2 alpha)
         n_iter: int,
         bf16: bool,
     ) -> torch.Tensor:
-        """Run the fused loop on the current stream; returns x (nB, K)."""
-        nB, P = ym.shape
+        """Run the fused loop on the current stream; returns x (nB, K).  The
+        kernel masks the targets and derives 1/alpha and the NLM's constants
+        itself, so the call launches nothing else."""
+        nB, P = y.shape
         K = d.shape[1]
-        device = ym.device
+        device = y.device
         for name, t, shape in (
-            ("ym", ym, (nB, P)), ("m", m, (nB, P)), ("d", d, (P, K)),
-            ("inv_alpha", inv_alpha, (nB,)), ("nih", nih, (nB,)),
+            ("y", y, (nB, P)), ("m", m, (nB, P)), ("d", d, (P, K)), ("alpha", alpha, (nB,)),
         ):
             if t.device != device or t.device.type != "cuda":
                 raise ValueError(f"{name} must be on the CUDA device {device}, got {t.device}")
@@ -111,24 +271,27 @@ class FusedIstaKernel:
                 raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if nB < 1 or K < 6 or n_iter < 0:
-            raise ValueError(f"needs nB >= 1, K >= 6 and n_iter >= 0 (nB={nB}, K={K}, n_iter={n_iter})")
-        lib = self.build()
-        smem = lib.lrs_pnp_ista_smem_bytes(P, K)
-        if smem > _MAX_SMEM_BYTES:
-            raise ValueError(f"P={P}, K={K} need {smem} B of shared memory (> {_MAX_SMEM_BYTES})")
-        out = torch.empty((nB, K), dtype=torch.float32, device=device)
-        dt = torch.empty((K, P), dtype=torch.float32, device=device)
-        dm = torch.empty((P, K), dtype=torch.float32, device=device) if bf16 else None
+        if n_iter < 0:
+            raise ValueError(f"needs n_iter >= 0 (n_iter={n_iter})")
+        bf16 = bool(bf16)
         with torch.cuda.device(device):
+            lib = self.build()
+            plan = self.plan(nB, P, K, bf16)
+            laid_out = lib.lrs_pnp_ista_smem_bytes(int(bf16), plan.rows, plan.slice_rows, K, plan.seg)
+            if laid_out != plan.smem_bytes:
+                raise RuntimeError(f"the plan counts {plan.smem_bytes} B of shared memory, the kernel {laid_out}")
+            out = torch.empty((nB, K), dtype=torch.float32, device=device)
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.lrs_pnp_ista_launch(
-                ym.data_ptr(), m.data_ptr(), d.data_ptr(), inv_alpha.data_ptr(),
-                nih.data_ptr(), dt.data_ptr(), None if dm is None else dm.data_ptr(), out.data_ptr(),
-                nB, P, K, int(n_iter), int(bool(bf16)), stream,
+                y.data_ptr(), m.data_ptr(), d.data_ptr(), alpha.data_ptr(), float(h_coef),
+                out.data_ptr(), nB, P, K, int(n_iter), int(bf16),
+                plan.cluster_size, plan.n_clusters, plan.rows, plan.slice_rows, plan.seg, stream,
             )
         if err != 0:
-            raise RuntimeError(f"pnp_ista kernel launch failed: cudaError_t {err}")
+            raise RuntimeError(
+                f"pnp_ista kernel launch refused: cudaError_t {err} for {plan.n_clusters} clusters "
+                f"of {plan.cluster_size} CTAs with {plan.smem_bytes} B of shared memory each"
+            )
         self.launches += 1
         return out
 
