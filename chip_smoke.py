@@ -13,15 +13,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                cube), with f32 and bf16 operands, printing the tiling the
                plan chose for each; the same at the lrs_pnp sparse settings
                (80 iterations, specnorm alpha, h_scale 0.1); and two
-               launches on the same inputs must give equal bits;
+               launches on the same inputs must give equal bits (the
+               engines' shapes, nB 288 and 576, are held in phase 5);
   3. timing  — B1 at the main-path shape and at nB 2304 with CUDA events,
                beside its bound, its plain version and (main shape) the
                2 n_iter torch.matmul calls;
-  4. solve   — api.inpaint(variant="dip", n_iters=3) at full width (36x36x128,
+  4. solve   — api.inpaint(variant="dip", n_iters=2) at full width (36x36x128,
                skip-128, 144 blocks, default DIP cap and early stop) on the
                card, counting B1's launches; then one short outer step on
                the card against the same step on the CPU;
-  5. report  — the card's name and power limit, a {"kernels": [...]} line
+  5. paths   — every other path a user can call, each at full width on
+               synthetic_sample(36, 36, 128, seed=0) with the shipped
+               dictionary, each with B1's count set to 0 just before and
+               read just after, each asserting finite output, a final MPSNR
+               above the input's and the expected launches of B1:
+               inpaint(variant="lrs_pnp") (the whole preset, also against the
+               same solve on the CPU); inpaint(variant="dip_1lip"),
+               inpaint(variant="dip_fast") (B1 with bf16 operands, the bf16
+               DIP fit) and inpaint(variant="dip_tuned", seeds=[0, 1]) (one
+               launch per outer step at nB 288), 2 outer steps each with the
+               DIP fit capped at 400 iterations; inpaint_scene(
+               variant="lrs_pnp") on a 72x72x128 scene, four tiles in one
+               batch (one launch per outer step at nB 576), also against the
+               CPU; one concatenated launch of B1 against four per-lane
+               launches; B1 against its plain version at nB 288 and at nB
+               576 (dip and lrs_pnp settings), f32 and bf16; B1, the SVT and
+               a batched SVT timed at these shapes;
+  6. report  — the card's name and power limit, a {"kernels": [...]} line
                and, last, {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -30,6 +48,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -55,6 +74,14 @@ BF16_MATCH = 1e-5
 BF16_MATCH_SHARP = 1e-4
 # bf16 kernel against the f32 plain loop, as tests/test_ista_pallas.py.
 BF16_DRIFT = 0.02
+# A deterministic lrs_pnp solve on the card against the same solve on the
+# CPU, max |delta| over max |X|: B1 against the plain loop, cuSOLVER's eigh
+# against LAPACK's on an f32 Gram, two outer steps.  The CPU tests hold the
+# port to the JAX package at the same figure.
+SOLVE_MATCH = 1e-4
+# The DIP fit's cap in the paths of phase 5 (the preset's is 5000): depth cut
+# for the run's time, the early stop stays on.
+DIP_CAP = 400
 
 
 def log(msg: str) -> None:
@@ -182,8 +209,43 @@ def bound_ms(nB: int, P: int, K: int, n_iter: int, matmul_dtype: str, peaks: dic
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flops, io_bytes
 
 
+def drive(label: str, fn, launches: int, nB: int, bf16: bool = False):
+    """Run one path with B1's count set to 0 just before and read just
+    after; returns (result, wall seconds).  Fails unless B1 was launched
+    ``launches`` times, the last of them over ``nB`` blocks with the operand
+    type given."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL
+
+    torch.cuda.synchronize()
+    ISTA_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, plan = ISTA_KERNEL.launches, ISTA_KERNEL.last_plan
+    if got != launches:
+        raise AssertionError(f"{label}: B1 launched {got} times, expected {launches}")
+    if (plan.nB, plan.bf16) != (nB, bf16):
+        raise AssertionError(
+            f"{label}: B1's last launch took nB={plan.nB}, bf16={plan.bf16}; "
+            f"expected nB={nB}, bf16={bf16}")
+    return out, wall
+
+
+def check_recovery(label: str, cube, shape, final_mpsnr: float, input_mpsnr: float) -> None:
+    import numpy as np
+
+    if cube.shape != shape or not np.isfinite(cube).all():
+        raise AssertionError(f"{label}: the recovered cube is not a finite {shape} array")
+    if not final_mpsnr > input_mpsnr:  # also fails on NaN
+        raise AssertionError(f"{label}: final MPSNR {final_mpsnr:.4f} not above input {input_mpsnr:.4f}")
+
+
 def main() -> int:
     try:
+        import numpy as np
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
@@ -196,11 +258,13 @@ def main() -> int:
         from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
         from lrs_pnp_dip_tpu_torch.models import Skip
         from lrs_pnp_dip_tpu_torch.ops import (
-            ISTA_KERNEL, compute_alpha, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused,
+            ISTA_KERNEL, compute_alpha, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused, svt_gram,
         )
         from lrs_pnp_dip_tpu_torch.solvers import Solver
         from lrs_pnp_dip_tpu_torch.utils import resolve_device
-        from lrs_pnp_dip_tpu_torch.utils.config import DipConfig, SolverConfig, SparseProxConfig
+        from lrs_pnp_dip_tpu_torch.utils.config import (
+            PRESETS, DipConfig, SolverConfig, SparseProxConfig,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -285,29 +349,31 @@ def main() -> int:
     del big
 
     # 4. the dip solve through the user entry point
-    log("[solve] api.inpaint(variant='dip', n_iters=3) on synthetic_sample(36, 36, 128, seed=0)")
+    log("[solve] api.inpaint(variant='dip', n_iters=2) on synthetic_sample(36, 36, 128, seed=0)")
     sample = synthetic_sample(36, 36, 128, seed=0)
     input_mpsnr = float(mpsnr(torch.from_numpy(sample.clean), torch.from_numpy(sample.noisy)))
     torch.cuda.reset_peak_memory_stats()
     ISTA_KERNEL.launches = 0
     t0 = time.perf_counter()
-    cube, hist = port.inpaint(sample.noisy, sample.mask, variant="dip", clean=sample.clean, n_iters=3)
+    cube, hist = port.inpaint(sample.noisy, sample.mask, variant="dip", clean=sample.clean, n_iters=2)
     solve_s = time.perf_counter() - t0
     launches = ISTA_KERNEL.launches
-    for i in range(3):
+    by_path = {"dip": launches}
+    f32_dip_ms = (hist["seconds"][1] * 1e3 - timing["float32"]["ms"]) / max(hist["dip_iters"][1], 1)
+    for i in range(2):
         dip_ms = (hist["seconds"][i] * 1e3 - timing["float32"]["ms"]) / max(hist["dip_iters"][i], 1)
         log(f"  step {i}: mpsnr={hist['mpsnr'][i]:.4f} ssim={hist['ssim'][i]:.4f} "
             f"dip_iters={int(hist['dip_iters'][i])} wall_s={hist['seconds'][i]:.3f} "
             f"(~{dip_ms:.3f} ms per DIP iteration besides B1)")
     log(f"  input mpsnr={input_mpsnr:.4f}; solve {solve_s:.2f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; B1 launches {launches} "
-        f"({launches / 3:g} per outer step)")
+        f"({launches / 2:g} per outer step)")
     if cube.shape != (36, 36, 128) or not bool(torch.isfinite(torch.from_numpy(cube)).all()):
         raise AssertionError("the recovered cube is not a finite (36, 36, 128) array")
     if not all(map(lambda v: v == v and abs(v) != float("inf"), hist["mpsnr"] + hist["ssim"])):
         raise AssertionError("non-finite metrics")
-    if launches != 3:
-        raise AssertionError(f"B1 launched {launches} times in 3 outer steps, expected 3")
+    if launches != 2:
+        raise AssertionError(f"B1 launched {launches} times in 2 outer steps, expected 2")
     if not hist["mpsnr"][-1] > input_mpsnr:
         raise AssertionError(f"final MPSNR {hist['mpsnr'][-1]:.4f} not above input {input_mpsnr:.4f}")
 
@@ -338,14 +404,113 @@ def main() -> int:
     if outs["cuda"][1] != outs["cpu"][1] or not err < 1e-3 * scale:
         raise AssertionError("the card's outer step disagrees with the CPU's")
 
-    # 5. report
+    # 5. every other path, each through its user entry point at full width
+    def step_report(label, hist, wall):
+        iters = np.asarray(hist["dip_iters"]).reshape(len(hist["dip_iters"]), -1)
+        log(f"  {label}: wall {wall:.2f} s, DIP iterations per step {iters.sum(axis=1).astype(int).tolist()}, "
+            f"B1 launches {ISTA_KERNEL.launches} (nB {ISTA_KERNEL.last_plan.nB}, "
+            f"{'bf16' if ISTA_KERNEL.last_plan.bf16 else 'f32'} operands)")
+
+    def capped(variant):
+        base = PRESETS[variant]()
+        return dict(dip=dataclasses.replace(base.dip, num_iter=DIP_CAP))
+
+    log("[paths] inpaint(variant='lrs_pnp'): the whole 2-iteration preset, card and CPU")
+    (cube, hist), wall = drive("lrs_pnp", lambda: port.inpaint(
+        sample.noisy, sample.mask, variant="lrs_pnp", clean=sample.clean), launches=2, nB=144)
+    by_path["lrs_pnp"] = ISTA_KERNEL.launches
+    step_report("lrs_pnp", hist, wall)
+    check_recovery("lrs_pnp", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
+    t0 = time.perf_counter()
+    cpu_cube, cpu_hist = port.inpaint(sample.noisy, sample.mask, variant="lrs_pnp", clean=sample.clean, device="cpu")
+    err = float(np.abs(cube - cpu_cube).max()) / float(np.abs(cpu_cube).max())
+    log(f"  mpsnr {[round(v, 4) for v in hist['mpsnr']]} (CPU {[round(v, 4) for v in cpu_hist['mpsnr']]}, "
+        f"{time.perf_counter() - t0:.2f} s), per step {[round(v * 1e3, 2) for v in hist['seconds']]} ms; "
+        f"card vs CPU max|dX|/max|X| = {err:.3e} (limit {SOLVE_MATCH})")
+    if not err < SOLVE_MATCH:
+        raise AssertionError("the card's lrs_pnp solve disagrees with the CPU's")
+
+    dip_ms = {"dip (skip-128 f32)": f32_dip_ms}
+    for variant, net, bf16 in (("dip_1lip", "Lipschitz U-Net f32", False), ("dip_fast", "skip-128 bf16", True)):
+        log(f"[paths] inpaint(variant={variant!r}, n_iters=2), DIP fit capped at {DIP_CAP}")
+        (cube, hist), wall = drive(variant, lambda: port.inpaint(
+            sample.noisy, sample.mask, variant=variant, clean=sample.clean, n_iters=2, **capped(variant)),
+            launches=2, nB=144, bf16=bf16)
+        by_path[variant] = ISTA_KERNEL.launches
+        step_report(variant, hist, wall)
+        check_recovery(variant, cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
+        b1 = timing["bfloat16" if bf16 else "float32"]["ms"]
+        dip_ms[f"{variant} ({net})"] = (hist["seconds"][1] * 1e3 - b1) / max(hist["dip_iters"][1], 1)
+        log(f"  mpsnr {[round(v, 4) for v in hist['mpsnr']]}, per step {[round(v, 3) for v in hist['seconds']]} s")
+    log("  ms per DIP iteration in each path's second outer step (wall less B1, over the iterations): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in dip_ms.items()))
+
+    log(f"[paths] inpaint(variant='dip_tuned', seeds=[0, 1], n_iters=2), DIP fit capped at {DIP_CAP}")
+    (cube, hist), wall = drive("dip_tuned ensemble", lambda: port.inpaint(
+        sample.noisy, sample.mask, variant="dip_tuned", clean=sample.clean, n_iters=2, seeds=[0, 1],
+        **capped("dip_tuned")), launches=2, nB=288)
+    by_path["dip_tuned_seeds"] = ISTA_KERNEL.launches
+    step_report("dip_tuned, 2 seeds", hist, wall)
+    if hist["mpsnr"].shape != (2, 2) or hist["ens_mpsnr"].shape != (2,) or not np.isfinite(hist["ens_mpsnr"]).all():
+        raise AssertionError(f"ensemble history: mpsnr {hist['mpsnr'].shape}, ens_mpsnr {hist['ens_mpsnr']}")
+    check_recovery("dip_tuned ensemble", cube, (36, 36, 128), float(hist["ens_mpsnr"][-1]), input_mpsnr)
+    log(f"  per-seed mpsnr {hist['mpsnr'].round(4).tolist()}, ens_mpsnr {hist['ens_mpsnr'].round(4).tolist()}")
+
+    log("[paths] inpaint_scene(variant='lrs_pnp', tile_batch=4) on synthetic_sample(72, 72, 128, seed=2), card and CPU")
+    scene = synthetic_sample(72, 72, 128, seed=2)
+    scene_in = float(mpsnr(torch.from_numpy(scene.clean), torch.from_numpy(scene.noisy)))
+    rec, wall = drive("inpaint_scene", lambda: port.inpaint_scene(
+        scene.noisy, scene.mask, variant="lrs_pnp", tile_batch=4), launches=2, nB=576)
+    by_path["inpaint_scene"] = ISTA_KERNEL.launches
+    scene_out = float(mpsnr(torch.from_numpy(scene.clean), torch.from_numpy(rec)))
+    check_recovery("inpaint_scene", rec, (72, 72, 128), scene_out, scene_in)
+    cpu_rec = port.inpaint_scene(scene.noisy, scene.mask, variant="lrs_pnp", tile_batch=4, device="cpu")
+    err = float(np.abs(rec - cpu_rec).max()) / float(np.abs(cpu_rec).max())
+    log(f"  scene: wall {wall:.2f} s, mpsnr {scene_in:.4f} -> {scene_out:.4f}, B1 launches "
+        f"{ISTA_KERNEL.launches} (nB {ISTA_KERNEL.last_plan.nB}); card vs CPU max|dX|/max|X| = {err:.3e} "
+        f"(limit {SOLVE_MATCH})")
+    if not err < SOLVE_MATCH:
+        raise AssertionError("the card's scene disagrees with the CPU's")
+
+    log("[paths] one concatenated launch of B1 against per-lane launches, nB 576 = 4 x 144")
+    lanes = [main] + [problem(36, 36, seed, D_np) for seed in (1, 2, 3)]
+    cat = tuple(torch.cat([lane[i] for lane in lanes]) for i in (0, 1)) + (D, torch.cat([lane[3] for lane in lanes]))
+    for mm in ("float32", "bfloat16"):
+        cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
+        whole = pnp_ista_blocks_fused(*cat[:3], cfg, alpha=cat[3])
+        parts = torch.cat([pnp_ista_blocks_fused(*lane[:3], cfg, alpha=lane[3]) for lane in lanes])
+        delta, scale = float((whole - parts).abs().max()), float(parts.abs().max())
+        log(f"  {mm:9s} max|delta|={delta:.3e} max|ref|={scale:.3e}")
+        if mm == "float32":
+            torch.testing.assert_close(whole, parts, **F32_TOL)
+        elif not delta < BF16_MATCH * scale:
+            raise AssertionError(f"bf16: concatenated vs per-lane {delta:.3g} >= {BF16_MATCH} * {scale:.3g}")
+        # B1 against the plain loop at the shapes and settings the engines'
+        # launches have: nB 288 (the two seeds of dip_tuned: 100 iterations,
+        # trace4) and nB 576 (at the dip settings, and at lrs_pnp's, which
+        # the four-tile scene launches)
+        half = tuple(t[:288] for t in cat[:2]) + (D, cat[3][:288])
+        check_kernel(*half, mm)
+        check_kernel(*cat, mm)
+        sharp_alpha = compute_alpha(D, cat[1], SparseProxConfig(**lrs_pnp))
+        check_kernel(*cat[:3], sharp_alpha, mm, bf16_match=BF16_MATCH_SHARP, **lrs_pnp)
+        k_ms = time_cuda(lambda: pnp_ista_blocks_fused(*cat[:3], cfg, alpha=cat[3]), reps=5)
+        h_ms = time_cuda(lambda: pnp_ista_blocks_fused(*half[:3], cfg, alpha=half[3]), reps=5)
+        log(f"  {mm:9s} B1 at nB 288: {h_ms:.4f} ms (bound {bound_ms(288, P, K, n_iter, mm, peaks)[0]:.4f}); "
+            f"at nB 576: {k_ms:.4f} ms (bound {bound_ms(576, P, K, n_iter, mm, peaks)[0]:.4f}); card {smi}")
+    Z = torch.from_numpy(scene.noisy).cuda().reshape(4, 1296, 128)
+    log(f"  SVT (svt_gram, tau 1/0.9) of one (1296, 128) iterate: {time_cuda(lambda: svt_gram(Z[0], 1 / 0.9)):.4f} ms; "
+        f"of 4 in one batched eigh: {time_cuda(lambda: svt_gram(Z, 1 / 0.9)):.4f} ms")
+
+    # 6. report
     t = timing["float32"]
     kernels = [{
         "name": "pnp_ista_fused",
         "route": "cuda",
         "source": "lrs_pnp_dip_tpu_torch/csrc/ista.cu",
         "replaces": "lrs_pnp_dip_tpu/ops/ista_pallas.py:179",
-        "launches": launches,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": main_err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

@@ -7,11 +7,12 @@ ADMM-style outer loop.  The JAX package ``lrs_pnp_dip_tpu`` is the
 reference; this package imports nothing of it and nothing of JAX.
 
 Layout mirrors the JAX package:
-  data/      canonical HSI layout, masks, the shipped dictionary
-  ops/       blocks, PnP-ISTA (plain and the CUDA kernel), NLM,
+  data/      canonical HSI layout, masks, the shipped dictionary, tile streaming
+  ops/       blocks, PnP-ISTA (plain and the CUDA kernel), NLM, SVT,
              data fidelity, metrics (PSNR/SSIM)
-  models/    the skip DIP net and the flax weight transplant
-  solvers/   the ADMM engine, DIP trainer, early stopping
+  models/    the skip and Lipschitz DIP nets and the flax weight transplant
+  solvers/   the ADMM engine, DIP trainer, early stopping, the lockstep
+             (batched, seed-ensemble) engines and tiled scenes
   utils/     config presets, device selection
   csrc/      hand-written CUDA kernels, built with nvcc at first use
 """

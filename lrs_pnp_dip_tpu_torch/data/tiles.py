@@ -1,0 +1,94 @@
+"""Tiled-cube data pipeline for large hyperspectral scenes (counterpart of
+``lrs_pnp_dip_tpu/data/tiles.py``).
+
+  * ``tile_origins``: the tile grid, with the block grid's rule that the last
+    row/column of tiles is pulled in so every pixel is covered;
+  * ``TileLoader``: a double-buffered iterator over tile batches: while batch
+    k is being solved, batch k+1 is sliced out on a background thread;
+  * ``mmap_cube``: zero-copy load of an ``.npy`` cube.
+
+The tiles are sliced with numpy; the JAX package's C++ extractor is not
+ported (ROADMAP Queue A, item 14).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+
+def tile_origins(
+    height: int, width: int, tile_h: int, tile_w: int,
+    stride_h: Optional[int] = None, stride_w: Optional[int] = None,
+) -> np.ndarray:
+    """(N, 2) array of (h0, w0) origins covering the scene; the final
+    row/col of tiles is pulled in so every pixel is covered."""
+
+    def starts(extent, size, stride):
+        stride = stride or size
+        s = list(range(0, extent - size + 1, stride))
+        if not s or s[-1] != extent - size:
+            s.append(extent - size)
+        return s
+
+    hs = starts(height, tile_h, stride_h)
+    ws = starts(width, tile_w, stride_w)
+    return np.asarray([(h, w) for h in hs for w in ws], dtype=np.int32)
+
+
+def mmap_cube(path: str) -> np.ndarray:
+    """Memory-map a .npy (H, W, B) float32 cube."""
+    return np.load(path, mmap_mode="r")
+
+
+def _extract_batch_numpy(cube, origins, th, tw):
+    out = np.empty((len(origins), th, tw, cube.shape[2]), np.float32)
+    for i, (h0, w0) in enumerate(origins):
+        out[i] = cube[h0 : h0 + th, w0 : w0 + tw, :]
+    return out
+
+
+class TileLoader:
+    """Double-buffered tile-batch iterator: while batch k is being consumed
+    (by the solver, say), batch k+1 is extracted on a background thread.
+    The thread lives for one pass of :meth:`batches`."""
+
+    def __init__(
+        self,
+        cube: np.ndarray,
+        tile_shape: Tuple[int, int],
+        batch_size: int = 8,
+        stride: Optional[Tuple[int, int]] = None,
+    ):
+        self.cube = cube
+        self.th, self.tw = tile_shape
+        self.batch_size = batch_size
+        sh, sw = stride or (None, None)
+        self.origins = tile_origins(cube.shape[0], cube.shape[1], self.th, self.tw, sh, sw)
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self.origins)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        return self.batches()
+
+    def batches(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield (tiles, origins) with background prefetch."""
+        batch_list = [
+            self.origins[i : i + self.batch_size]
+            for i in range(0, len(self.origins), self.batch_size)
+        ]
+        if not batch_list:
+            return
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            future = pool.submit(_extract_batch_numpy, self.cube, batch_list[0], self.th, self.tw)
+            for j, origins in enumerate(batch_list):
+                cur = future.result()
+                if j + 1 < len(batch_list):
+                    future = pool.submit(
+                        _extract_batch_numpy, self.cube, batch_list[j + 1], self.th, self.tw
+                    )
+                yield cur, origins

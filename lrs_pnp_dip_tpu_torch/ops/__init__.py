@@ -4,7 +4,9 @@ from .ista import compute_alpha, pnp_ista_blocks, pnp_ista_blocks_fused, sparse_
 from .ista_cuda import ISTA_KERNEL
 from .metrics import batch_mpsnr, mpsnr, psnr_ref
 from .nlm import nlm_column_batch_fast
+from .shrinkage import soft_threshold
 from .ssim import ssim
+from .svt import singular_energy_ratio, singular_values_gram, svt, svt_gram
 
 __all__ = [
     "BlockGrid",
@@ -21,6 +23,11 @@ __all__ = [
     "pnp_ista_blocks_fused",
     "psnr_ref",
     "scatter_blocks",
+    "singular_energy_ratio",
+    "singular_values_gram",
+    "soft_threshold",
     "sparse_prox",
     "ssim",
+    "svt",
+    "svt_gram",
 ]

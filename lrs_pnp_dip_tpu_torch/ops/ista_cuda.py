@@ -180,7 +180,8 @@ class FusedIstaKernel:
     """Builds, loads and launches ``csrc/ista.cu``.
 
     ``launches`` counts the launches of the fused loop: one per call that
-    reaches the kernel, and nothing else adds to it."""
+    reaches the kernel, and nothing else adds to it.  ``last_plan`` is the
+    tiling of the latest launch."""
 
     source = _CSRC / "ista.cu"
     build_dir = _CSRC / "build"
@@ -188,6 +189,7 @@ class FusedIstaKernel:
     def __init__(self, extra_flags: tuple = ()):
         self.flags = _NVCC_FLAGS + tuple(extra_flags)
         self.launches = 0
+        self.last_plan: Optional[IstaPlan] = None
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._resident: dict = {}
@@ -293,6 +295,7 @@ class FusedIstaKernel:
                 f"of {plan.cluster_size} CTAs with {plan.smem_bytes} B of shared memory each"
             )
         self.launches += 1
+        self.last_plan = plan
         return out
 
 

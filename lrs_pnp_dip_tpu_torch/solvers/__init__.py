@@ -1,4 +1,5 @@
 from .admm import (
+    OuterStages,
     ProblemConsts,
     Solver,
     SolverDiverged,
@@ -7,22 +8,39 @@ from .admm import (
     build_step,
     init_state,
     make_consts,
+    solve,
+)
+from .batch import (
+    BatchedSolver,
+    SeedEnsembleSolver,
+    build_lockstep_step,
+    stack_consts,
+    stack_states,
 )
 from .dip import DipResult, make_dip_fit
 from .early_stop import EarlyStopState, init_early_stop, update_early_stop
+from .tiled import solve_tiled
 
 __all__ = [
+    "BatchedSolver",
     "DipResult",
     "EarlyStopState",
+    "OuterStages",
     "ProblemConsts",
+    "SeedEnsembleSolver",
     "Solver",
     "SolverDiverged",
     "SolverState",
     "StepAux",
+    "build_lockstep_step",
     "build_step",
     "init_early_stop",
     "init_state",
     "make_consts",
     "make_dip_fit",
+    "solve",
+    "solve_tiled",
+    "stack_consts",
+    "stack_states",
     "update_early_stop",
 ]

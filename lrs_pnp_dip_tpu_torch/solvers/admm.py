@@ -1,16 +1,19 @@
 """The ADMM-style outer solver (counterpart of ``lrs_pnp_dip_tpu/solvers/admm.py``).
 
-Per outer iteration (``main_LRS_PnP_DIP_pro.py:355-528``):
+Per outer iteration (``main_LRS_PnP_DIP_pro.py:355-528``,
+``main_LRS_PnP.py:250-366``, ``main_LRS_PnP_DIP_1-LiP.py:347-520``):
 
   1. sparse prox:   blocks(X + l1/mu1) -> per-block PnP-ISTA -> Phi_z
-  2. DIP prox:      U = DIP-train(target=noisy, input=X + l2/mu2)
+  2. low-rank prox: U = SVT(X + l2/mu2, 1/mu2)                      (lrs_pnp)
+                    U = DIP-train(target=noisy, input=X + l2/mu2)   (dip, dip_1lip)
   3. closed-form X update (mask-aware data fidelity)
   4. dual updates l1 += mu1(X - IMout), l2 += mu2(X - U)
   5. diagnostics: MPSNR, SSIM, log||state - prev||
 
-Only ``variant='dip'`` is ported; ``lrs_pnp`` (SVT) and ``dip_1lip`` are
-ROADMAP Queue A items 8 and 9.  ``run_scanned`` has no counterpart: the
-port steps the outer loop from Python.
+:class:`OuterStages` holds those stages for one problem geometry;
+:func:`build_step` strings them into the single-problem step and
+:mod:`.batch` into the lockstep step of several problems.  ``run_scanned``
+has no counterpart: the port steps the outer loop from Python.
 """
 
 from __future__ import annotations
@@ -22,12 +25,13 @@ import numpy as np
 import torch
 
 from ..data.io import HsiSample
-from ..models import dip_skip_128
+from ..models import LipschitzUNet, dip_skip_128, get_net
 from ..ops.blocks import block_grid, extract_blocks, scatter_blocks
 from ..ops.fidelity import data_fidelity_update, dual_updates
 from ..ops.ista import compute_alpha, sparse_prox
 from ..ops.metrics import mpsnr
 from ..ops.ssim import ssim
+from ..ops.svt import svt_gram
 from ..utils.config import SolverConfig
 from ..utils.device import resolve_device
 from .dip import make_dip_fit
@@ -39,7 +43,7 @@ class SolverState(NamedTuple):
     X: torch.Tensor  # (P, B) current estimate
     lambda1: torch.Tensor  # (P, B) sparsity dual
     lambda2: torch.Tensor  # (P, B) low-rank dual
-    generator: torch.Generator  # draws the fresh DIP init of each step
+    generator: torch.Generator  # draws each step's fresh DIP init (and noise input)
     itr: int  # outer iteration counter
 
 
@@ -64,9 +68,9 @@ class StepAux(NamedTuple):
     x_dist: torch.Tensor  # log||X - X_prev||
     l1_dist: torch.Tensor
     l2_dist: torch.Tensor
-    dip_iters: int  # DIP iterations run
+    dip_iters: int  # DIP iterations run (0 for lrs_pnp)
     dip_loss: torch.Tensor
-    U: torch.Tensor  # DIP prox output
+    U: torch.Tensor  # low-rank / DIP prox output
     phi_scatter: torch.Tensor  # sparse-prox image
 
 
@@ -79,85 +83,130 @@ class SolverDiverged(RuntimeError):
 
 
 def default_net(config: SolverConfig, n_bands: int):
-    """skip-128, the `dip` variant's net."""
+    """The variant's DIP net: skip-128 for `dip`, the Lipschitz U-Net for
+    `dip_1lip`, ``get_net(config.dip_net)`` when one is named, None for
+    `lrs_pnp`."""
     if config.dip_net != "default":
-        raise NotImplementedError(
-            f"dip_net={config.dip_net!r} is not ported yet (ROADMAP Queue A, item 14)"
-        )
-    return dip_skip_128(num_channels=n_bands)
-
-
-def _check_variant(config: SolverConfig) -> None:
-    if config.variant == "lrs_pnp":
-        raise NotImplementedError(
-            "variant='lrs_pnp' (SVT prox) is not ported yet (ROADMAP Queue A, item 8)"
-        )
+        return get_net(n_bands, config.dip_net, pad="reflection", n_channels=n_bands)
+    if config.variant == "dip":
+        return dip_skip_128(num_channels=n_bands)
     if config.variant == "dip_1lip":
-        raise NotImplementedError(
-            "variant='dip_1lip' is not ported yet (ROADMAP Queue A, item 9)"
+        return LipschitzUNet(
+            n_bands,
+            num_output_channels=n_bands,
+            width=config.net_width,
+            ln_lambda=config.ln_lambda,
+            sn_mode=config.sn_mode,
         )
-    if config.variant != "dip":
-        raise ValueError(f"unknown variant {config.variant!r}")
+    return None
 
 
-def build_step(
-    config: SolverConfig,
-    image_shape: tuple,  # (H, W, B)
-    net=None,
-    dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
-    device="cuda",
-) -> Callable[[SolverState, ProblemConsts], tuple]:
-    """Build the outer-step function ``step(state, consts) -> (state, aux)``.
+class OuterStages:
+    """The stages of one outer step for one problem geometry.
 
-    ``net`` replaces the default skip-128 DIP net; ``dip_init(itr)``, when
-    given, returns the state dict each outer step's DIP fit starts from
-    (else the net is re-drawn from ``state.generator``)."""
-    _check_variant(config)
-    device = resolve_device(device)
-    cfg = config
-    if cfg.dip.input_mode != "iterate":
-        raise NotImplementedError(
-            "DipConfig.input_mode='noise' is not ported yet (ROADMAP Queue A, item 10)"
-        )
-    h, w, b = image_shape
-    grid = block_grid((h * w, b), cfg.block_size, cfg.stride)
-    net = (net or default_net(cfg, b)).to(device)
-    dip_fit = make_dip_fit(net, cfg.dip)
+    ``net`` replaces the variant's default DIP net; ``svt_fn(Z, tau)``
+    replaces :func:`..ops.svt.svt_gram`; ``dip_init(itr)``, when given,
+    returns the state dict each outer step's DIP fit starts from (else the
+    net is re-drawn from ``state.generator``)."""
 
-    def step(state: SolverState, consts: ProblemConsts):
-        # 1. sparse-coding prox over blocks
-        blocks = extract_blocks(state.X + state.lambda1 / cfg.mu1, grid)
-        phi = sparse_prox(blocks, consts.mask_blocks, consts.D, cfg.sparse, alpha=consts.alpha)
-        # 2. DIP prox, input = the iterate X + lambda2 / mu2
+    def __init__(
+        self,
+        config: SolverConfig,
+        image_shape: tuple,  # (H, W, B)
+        net=None,
+        svt_fn: Optional[Callable] = None,
+        dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.config = cfg = config
+        self.image_shape = h, w, b = tuple(image_shape)
+        self.grid = block_grid((h * w, b), cfg.block_size, cfg.stride)
+        self.svt_fn = svt_fn or svt_gram
+        self.dip_init = dip_init
+        self.dip_fit = None
+        if cfg.variant in ("dip", "dip_1lip"):
+            if cfg.dip.input_mode not in ("iterate", "noise"):
+                raise ValueError(
+                    f"DipConfig.input_mode must be 'iterate' or 'noise', "
+                    f"got {cfg.dip.input_mode!r}"
+                )
+            net = (net or default_net(cfg, b)).to(self.device)
+            self.dip_fit = make_dip_fit(net, cfg.dip)
+        elif cfg.variant != "lrs_pnp":
+            raise ValueError(f"unknown variant {cfg.variant!r}")
+
+    def sparse_blocks(self, state: SolverState) -> torch.Tensor:
+        """The sparse prox's target blocks (nB, bb*bb)."""
+        return extract_blocks(state.X + state.lambda1 / self.config.mu1, self.grid)
+
+    def svt(self, Z: torch.Tensor) -> torch.Tensor:
+        """The `lrs_pnp` low-rank prox; takes a leading batch axis."""
+        return self.svt_fn(Z, 1.0 / self.config.mu2)
+
+    def low_rank(self, state: SolverState, consts: ProblemConsts):
+        """The low-rank / DIP prox: (U, dip_iters, dip_loss).  The DIP fit
+        takes one problem; the `lrs_pnp` SVT also takes a stacked state (a
+        leading lane axis), as one batched ``eigh``."""
+        cfg = self.config
+        h, w, b = self.image_shape
         Z = state.X + state.lambda2 / cfg.mu2
-        res = dip_fit(
-            Z.reshape(1, h, w, b), consts.dip_target, consts.dip_mask,
-            init=None if dip_init is None else dip_init(state.itr),
+        if self.dip_fit is None:
+            return self.svt(Z), 0, torch.zeros((), dtype=torch.float32, device=Z.device)
+        if cfg.dip.input_mode == "noise":
+            dip_input = cfg.dip.noise_var * torch.rand(
+                (1, h, w, b), generator=state.generator, device=Z.device
+            )
+        else:
+            dip_input = Z.reshape(1, h, w, b)
+        res = self.dip_fit(
+            dip_input, consts.dip_target, consts.dip_mask,
+            init=None if self.dip_init is None else self.dip_init(state.itr),
             generator=state.generator,
         )
-        U = res.out.reshape(h * w, b)
-        # 3. closed-form X
+        return res.out.reshape(h * w, b), res.n_iters, res.loss
+
+    def finish(self, state: SolverState, consts: ProblemConsts, phi, U, dip_iters, dip_loss):
+        """Stages 3 to 5 from the two prox outputs: (new_state, aux)."""
+        cfg, grid = self.config, self.grid
         X, im_out = data_fidelity_update(
             consts.Y, consts.mask2d, phi, U, state.lambda1, state.lambda2,
             grid, cfg.gamma, cfg.mu1, cfg.mu2,
         )
-        # 4. duals
         l1, l2 = dual_updates(state.lambda1, state.lambda2, X, im_out, U, cfg.mu1, cfg.mu2)
-        # 5. diagnostics
-        cube = X.reshape(h, w, b)
+        cube = X.reshape(self.image_shape)
         aux = StepAux(
             mpsnr=mpsnr(consts.clean, cube),
             ssim=ssim(consts.clean, cube),
             x_dist=_log_dist(X, state.X),
             l1_dist=_log_dist(l1, state.lambda1),
             l2_dist=_log_dist(l2, state.lambda2),
-            dip_iters=res.n_iters,
-            dip_loss=res.loss,
+            dip_iters=dip_iters,
+            dip_loss=dip_loss,
             U=U,
             phi_scatter=scatter_blocks(phi, grid) / grid.weight(X.device),
         )
-        new_state = SolverState(X, l1, l2, state.generator, state.itr + 1)
-        return new_state, aux
+        return SolverState(X, l1, l2, state.generator, state.itr + 1), aux
+
+
+def build_step(
+    config: SolverConfig,
+    image_shape: tuple,  # (H, W, B)
+    net=None,
+    svt_fn: Optional[Callable] = None,
+    dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
+    device="cuda",
+) -> Callable[[SolverState, ProblemConsts], tuple]:
+    """Build the outer-step function ``step(state, consts) -> (state, aux)``
+    of one problem; the arguments are :class:`OuterStages`'s."""
+    stages = OuterStages(config, image_shape, net, svt_fn, dip_init, device)
+
+    def step(state: SolverState, consts: ProblemConsts):
+        phi = sparse_prox(
+            stages.sparse_blocks(state), consts.mask_blocks, consts.D,
+            config.sparse, alpha=consts.alpha,
+        )
+        return stages.finish(state, consts, phi, *stages.low_rank(state, consts))
 
     return step
 
@@ -212,7 +261,7 @@ def init_state(sample_or_Y, seed: int = 0, device="cuda") -> SolverState:
 
 
 class Solver:
-    """Single-problem LRS-PnP-DIP engine.  Runs on ``device`` ('cuda' by
+    """Single-problem LRS-PnP / LRS-PnP-DIP / LRS-PnP-DIP(1-Lip) engine.  Runs on ``device`` ('cuda' by
     default; raises without a card unless ``device='cpu'``)."""
 
     def __init__(
@@ -223,13 +272,15 @@ class Solver:
         net=None,
         device="cuda",
         dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
+        svt_fn: Optional[Callable] = None,
     ):
         self.device = resolve_device(device)
         self.sample = sample
         self.config = config
         self.height, self.width, self.n_bands = sample.shape
         self._step = build_step(
-            config, sample.shape, net=net, dip_init=dip_init, device=self.device
+            config, sample.shape, net=net, svt_fn=svt_fn, dip_init=dip_init,
+            device=self.device,
         )
         self.consts = make_consts(sample, dictionary, config, device=self.device)
 
@@ -264,7 +315,9 @@ class Solver:
                 hist[k].append(float(getattr(aux, k)))
             hist["seconds"].append(time.perf_counter() - t0)
             # x_dist is log||dX||: NaN/+inf means a non-finite iterate, -inf
-            # an exactly stalled one, which a healthy DIP step never gives
+            # an exactly stalled one, which a healthy DIP step never gives and
+            # the deterministic lrs_pnp only at a degenerate fixed point
+            # (an all-zero X, say)
             if not np.isfinite(hist["x_dist"][-1]):
                 kind = (
                     "exactly-stalled (||dX|| == 0)"
@@ -286,3 +339,17 @@ class Solver:
 
     def result_cube(self, state: SolverState) -> np.ndarray:
         return state.X.detach().cpu().numpy().reshape(self.height, self.width, self.n_bands)
+
+
+def solve(
+    sample: HsiSample,
+    dictionary: np.ndarray,
+    config: SolverConfig,
+    n_iters: Optional[int] = None,
+    callback=None,
+    device="cuda",
+):
+    """One-call solve.  Returns (cube, history)."""
+    solver = Solver(sample, dictionary, config, device=device)
+    state, hist = solver.run(n_iters=n_iters, callback=callback)
+    return solver.result_cube(state), hist

@@ -1,0 +1,251 @@
+"""Lockstep engines: several same-shaped problems, or one problem under
+several seeds, advancing one outer step at a time (counterpart of
+``lrs_pnp_dip_tpu/solvers/batch.py``, which ``vmap``s the step).
+
+How the lanes are batched here:
+
+  * the sparse prox of all lanes is ONE call of :func:`..ops.ista.sparse_prox`
+    (one launch of kernel B1 on the card): the lanes' blocks, masks and step
+    sizes are concatenated to ``(N * nB, P)`` against the one dictionary,
+    which is kept once, not N times;
+  * the SVT of all `lrs_pnp` lanes is one batched ``eigh``;
+  * the DIP fits run lane by lane, each from its own generator with its own
+    Adam and its own early stop: what ``while_loop`` under ``vmap`` computes,
+    without the finished lanes idling;
+  * the data-fidelity update, the duals and the metrics are looped over the
+    lanes through the single-problem stage.
+
+A stacked :class:`SolverState` holds ``X``, ``lambda1``, ``lambda2`` as
+``(N, P, B)`` and a tuple of N generators; a stacked :class:`ProblemConsts`
+holds every field with a leading lane axis except ``D``.  ``run_scanned``
+has no counterpart, as for :class:`Solver`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..data.io import HsiSample
+from ..ops.ista import sparse_prox
+from ..ops.metrics import mpsnr
+from ..ops.ssim import ssim
+from ..utils.config import SolverConfig
+from ..utils.device import resolve_device
+from .admm import OuterStages, ProblemConsts, SolverState, StepAux, init_state, make_consts
+
+
+def stack_consts(consts: Sequence[ProblemConsts]) -> ProblemConsts:
+    """Stack per-lane constants; the dictionary (the first lane's) is kept once."""
+    fields = {
+        name: torch.stack([getattr(c, name) for c in consts])
+        for name in ProblemConsts._fields if name != "D"
+    }
+    return ProblemConsts(D=consts[0].D, **fields)
+
+
+def stack_states(states: Sequence[SolverState]) -> SolverState:
+    return SolverState(
+        X=torch.stack([s.X for s in states]),
+        lambda1=torch.stack([s.lambda1 for s in states]),
+        lambda2=torch.stack([s.lambda2 for s in states]),
+        generator=tuple(s.generator for s in states),
+        itr=states[0].itr,
+    )
+
+
+def _lane_state(state: SolverState, i: int) -> SolverState:
+    return SolverState(
+        state.X[i], state.lambda1[i], state.lambda2[i], state.generator[i], state.itr
+    )
+
+
+def _lane_consts(consts: ProblemConsts, i: int) -> ProblemConsts:
+    return ProblemConsts(
+        D=consts.D, **{n: getattr(consts, n)[i] for n in ProblemConsts._fields if n != "D"}
+    )
+
+
+def build_lockstep_step(
+    config: SolverConfig,
+    image_shape: tuple,  # (H, W, B)
+    net=None,
+    svt_fn: Optional[Callable] = None,
+    dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
+    device="cuda",
+) -> Callable[[SolverState, ProblemConsts], tuple]:
+    """Build ``step(state, consts) -> (state, aux)`` over stacked lanes (any
+    number of them: the step reads it off the state).  ``aux`` holds each
+    tensor field of :class:`StepAux` stacked and ``dip_iters`` as a list."""
+    stages = OuterStages(config, image_shape, net, svt_fn, dip_init, device)
+
+    def step(state: SolverState, consts: ProblemConsts):
+        n_lanes = state.X.shape[0]
+        lanes = [(_lane_state(state, i), _lane_consts(consts, i)) for i in range(n_lanes)]
+        # 1. one sparse prox over the blocks of every lane
+        blocks = torch.cat([stages.sparse_blocks(s) for s, _ in lanes])
+        phi = sparse_prox(
+            blocks, consts.mask_blocks.flatten(0, 1), consts.D, config.sparse,
+            alpha=consts.alpha.flatten(),
+        ).reshape(n_lanes, -1, blocks.shape[1])
+        # 2. low-rank prox: one batched SVT, or the DIP fits lane by lane
+        if stages.dip_fit is None:
+            U, no_iters, no_loss = stages.low_rank(state, consts)
+            low_rank = [(U[i], no_iters, no_loss) for i in range(n_lanes)]
+        else:
+            low_rank = [stages.low_rank(s, c) for s, c in lanes]
+        # 3-5. per lane
+        done = [stages.finish(s, c, phi[i], *low_rank[i]) for i, (s, c) in enumerate(lanes)]
+        aux = StepAux(*(
+            [a[k] for _, a in done] if name == "dip_iters"
+            else torch.stack([a[k] for _, a in done])
+            for k, name in enumerate(StepAux._fields)
+        ))
+        return stack_states([s for s, _ in done]), aux
+
+    return step
+
+
+def _run(step, state, n: int, callback=None):
+    """Step ``n`` times; per-lane histories as (n, n_lanes) arrays."""
+    hist = {k: [] for k in ("mpsnr", "ssim", "dip_iters")}
+    for i in range(n):
+        state, aux = step(state)
+        hist["mpsnr"].append(aux.mpsnr.detach().cpu().numpy())
+        hist["ssim"].append(aux.ssim.detach().cpu().numpy())
+        hist["dip_iters"].append(np.asarray(aux.dip_iters, np.int32))
+        if callback is not None:
+            callback(i, state, aux)
+    return state, {k: np.stack(v) for k, v in hist.items()}
+
+
+class _LockstepEngine:
+    """What the two engines share: the device, the lockstep step over
+    ``self.consts`` and the host-stepped run.  A subclass sets ``consts`` and
+    defines ``init_state()``."""
+
+    def __init__(self, config: SolverConfig, shape: tuple, net, device, dip_init):
+        self.device = resolve_device(device)
+        self.config = config
+        self.shape = shape
+        self._step = build_lockstep_step(
+            config, shape, net=net, dip_init=dip_init, device=self.device
+        )
+
+    def step(self, state: SolverState):
+        return self._step(state, self.consts)
+
+    def run(self, n_iters: Optional[int] = None, state=None, callback=None):
+        """Returns (final_state, hist) with ``mpsnr``, ``ssim`` and
+        ``dip_iters`` of shape (n_iters, n_lanes)."""
+        n = self.config.outer_iters if n_iters is None else n_iters
+        state = self.init_state() if state is None else state
+        return _run(self.step, state, n, callback=callback)
+
+
+class BatchedSolver(_LockstepEngine):
+    """Solve N same-shaped problems in lockstep.  Lane i is seeded with
+    ``seed + i``.  Runs on ``device`` ('cuda' by default; raises without a
+    card unless ``device='cpu'``)."""
+
+    def __init__(
+        self,
+        samples: Sequence[HsiSample],
+        dictionary: np.ndarray,
+        config: SolverConfig,
+        net=None,
+        device="cuda",
+        dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
+    ):
+        shapes = {s.shape for s in samples}
+        if len(shapes) != 1:
+            raise ValueError(f"all samples must share a shape, got {shapes}")
+        super().__init__(config, samples[0].shape, net, device, dip_init)
+        self.samples = list(samples)
+        self.consts = stack_consts(
+            [make_consts(s, dictionary, config, device=self.device) for s in samples]
+        )
+
+    def init_state(self, seed: Optional[int] = None) -> SolverState:
+        seed = self.config.seed if seed is None else seed
+        return stack_states(
+            [init_state(s, seed + i, device=self.device) for i, s in enumerate(self.samples)]
+        )
+
+    def result_cubes(self, state: SolverState) -> np.ndarray:
+        h, w, b = self.shape
+        return state.X.detach().cpu().numpy().reshape(-1, h, w, b)
+
+
+class SeedEnsembleSolver(_LockstepEngine):
+    """Solve ONE problem under N independent seeds in lockstep.
+
+    The DIP variants are stochastic (a fresh net every outer iteration,
+    reference ``main_LRS_PnP_DIP_pro.py:215-221``), so production recovery
+    wants the seed spread, or the cube averaged over the seeds, not a single
+    draw.  The problem constants are built once and shared by the lanes."""
+
+    def __init__(
+        self,
+        sample: HsiSample,
+        dictionary: np.ndarray,
+        config: SolverConfig,
+        seeds: Sequence[int],
+        net=None,
+        device="cuda",
+        dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
+    ):
+        if not seeds:
+            raise ValueError("need at least one seed")
+        super().__init__(config, sample.shape, net, device, dip_init)
+        self.sample = sample
+        self.seeds = list(seeds)
+        one = make_consts(sample, dictionary, config, device=self.device)
+        # every lane views the one copy (a lane axis of stride 0)
+        self.consts = ProblemConsts(D=one.D, **{
+            name: getattr(one, name).expand(len(self.seeds), *getattr(one, name).shape)
+            for name in ProblemConsts._fields if name != "D"
+        })
+
+    def init_state(self) -> SolverState:
+        return stack_states(
+            [init_state(self.sample, s, device=self.device) for s in self.seeds]
+        )
+
+    def run(self, n_iters: Optional[int] = None, state=None):
+        """Returns (final_state, hist): per-seed ``mpsnr``, ``ssim`` and
+        ``dip_iters`` of shape (n_iters, n_seeds), and ``ens_mpsnr`` /
+        ``ens_ssim`` (n_iters,), the quality of the mean of the N seed
+        iterates at every iteration."""
+        clean = self.consts.clean[0]
+        ens = {"ens_mpsnr": [], "ens_ssim": []}
+
+        def ens_metrics(i: int, st: SolverState, aux: StepAux) -> None:
+            mean_cube = torch.mean(st.X, dim=0).reshape(self.shape)
+            ens["ens_mpsnr"].append(float(mpsnr(clean, mean_cube)))
+            ens["ens_ssim"].append(float(ssim(clean, mean_cube)))
+
+        state, hist = super().run(n_iters, state, callback=ens_metrics)
+        hist.update({k: np.asarray(v, np.float32) for k, v in ens.items()})
+        return state, hist
+
+    def run_chunked(self, n_iters: Optional[int] = None, state=None, chunk: int = 25):
+        """:meth:`run`.  The JAX package dispatches ``chunk`` iterations as
+        one scan; the port steps from the host, so the chunk length changes
+        nothing but is checked as there."""
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        return self.run(n_iters, state)
+
+    def spread(self, hist) -> dict:
+        """Per-seed best MPSNR + aggregate stats from a run's history."""
+        best = np.nanmax(np.asarray(hist["mpsnr"]), axis=0)  # (n_seeds,)
+        return {
+            "per_seed_best": best.tolist(),
+            "mean": float(np.mean(best)),
+            "std": float(np.std(best)),
+            "min": float(np.min(best)),
+            "max": float(np.max(best)),
+        }

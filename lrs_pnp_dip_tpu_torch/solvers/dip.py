@@ -12,6 +12,13 @@ and returned as ``last``, is the forward output computed *before* that
 iteration's Adam step; the early stop is checked when ``i % show_every ==
 0``.  ``torch.optim.Adam``'s defaults equal optax's (b1 0.9, b2 0.999,
 eps 1e-8, eps added after the bias-corrected square root).
+
+``compute_dtype='bfloat16'`` follows the JAX fit: a bf16 copy of the
+parameters and of the input goes through the whole net, batch-norm
+statistics included, the output is cast to f32 before the loss, and the
+master parameters and Adam's state stay f32 (the gradients arrive in f32
+through the cast).  ``torch.autocast`` would keep batch norm in f32 and
+choose types op by op, a different computation, so the cast is explicit.
 """
 
 from __future__ import annotations
@@ -50,11 +57,18 @@ def make_dip_fit(model: nn.Module, cfg: DipConfig = DipConfig()):
         raise ValueError(
             f"DipConfig.es_mode must be 'exact' or 'incremental', got {cfg.es_mode!r}"
         )
-    if cfg.es_mode == "incremental" or cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "es_mode='incremental' and compute_dtype='bfloat16' (the dip_fast "
-            "preset) are not ported yet (ROADMAP Queue A, item 10)"
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"DipConfig.compute_dtype must be 'float32' or 'bfloat16', "
+            f"got {cfg.compute_dtype!r}"
         )
+    bf16 = cfg.compute_dtype == "bfloat16"
+
+    def forward(net_input: torch.Tensor) -> torch.Tensor:
+        if not bf16:
+            return model(net_input)
+        cast = {name: p.to(torch.bfloat16) for name, p in model.named_parameters()}
+        return torch.func.functional_call(model, cast, (net_input,)).to(torch.float32)
 
     def fit(
         dip_input: torch.Tensor,
@@ -68,18 +82,26 @@ def make_dip_fit(model: nn.Module, cfg: DipConfig = DipConfig()):
         else:
             model.reset_parameters(generator)
         model.train()
-        opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
-        es = init_early_stop(cfg.buffer_size, target.numel(), device=target.device)
+        # a net without parameters (`get_net(..., "identity")`) has nothing to
+        # train: its constant output still goes through the early stop
+        params = list(model.parameters())
+        opt = torch.optim.Adam(params, lr=cfg.learning_rate) if params else None
+        es = init_early_stop(
+            cfg.buffer_size, target.numel(),
+            incremental=cfg.es_mode == "incremental", device=target.device,
+        )
         target_masked = target * mask
+        net_input = dip_input.to(torch.bfloat16) if bf16 else dip_input
         out = torch.zeros_like(target, dtype=torch.float32)
         loss = torch.tensor(math.inf, dtype=torch.float32, device=target.device)
         i = 0
         while not es.stop and i < cfg.num_iter:
-            pred = model(dip_input)
+            pred = forward(net_input)
             loss_t = torch.mean((target_masked - pred * mask) ** 2)
-            opt.zero_grad(set_to_none=True)
-            loss_t.backward()
-            opt.step()
+            if opt is not None:
+                opt.zero_grad(set_to_none=True)
+                loss_t.backward()
+                opt.step()
             out, loss = pred.detach(), loss_t.detach()
             if i % cfg.show_every == 0:
                 update_early_stop(es, out.reshape(-1), i, cfg.patience)

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where one outer step of the port's `dip` solve spends its time, on the card.
+"""Where one outer step of a preset of the port spends its time, on the card.
 
-    python scripts/profile_port_step.py [--dip-iters 100] [--trace-iters 40] [--trace-out FILE]
+    python scripts/profile_port_step.py [--variant dip] [--dip-iters 100] \\
+        [--trace-iters 40] [--trace-out FILE]
 
-At the reference size (synthetic_sample(36, 36, 128, seed=0), the shipped
-dictionary, skip-128, 144 blocks), after one warm-up step, it prints:
+``--variant`` is any preset that runs (`dip`, `dip_1lip`, `dip_fast`,
+`lrs_pnp`, ...).  At the reference size (synthetic_sample(36, 36, 128,
+seed=0), the shipped dictionary, the preset's own net, 144 blocks), after
+one warm-up step, it prints:
 
   * the wall time of one outer step with the DIP fit capped at
     ``--dip-iters`` iterations (the early stop may end it sooner);
-  * kernel B1's time (CUDA events) and the DIP fit's time per iteration;
-  * a torch.profiler table of ``--trace-iters`` DIP iterations: device time
-    and host time by operator, the device's busy share of the wall time;
+  * the sparse prox's time (CUDA events) and, for `lrs_pnp`, the SVT's;
+  * for a DIP preset, the fit's time per iteration and a torch.profiler
+    table of ``--trace-iters`` DIP iterations; for `lrs_pnp`, the same
+    table of one outer step: device time and host time by operator, the
+    device's busy share of the wall time;
 
 and, with ``--trace-out``, writes the Chrome trace there.  It needs a CUDA
 device and fails without one.
@@ -30,10 +35,10 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample  # noqa: E402
-from lrs_pnp_dip_tpu_torch.models import dip_skip_128  # noqa: E402
-from lrs_pnp_dip_tpu_torch.ops import block_grid, extract_blocks, sparse_prox  # noqa: E402
+from lrs_pnp_dip_tpu_torch.ops import block_grid, extract_blocks, sparse_prox, svt_gram  # noqa: E402
 from lrs_pnp_dip_tpu_torch.solvers import Solver, make_dip_fit  # noqa: E402
-from lrs_pnp_dip_tpu_torch.utils import dip_preset, resolve_device  # noqa: E402
+from lrs_pnp_dip_tpu_torch.solvers.admm import default_net  # noqa: E402
+from lrs_pnp_dip_tpu_torch.utils import PRESETS, resolve_device  # noqa: E402
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -49,6 +54,7 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", default="dip", choices=sorted(set(PRESETS) - {"matlab"}))
     ap.add_argument("--dip-iters", type=int, default=100)
     ap.add_argument("--trace-iters", type=int, default=40)
     ap.add_argument("--trace-out", default=None, help="Chrome trace file to write")
@@ -58,12 +64,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}")
+    print(f"card: {smi}; torch {torch.__version__}; variant {args.variant}")
 
     sample = synthetic_sample(36, 36, 128, seed=0)
     D = load_trained_dictionary(512)
-    base = dip_preset()
-    cfg = dataclasses.replace(base, dip=dataclasses.replace(base.dip, num_iter=args.dip_iters))
+    cfg = PRESETS[args.variant]()
+    if cfg.dip is not None:
+        cfg = dataclasses.replace(cfg, dip=dataclasses.replace(cfg.dip, num_iter=args.dip_iters))
     solver = Solver(sample, D, cfg, device=device)
     state, _ = solver.step(solver.init_state())  # warm-up: cuDNN set-up, kernel build
     t0 = time.perf_counter()
@@ -76,26 +83,41 @@ def main() -> int:
     grid = block_grid((36 * 36, 128), cfg.block_size, cfg.stride)
     blocks = extract_blocks(state.X + state.lambda1 / cfg.mu1, grid)
     prox_ms = cuda_ms(lambda: sparse_prox(blocks, c.mask_blocks, c.D, cfg.sparse, alpha=c.alpha))
-    print(f"sparse prox (B1 + reconstruction): {prox_ms:.3f} ms")
+    print(f"sparse prox (B1 + reconstruction, {cfg.sparse.matmul_dtype} operands, "
+          f"{cfg.sparse.n_iter} iterations): {prox_ms:.3f} ms")
 
-    net = dip_skip_128(128).to(device)
-    fit_cfg = dataclasses.replace(cfg.dip, num_iter=args.trace_iters, patience=10**9)
-    fit = make_dip_fit(net, fit_cfg)
-    z = (state.X + state.lambda2 / cfg.mu2).reshape(1, 36, 36, 128)
-    gen = torch.Generator(device=device).manual_seed(0)
-    fit(z, c.dip_target, c.dip_mask, generator=gen)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fit(z, c.dip_target, c.dip_mask, generator=gen)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    print(f"DIP fit: {fit_s / args.trace_iters * 1e3:.3f} ms per iteration "
-          f"({args.trace_iters} iterations, no profiler)")
+    if cfg.dip is None:
+        z = state.X + state.lambda2 / cfg.mu2
+        print(f"SVT (svt_gram of the (1296, 128) iterate): {cuda_ms(lambda: svt_gram(z, 1 / cfg.mu2)):.3f} ms")
+        unit, n_units = "outer step", 1
+
+        def profiled():
+            float(solver.step(state)[1].mpsnr)
+    else:
+        net = default_net(cfg, 128).to(device)
+        fit_cfg = dataclasses.replace(cfg.dip, num_iter=args.trace_iters, patience=10**9)
+        fit = make_dip_fit(net, fit_cfg)
+        z = (state.X + state.lambda2 / cfg.mu2).reshape(1, 36, 36, 128)
+        gen = torch.Generator(device=device).manual_seed(0)
+        unit, n_units = "DIP iteration", args.trace_iters
+
+        def profiled():
+            fit(z, c.dip_target, c.dip_mask, generator=gen)
+
+        profiled()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profiled()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        print(f"DIP fit ({type(net).__name__}, {cfg.dip.compute_dtype}): "
+              f"{fit_s / args.trace_iters * 1e3:.3f} ms per iteration "
+              f"({args.trace_iters} iterations, no profiler)")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fit(z, c.dip_target, c.dip_mask, generator=gen)
+        profiled()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device busy time: the union of the kernels' intervals (user annotations,
@@ -109,8 +131,8 @@ def main() -> int:
     for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    print(f"profiled fit: wall {wall_us / 1e3:.1f} ms, {len(kernels) / args.trace_iters:.0f} "
-          f"kernels per DIP iteration, device busy {busy_us / 1e3:.1f} ms "
+    print(f"profiled: wall {wall_us / 1e3:.1f} ms, {len(kernels) / n_units:.0f} "
+          f"kernels per {unit}, device busy {busy_us / 1e3:.1f} ms "
           f"({busy_us / wall_us:.1%}), idle {1 - busy_us / wall_us:.1%}")
     events = prof.key_averages()
     for key in ("self_device_time_total", "self_cpu_time_total"):

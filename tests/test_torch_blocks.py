@@ -26,6 +26,11 @@ from lrs_pnp_dip_tpu_torch.data import (
 from lrs_pnp_dip_tpu_torch.ops import blocks as tblocks
 from lrs_pnp_dip_tpu_torch.utils import config as tconfig
 
+# One intra-op thread: the suite runs in several worker processes, and torch's
+# default of a thread per core in each of them oversubscribes the cores
+# and multiplies the suite's wall time.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("name", sorted(jconfig.PRESETS))
 def test_presets_match_field_for_field(name):

@@ -1,4 +1,5 @@
-"""Kernel B1 on the card, against its plain PyTorch version.
+"""Kernel B1 on the card, against its plain PyTorch version, and the
+lockstep engines' one launch per outer step.
 
 These need an NVIDIA GPU (sm_90a) and ``nvcc``; without a card they skip.
 This file imports nothing of JAX, so on the machine with the card it runs
@@ -21,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
-from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+from lrs_pnp_dip_tpu_torch.data import synthetic_sample
+from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused, svt_gram
+from lrs_pnp_dip_tpu_torch.solvers import BatchedSolver, Solver
+from lrs_pnp_dip_tpu_torch.utils.config import SolverConfig, SparseProxConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -206,3 +209,37 @@ def test_wrapper_raises_for_shapes_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="K >= 6"):
         pnp_ista_blocks_fused(Y, M, D, SparseProxConfig(n_iter=2))
     assert ISTA_KERNEL.launches == before
+
+
+def test_lockstep_engine_launches_once_per_outer_step(cuda):
+    """Three `lrs_pnp` lanes on the card: one launch of B1 per outer step
+    over the 3 x 72 blocks, every lane within 1e-4 of the single solve on
+    the card and of the engine on the CPU."""
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((36, 48)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    cfg = SolverConfig(
+        variant="lrs_pnp", outer_iters=2, block_size=6, stride=6, dip=None, mu1=0.15, mu2=0.9,
+        sparse=SparseProxConfig(n_iter=10, alpha_mode="specnorm", h_scale=0.1),
+    )
+    samples = [synthetic_sample(12, 12, 16, missing=0.1, seed=k) for k in (3, 4, 5)]
+    engine = BatchedSolver(samples, D, cfg, device=cuda)
+    ISTA_KERNEL.launches = 0
+    state, hist = engine.run()
+    assert ISTA_KERNEL.launches == 2 and ISTA_KERNEL.last_plan.nB == 3 * 72
+    cpu_state, cpu_hist = BatchedSolver(samples, D, cfg, device="cpu").run()
+    scale = float(cpu_state.X.abs().max())
+    assert float((state.X.cpu() - cpu_state.X).abs().max()) < 1e-4 * scale
+    np.testing.assert_allclose(hist["mpsnr"], cpu_hist["mpsnr"], atol=1e-3)
+    for i, s in enumerate(samples):
+        one, _ = Solver(s, D, cfg, device=cuda).run()
+        assert float((state.X[i] - one.X).abs().max()) < 1e-4 * scale
+
+
+def test_svt_gram_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(1)
+    X = (rng.standard_normal((3, 200, 4)) @ rng.standard_normal((3, 4, 16))).astype(np.float32)
+    X += 0.05 * rng.standard_normal(X.shape).astype(np.float32)
+    got = svt_gram(torch.from_numpy(X).to(cuda), 1 / 0.9).cpu()
+    ref = svt_gram(torch.from_numpy(X), 1 / 0.9)
+    assert float((got - ref).abs().max()) < 2e-5 * float(np.abs(X).max())

@@ -16,6 +16,11 @@ from lrs_pnp_dip_tpu_torch.ops import fidelity as tfid
 from lrs_pnp_dip_tpu_torch.ops import metrics as tmetrics
 from lrs_pnp_dip_tpu_torch.ops.ssim import ssim as t_ssim
 
+# One intra-op thread: the suite runs in several worker processes, and torch's
+# default of a thread per core in each of them oversubscribes the cores
+# and multiplies the suite's wall time.
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 
 

@@ -17,7 +17,10 @@ import sys
 before = set(sys.modules)
 import lrs_pnp_dip_tpu_torch
 from lrs_pnp_dip_tpu_torch import api, data, models, ops, solvers, utils
-from lrs_pnp_dip_tpu_torch.ops import ista_cuda
+from lrs_pnp_dip_tpu_torch.ops import ista_cuda, svt
+from lrs_pnp_dip_tpu_torch.solvers import batch, tiled
+from lrs_pnp_dip_tpu_torch.data import tiles
+from lrs_pnp_dip_tpu_torch.models import lipschitz, lipschitz_unet
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lrs_pnp_dip_tpu"))
 assert not bad, bad

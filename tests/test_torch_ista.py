@@ -31,6 +31,11 @@ from lrs_pnp_dip_tpu_torch.ops.nlm import nlm_column_batch_fast as t_nlm
 from lrs_pnp_dip_tpu_torch.solvers import make_consts
 from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig, dip_preset
 
+# One intra-op thread: the suite runs in several worker processes, and torch's
+# default of a thread per core in each of them oversubscribes the cores
+# and multiplies the suite's wall time.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-6
 BF16_MATCH = 1e-5  # as chip_smoke.py
 

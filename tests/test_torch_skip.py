@@ -19,6 +19,11 @@ import torch
 from lrs_pnp_dip_tpu.models import dip_skip_128 as j_skip_128
 from lrs_pnp_dip_tpu_torch.models import Conv2d, dip_skip_128, skip_params_from_flax
 
+# One intra-op thread: the suite runs in several worker processes, and torch's
+# default of a thread per core in each of them oversubscribes the cores
+# and multiplies the suite's wall time.
+torch.set_num_threads(1)
+
 
 def _randomise_bn(params, rng):
     """BN scale U(0.5, 1.5), bias U(-0.3, 0.3): the defaults 1/0 would hide

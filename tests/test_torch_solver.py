@@ -17,6 +17,8 @@ Tolerances: X, lambda1, lambda2 within rtol 1e-4 / atol 1e-4 of their
 scale (measured 7e-6), MPSNR within 1e-3 dB and SSIM within 1e-4;
 ``dip_iters`` exactly."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,11 +29,16 @@ from lrs_pnp_dip_tpu.data.masks import synthetic_sample as j_synthetic_sample
 from lrs_pnp_dip_tpu.models import Skip as JSkip
 from lrs_pnp_dip_tpu.solvers import admm as jadmm
 from lrs_pnp_dip_tpu.utils import config as jconfig
-from lrs_pnp_dip_tpu_torch import inpaint
+from lrs_pnp_dip_tpu_torch import inpaint, inpaint_scene
 from lrs_pnp_dip_tpu_torch.data import synthetic_sample
 from lrs_pnp_dip_tpu_torch.models import Skip, skip_params_from_flax
 from lrs_pnp_dip_tpu_torch.solvers import Solver, SolverDiverged, StepAux
 from lrs_pnp_dip_tpu_torch.utils import config as tconfig
+
+# One intra-op thread: the suite runs in several worker processes, and torch's
+# default of a thread per core in each of them oversubscribes the cores
+# and multiplies the suite's wall time.
+torch.set_num_threads(1)
 
 NET = dict(
     num_output_channels=16,
@@ -133,14 +140,52 @@ def test_solver_run_tracks_best_and_detects_divergence():
         solver.run(2)
 
 
+def _short(cfg):
+    """A preset cut to a few sparse and DIP iterations."""
+    sparse = dataclasses.replace(cfg.sparse, n_iter=5)
+    dip = cfg.dip and dataclasses.replace(cfg.dip, num_iter=4, buffer_size=3)
+    return dataclasses.replace(cfg, sparse=sparse, dip=dip)
+
+
+@pytest.mark.parametrize(
+    "variant", ["lrs_pnp", "dip", "dip_1lip", "dip_tuned", "dip_1lip_tuned", "dip_fast"]
+)
+def test_every_ported_preset_runs_through_inpaint_on_the_cpu(variant):
+    """Each preset's own net (skip-128, or the Lipschitz U-Net at width 8)
+    on a 36x36x16 cube: a single solve and a two-seed ensemble."""
+    s = synthetic_sample(36, 36, 16, missing=0.1, seed=5)
+    cfg = _short(tconfig.PRESETS[variant](block_size=6, stride=6, net_width=8))
+    cube, hist = inpaint(s.noisy, s.mask, config=cfg, clean=s.clean, dictionary=_dictionary(),
+                         n_iters=2, device="cpu")
+    assert cube.shape == (36, 36, 16) and np.isfinite(cube).all()
+    assert len(hist["mpsnr"]) == 2 and np.isfinite(hist["mpsnr"]).all()
+    assert hist["dip_iters"] == ([0.0, 0.0] if variant == "lrs_pnp" else [4.0, 4.0])
+    ens_cube, ens = inpaint(s.noisy, s.mask, config=cfg, clean=s.clean, dictionary=_dictionary(),
+                            n_iters=1, seeds=[0, 1], device="cpu")
+    assert ens_cube.shape == (36, 36, 16) and np.isfinite(ens_cube).all()
+    assert ens["mpsnr"].shape == (1, 2) and ens["ens_mpsnr"].shape == (1,)
+    if variant == "lrs_pnp":  # deterministic: both seeds are the single solve
+        np.testing.assert_allclose(ens["mpsnr"][0], [hist["mpsnr"][0]] * 2, atol=1e-4)
+    else:
+        assert ens["mpsnr"][0, 0] != ens["mpsnr"][0, 1]
+
+
 def test_inpaint_on_cpu_and_unported_entry_points():
+    """What still raises names its ROADMAP item: the `matlab` preset
+    (nlm_classic), bm3d, and learning a dictionary (block_size != 36 without
+    ``dictionary=``), through ``inpaint`` and ``inpaint_scene`` alike."""
     s = synthetic_sample(12, 12, 16, missing=0.1, seed=5)
-    t_cfg, _ = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inpaint(s.noisy, s.mask, seeds=[0, 1], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inpaint(s.noisy, s.mask, variant="lrs_pnp", dictionary=_dictionary(), device="cpu",
-                block_size=6, stride=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inpaint(s.noisy, s.mask, variant="dip_1lip", dictionary=_dictionary(), device="cpu",
-                block_size=6, stride=6)
+    kw = dict(dictionary=_dictionary(), device="cpu", block_size=6, stride=6)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 13"):
+        inpaint(s.noisy, s.mask, variant="matlab", **kw)
+    bm3d = tconfig.lrs_pnp_preset(
+        block_size=6, stride=6, sparse=tconfig.SparseProxConfig(denoiser="bm3d"))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        inpaint(s.noisy, s.mask, config=bm3d, dictionary=_dictionary(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 14"):
+        inpaint(s.noisy, s.mask, variant="lrs_pnp", device="cpu", block_size=6, stride=6)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 14"):
+        inpaint_scene(s.noisy, s.mask, device="cpu", block_size=6, stride=6)
+    with pytest.raises(ValueError, match="unknown variant"):
+        inpaint(s.noisy, s.mask, config=tconfig.SolverConfig(variant="tv", block_size=6, stride=6),
+                dictionary=_dictionary(), device="cpu")

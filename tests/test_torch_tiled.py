@@ -1,0 +1,184 @@
+"""The port's tile pipeline and whole-scene solver against the JAX package.
+
+``solve_tiled`` on `lrs_pnp` is deterministic and compared with the JAX
+``solve_tiled`` at rtol / atol 2e-5, the tolerance at which
+``tests/test_tiled.py`` holds the JAX package's two loops to each other."""
+
+import numpy as np
+import pytest
+import torch
+
+from lrs_pnp_dip_tpu.data.tiles import TileLoader as JTileLoader
+from lrs_pnp_dip_tpu.data.tiles import tile_origins as j_tile_origins
+from lrs_pnp_dip_tpu.solvers.tiled import solve_tiled as j_solve_tiled
+from lrs_pnp_dip_tpu.utils import config as jconfig
+from lrs_pnp_dip_tpu_torch import inpaint_scene
+from lrs_pnp_dip_tpu_torch.data import (
+    TileLoader, bernoulli_mask, corrupt, mmap_cube, synthetic_sample, tile_origins,
+)
+from lrs_pnp_dip_tpu_torch.ops import mpsnr
+from lrs_pnp_dip_tpu_torch.solvers import batch as tbatch
+from lrs_pnp_dip_tpu_torch.solvers import tiled as ttiled
+from lrs_pnp_dip_tpu_torch.solvers.tiled import _tiled_engine, solve_tiled
+from lrs_pnp_dip_tpu_torch.utils import config as tconfig
+
+# One intra-op thread: the suite runs in several worker processes, and torch's
+# default of a thread per core in each of them oversubscribes the cores
+# and multiplies the suite's wall time.
+torch.set_num_threads(1)
+
+
+def _scene(H=40, W=32, B=16):
+    clean = synthetic_sample(height=H, width=W, bands=B, missing=0.0, seed=11).clean
+    mask = bernoulli_mask((H, W), 0.92, seed=12)
+    return clean, corrupt(clean, mask, noise_sigma=0.1, seed=13), mask
+
+
+def _dictionary(patch_dim, n_atoms, seed):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((patch_dim, n_atoms)).astype(np.float32)
+    return D / np.linalg.norm(D, axis=0, keepdims=True)
+
+
+def _lrs_cfgs(block, **sparse):
+    kw = dict(variant="lrs_pnp", outer_iters=2, block_size=block, stride=block, dip=None, mu1=0.15, mu2=0.9)
+    return (tconfig.SolverConfig(sparse=tconfig.SparseProxConfig(**sparse), **kw),
+            jconfig.SolverConfig(sparse=jconfig.SparseProxConfig(**sparse), **kw))
+
+
+@pytest.mark.parametrize(
+    "args", [(100, 90, 36, 36, None, None), (50, 40, 16, 16, 8, 8), (36, 36, 36, 36, None, None)],
+    ids=["pulled_in", "strided", "one_tile"],
+)
+def test_tile_origins_cover_the_scene_and_match(args):
+    h, w, th, tw = args[:4]
+    o = tile_origins(*args)
+    np.testing.assert_array_equal(o, j_tile_origins(*args))
+    assert o.dtype == np.int32 and o[:, 0].max() == h - th and o[:, 1].max() == w - tw
+    cov = np.zeros((h, w), bool)
+    for h0, w0 in o:
+        cov[h0 : h0 + th, w0 : w0 + tw] = True
+    assert cov.all()
+
+
+@pytest.mark.parametrize("stride", [None, (8, 8)], ids=["abutting", "overlapping"])
+def test_tile_loader_roundtrip(stride, tmp_path):
+    cube = np.random.default_rng(0).random((50, 40, 8)).astype(np.float32)
+    loader = TileLoader(cube, (16, 16), batch_size=3, stride=stride)
+    ref = JTileLoader(cube, (16, 16), batch_size=3, stride=stride, use_native=False)
+    assert loader.n_tiles == ref.n_tiles
+    seen = 0
+    for (tiles, origins), (j_tiles, j_origins) in zip(loader, ref.batches()):
+        assert tiles.shape[1:] == (16, 16, 8) and len(tiles) == len(origins) <= 3
+        np.testing.assert_array_equal(origins, j_origins)
+        np.testing.assert_array_equal(tiles, j_tiles)
+        for t, (h0, w0) in zip(tiles, origins):
+            np.testing.assert_array_equal(t, cube[h0 : h0 + 16, w0 : w0 + 16])
+        seen += len(origins)
+    assert seen == loader.n_tiles
+    # a second pass starts a new prefetch thread and yields the same batches
+    assert sum(len(o) for _, o in loader.batches()) == loader.n_tiles
+    path = str(tmp_path / "cube.npy")
+    np.save(path, cube)
+    mapped = TileLoader(mmap_cube(path), (16, 16), batch_size=4)
+    np.testing.assert_array_equal(next(iter(mapped))[0][0], cube[:16, :16])
+
+
+@pytest.mark.parametrize("pad_final", [False, True], ids=["right_sized", "padded"])
+@pytest.mark.parametrize("overlap", [0, 8])
+def test_solve_tiled_lrs_pnp_matches_jax(overlap, pad_final):
+    """6 tiles of 16x16 in batches of 4 (overlap 0) or 12 in batches of 5
+    (overlap 8): the last batch is partial either way, with 2 tiles."""
+    clean, noisy, mask = _scene()
+    D = _dictionary(16 * 16, 48, seed=3)
+    t_cfg, j_cfg = _lrs_cfgs(16, n_iter=8, alpha_mode="specnorm", h_scale=0.1)
+    kw = dict(tile_shape=(16, 16), tile_batch=4 if overlap == 0 else 5, overlap=overlap, pad_final=pad_final)
+    rec = solve_tiled(noisy, mask, D, t_cfg, device="cpu", **kw)
+    ref = j_solve_tiled(noisy, mask, D, j_cfg, scan=False, **kw)
+    assert rec.shape == noisy.shape and rec.dtype == np.float32
+    np.testing.assert_allclose(rec, ref, rtol=2e-5, atol=2e-5)
+    inp = float(mpsnr(torch.from_numpy(clean), torch.from_numpy(noisy)))
+    assert float(mpsnr(torch.from_numpy(clean), torch.from_numpy(rec))) > inp
+    # `scan` is accepted and changes nothing
+    np.testing.assert_array_equal(solve_tiled(noisy, mask, D, t_cfg, device="cpu", scan=False, **kw), rec)
+
+
+def test_solve_tiled_final_batch_is_right_sized_unless_padded(monkeypatch):
+    """2 tiles with tile_batch 8: 2 lanes by default, 8 with pad_final, the
+    same scene either way."""
+    clean, noisy, mask = _scene(H=32, W=16, B=8)
+    D = _dictionary(64, 32, seed=4)
+    cfg, _ = _lrs_cfgs(8, n_iter=4)
+    sizes = []
+    real_stack = tbatch.stack_consts
+
+    def counting_stack(consts):
+        sizes.append(len(consts))
+        return real_stack(consts)
+
+    monkeypatch.setattr(ttiled, "stack_consts", counting_stack)
+    rec = solve_tiled(noisy, mask, D, cfg, tile_shape=(16, 16), tile_batch=8, n_iters=1, device="cpu")
+    rec_pad = solve_tiled(noisy, mask, D, cfg, tile_shape=(16, 16), tile_batch=8, n_iters=1,
+                          pad_final=True, device="cpu")
+    assert sizes == [2, 8]
+    np.testing.assert_allclose(rec, rec_pad, rtol=1e-5, atol=1e-5)
+
+
+def test_solve_tiled_dip_1lip_at_a_48_tile_is_finite():
+    """`dip_1lip` composes with the tiled path at a tile size that takes the
+    Lipschitz U-Net's nearest resizes (as ``tests/test_tiled.py``)."""
+    clean, noisy, mask = _scene(H=48, W=48, B=8)
+    cfg = tconfig.SolverConfig(
+        variant="dip_1lip", outer_iters=1, block_size=8, stride=8, net_width=8,
+        sparse=tconfig.SparseProxConfig(n_iter=2),
+        dip=tconfig.DipConfig(num_iter=2, buffer_size=2, patience=5),
+    )
+    rec = solve_tiled(noisy, mask, _dictionary(64, 32, seed=5), cfg, tile_shape=(48, 48),
+                      tile_batch=1, device="cpu")
+    assert rec.shape == noisy.shape and np.isfinite(rec).all()
+
+
+def test_tiled_engine_is_cached_and_seeds_tiles_by_position():
+    cfg, _ = _lrs_cfgs(8, n_iter=2)
+    cpu = torch.device("cpu")
+    e1 = _tiled_engine(cfg, (16, 16, 8), None, cpu)
+    assert _tiled_engine(cfg, (16, 16, 8), None, cpu) is e1
+    assert _tiled_engine(cfg, (24, 16, 8), None, cpu) is not e1
+    # a DIP engine keeps its net: the second scene solve builds none
+    dip_cfg = tconfig.SolverConfig(
+        variant="dip_1lip", block_size=8, stride=8, net_width=8, seed=3,
+        sparse=tconfig.SparseProxConfig(n_iter=2), dip=tconfig.DipConfig(num_iter=1, buffer_size=2),
+    )
+    clean, noisy, mask = _scene(H=36, W=72, B=8)
+    D = _dictionary(64, 32, seed=5)
+    before = _tiled_engine.cache_info()
+    first = solve_tiled(noisy, mask, D, dip_cfg, n_iters=1, tile_batch=2, device="cpu")
+    second = solve_tiled(noisy, mask, D, dip_cfg, n_iters=1, tile_batch=2, device="cpu")
+    after = _tiled_engine.cache_info()
+    assert after.misses == before.misses + 1 and after.hits == before.hits + 1
+    # tile i of a batch draws from a generator seeded config.seed + i: the
+    # same call gives the same scene, and the two tiles get different nets
+    np.testing.assert_array_equal(first, second)
+    twin = np.concatenate([noisy[:, :36], noisy[:, :36]], axis=1)
+    twin_mask = np.concatenate([mask[:, :36], mask[:, :36]], axis=1)
+    rec = solve_tiled(twin, twin_mask, D, dip_cfg, n_iters=1, tile_batch=2, device="cpu")
+    assert not np.allclose(rec[:, :36], rec[:, 36:], atol=1e-4)
+
+
+def test_inpaint_scene_through_the_api():
+    s = synthetic_sample(height=32, width=24, bands=16, missing=0.06, seed=23)
+    cfg, j_cfg = _lrs_cfgs(8, n_iter=8, alpha_mode="specnorm", h_scale=0.1)
+    D = _dictionary(64, 48, seed=6)
+    cube = inpaint_scene(s.noisy, s.mask, config=cfg, dictionary=D, tile_shape=(16, 8),
+                         tile_batch=2, device="cpu")
+    assert cube.shape == s.noisy.shape
+    ref = j_solve_tiled(s.noisy, s.mask, D, j_cfg, tile_shape=(16, 8), tile_batch=2)
+    np.testing.assert_allclose(cube, ref, rtol=2e-5, atol=2e-5)
+    inp = float(mpsnr(torch.from_numpy(s.clean), torch.from_numpy(s.noisy)))
+    assert float(mpsnr(torch.from_numpy(s.clean), torch.from_numpy(cube))) > inp
+    # the preset route: overrides build the config, `lrs_pnp` is the default variant
+    same = inpaint_scene(s.noisy, s.mask, dictionary=D, tile_shape=(16, 8), tile_batch=2, device="cpu",
+                         block_size=8, stride=8, sparse=cfg.sparse)
+    np.testing.assert_array_equal(same, cube)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inpaint_scene(s.noisy, s.mask, config=cfg, dictionary=D, tile_shape=(16, 8))
