@@ -39,8 +39,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                launches; B1 against its plain version at nB 288 and at nB
                576 (dip and lrs_pnp settings), f32 and bf16; B1, the SVT and
                a batched SVT timed at these shapes;
-  6. report  — the card's name and power limit, a {"kernels": [...]} line
-               and, last, {"ok": true, "device": {...}}.
+  6. options — every other solver option on the card, each with B1's count
+               set to 0 just before and read just after: the `matlab`
+               preset (nlm_classic) through inpaint(variant="matlab") on
+               matlab_twin_sample(seed=0, bands=128), all 13 outer steps,
+               no launch of B1, and 2 steps against the CPU; sparse_prox
+               with denoiser="bm3d" at nB 144 (5 iterations) and bm3d_prox
+               on a 36x36x8 cube, card against CPU, no launch of B1; every
+               get_net key's forward on the card against the same weights
+               on the CPU; one `dip` outer step at 36x36x128 with each key
+               that keeps the iterate's shape (DIP fit capped at 100), one
+               launch of B1 at nB 144 each, and each other key failing
+               where the JAX package fails;
+  7. report  — the total time, the card's name and power limit, a
+               {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 before printing any result.
@@ -48,6 +60,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import statistics
@@ -82,6 +95,35 @@ SOLVE_MATCH = 1e-4
 # The DIP fit's cap in the paths of phase 5 (the preset's is 5000): depth cut
 # for the run's time, the early stop stays on.
 DIP_CAP = 400
+# The bm3d paths on the card against the CPU.  BM3D's hard threshold and its
+# block matching are discontinuous, so the order of sums moves single values
+# by far more than rounding: on the CPU, permuting the dictionary's rows
+# moves the 5-iteration sparse prox at nB 144 by up to 1.8e-2 of max |ref|
+# (2.0e-3 relative L2); a 1e-7 relative change of a 36x36x8 cube moves
+# bm3d_prox by 1.8e-3 (2.9e-4 relative L2), and the card (its own order, its
+# unordered index_add_) moved it by 5.0e-2 (3.6e-3).  So the sparse prox is
+# held at some 5 times the CPU's sensitivity, (max |delta| / max |ref|,
+# relative L2), and the cube's denoising by relative L2 and by what it is
+# for: its MPSNR against the clean bands within 0.05 dB of the CPU's.
+BM3D_PROX_MATCH = (0.1, 1e-2)
+BM3D_CUBE_MATCH = (1e-2, 0.05)
+# The zoo's forward on the card against the same weights on the CPU, max
+# |delta| / max |out| (TF32 off: cuDNN and the CPU sum in other orders, and
+# the train-mode batch norms over 1x1 to 4x4 maps amplify that: measured up
+# to 8.3e-5, texture_nets at 36x36x128).
+ZOO_MATCH = 5e-4
+# The DIP fit's cap in the zoo's outer steps.
+ZOO_DIP_CAP = 100
+
+
+# get_net keys whose net does not keep the (1, H, W, B) shape of the iterate
+# in a DIP solve, and the error the port raises there (the JAX package fails
+# on each too: tests/test_torch_zoo.py).  The decoders' 32-fold output is
+# 1152x1152 at 36x36.
+ZOO_NO_SOLVE = {
+    "texture_nets": RuntimeError, "UNet": RuntimeError, "UNet3D": ValueError,
+    "deep_decoder": RuntimeError, "res_decoder": RuntimeError,
+}
 
 
 def log(msg: str) -> None:
@@ -227,7 +269,7 @@ def drive(label: str, fn, launches: int, nB: int, bf16: bool = False):
     got, plan = ISTA_KERNEL.launches, ISTA_KERNEL.last_plan
     if got != launches:
         raise AssertionError(f"{label}: B1 launched {got} times, expected {launches}")
-    if (plan.nB, plan.bf16) != (nB, bf16):
+    if launches and (plan.nB, plan.bf16) != (nB, bf16):
         raise AssertionError(
             f"{label}: B1's last launch took nB={plan.nB}, bf16={plan.bf16}; "
             f"expected nB={nB}, bf16={bf16}")
@@ -243,7 +285,17 @@ def check_recovery(label: str, cube, shape, final_mpsnr: float, input_mpsnr: flo
         raise AssertionError(f"{label}: final MPSNR {final_mpsnr:.4f} not above input {input_mpsnr:.4f}")
 
 
+def relative_error(got, ref):
+    """(max |delta| / max |ref|, relative L2) of two tensors or arrays."""
+    import torch
+
+    got, ref = torch.as_tensor(got).cpu().double(), torch.as_tensor(ref).cpu().double()
+    d = got - ref
+    return float(d.abs().max() / ref.abs().max()), float(d.norm() / ref.norm())
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -255,10 +307,13 @@ def main() -> int:
         return 1
     try:
         import lrs_pnp_dip_tpu_torch as port
-        from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
-        from lrs_pnp_dip_tpu_torch.models import Skip
+        from lrs_pnp_dip_tpu_torch.data import (
+            load_trained_dictionary, matlab_twin_sample, synthetic_sample,
+        )
+        from lrs_pnp_dip_tpu_torch.models import NET_TYPES, Skip, get_net
         from lrs_pnp_dip_tpu_torch.ops import (
-            ISTA_KERNEL, compute_alpha, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused, svt_gram,
+            ISTA_KERNEL, bm3d_prox, compute_alpha, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused,
+            sparse_prox, ssim_matlab, svt_gram,
         )
         from lrs_pnp_dip_tpu_torch.solvers import Solver
         from lrs_pnp_dip_tpu_torch.utils import resolve_device
@@ -502,7 +557,116 @@ def main() -> int:
     log(f"  SVT (svt_gram, tau 1/0.9) of one (1296, 128) iterate: {time_cuda(lambda: svt_gram(Z[0], 1 / 0.9)):.4f} ms; "
         f"of 4 in one batched eigh: {time_cuda(lambda: svt_gram(Z, 1 / 0.9)):.4f} ms")
 
-    # 6. report
+    # 6. every other solver option
+    t_phase = time.perf_counter()
+    log("[options] inpaint(variant='matlab') on matlab_twin_sample(seed=0, bands=128): all 13 outer "
+        "steps, nlm_classic in the plain loop, no launch of B1")
+    twin = matlab_twin_sample(seed=0, bands=128)
+    twin_in = float(mpsnr(torch.from_numpy(twin.clean), torch.from_numpy(twin.noisy)))
+    (cube, hist), wall = drive("matlab", lambda: port.inpaint(
+        twin.noisy, twin.mask, variant="matlab", clean=twin.clean), launches=0, nB=0)
+    by_path["matlab"] = ISTA_KERNEL.launches
+    check_recovery("matlab", cube, (36, 36, 128), hist["mpsnr"][-1], twin_in)
+    warm = statistics.median(hist["seconds"][1:])
+    # the twin's SSIM divides by 3 whatever the channel count: three bands
+    bands = [0, 63, 127]
+    twin_ssim = float(ssim_matlab(torch.from_numpy(twin.clean[:, :, bands] * 255),
+                                  torch.from_numpy(cube[:, :, bands] * 255)))
+    log(f"  wall {wall:.2f} s for {len(hist['seconds'])} steps: first {hist['seconds'][0] * 1e3:.2f} ms, "
+        f"warm median {warm * 1e3:.2f} ms per outer step; mpsnr {twin_in:.4f} -> {hist['mpsnr'][-1]:.4f} "
+        f"(best {hist['best_mpsnr']:.4f}); ssim_matlab of bands {bands} {twin_ssim:.4f}; B1 launches {ISTA_KERNEL.launches}; "
+        f"card {smi}")
+    twin_card, _ = port.inpaint(twin.noisy, twin.mask, variant="matlab", clean=twin.clean, n_iters=2)
+    twin_cpu, _ = port.inpaint(twin.noisy, twin.mask, variant="matlab", clean=twin.clean, n_iters=2, device="cpu")
+    err, _ = relative_error(twin_card, twin_cpu)
+    log(f"  2 outer steps, card vs CPU: max|dX|/max|X| = {err:.3e} (limit {SOLVE_MATCH})")
+    if not err < SOLVE_MATCH:
+        raise AssertionError("the card's matlab solve disagrees with the CPU's")
+    log(f"  (matlab phase {time.perf_counter() - t_phase:.1f} s)")
+    t_phase = time.perf_counter()
+
+    log("[options] sparse_prox(denoiser='bm3d', 5 iterations) at nB 144 and bm3d_prox on a 36x36x8 cube, "
+        "card vs CPU, no launch of B1")
+    bm3d_cfg = SparseProxConfig(n_iter=5, alpha_mode="trace4", denoiser="bm3d")
+    cube8 = torch.from_numpy(sample.noisy[:, :, :8])
+
+    def bm3d_paths():
+        return (sparse_prox(blocks, masks, D, bm3d_cfg, alpha=alpha), bm3d_prox(cube8.cuda(), 0.12))
+
+    (prox_card, den_card), wall = drive("bm3d", bm3d_paths, launches=0, nB=0)
+    by_path["bm3d"] = ISTA_KERNEL.launches
+    prox_cpu = sparse_prox(blocks.cpu(), masks.cpu(), D.cpu(), bm3d_cfg, alpha=alpha.cpu())
+    den_cpu = bm3d_prox(cube8, 0.12)
+    if not (bool(torch.isfinite(prox_card).all()) and bool(torch.isfinite(den_card).all())):
+        raise AssertionError("bm3d: non-finite output")
+    worst, rel = relative_error(prox_card, prox_cpu)
+    log(f"  sparse_prox: card vs CPU max|d|/max|ref| = {worst:.3e}, relative L2 {rel:.3e} "
+        f"(limits {BM3D_PROX_MATCH})")
+    if not (worst < BM3D_PROX_MATCH[0] and rel < BM3D_PROX_MATCH[1]):
+        raise AssertionError("the card's bm3d sparse_prox disagrees with the CPU's")
+    worst, rel = relative_error(den_card, den_cpu)
+    clean8 = torch.from_numpy(sample.clean[:, :, :8])
+    db = [float(mpsnr(clean8, t.cpu())) for t in (cube8, den_card, den_cpu)]
+    log(f"  bm3d_prox: card vs CPU max|d|/max|ref| = {worst:.3e}, relative L2 {rel:.3e}; mpsnr vs clean "
+        f"{db[0]:.4f} -> card {db[1]:.4f}, CPU {db[2]:.4f} (limits: relative L2 {BM3D_CUBE_MATCH[0]}, "
+        f"{BM3D_CUBE_MATCH[1]} dB)")
+    if not (rel < BM3D_CUBE_MATCH[0] and abs(db[1] - db[2]) < BM3D_CUBE_MATCH[1] and db[1] > db[0]):
+        raise AssertionError("the card's bm3d_prox disagrees with the CPU's")
+    ms = time_cuda(lambda: sparse_prox(blocks, masks, D, bm3d_cfg, alpha=alpha), warmup=1, reps=3)
+    log(f"  sparse_prox with bm3d, 5 iterations at nB 144: {ms:.2f} ms (wall of both paths {wall:.2f} s); "
+        f"card {smi}")
+    log(f"  (bm3d phase {time.perf_counter() - t_phase:.1f} s)")
+    t_phase = time.perf_counter()
+
+    log(f"[options] the zoo: every get_net key on the card vs the same weights on the CPU, then one "
+        f"`dip` outer step per key at 36x36x128 (DIP fit capped at {ZOO_DIP_CAP})")
+    zoo_inputs = {"deep_decoder": (1, 4, 4, 128), "res_decoder": (1, 4, 4, 128), "UNet3D": (1, 128, 32, 32, 1)}
+    for key in NET_TYPES:
+        shape = zoo_inputs.get(key, (1, 36, 36, 128))
+        net = get_net(shape[-1], key, pad="reflection", n_channels=shape[-1])
+        net.reset_parameters(torch.Generator().manual_seed(0))
+        # a copy for the card: a forward advances lipschitz_unet's power iteration
+        card_net = copy.deepcopy(net).cuda()
+        x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            ref = net(x)
+            out = card_net(x.cuda())
+            torch.cuda.synchronize()
+            worst, _ = relative_error(out, ref)
+        log(f"  {key:14s} forward {tuple(shape)} -> {tuple(out.shape)}: card vs CPU {worst:.3e} of max|out| "
+            f"(limit {ZOO_MATCH})")
+        if not (bool(torch.isfinite(out).all()) and worst < ZOO_MATCH):
+            raise AssertionError(f"get_net({key!r}): the card's forward disagrees with the CPU's")
+        del net, card_net, out
+    log(f"  (zoo forwards {time.perf_counter() - t_phase:.1f} s)")
+    t_phase = time.perf_counter()
+    dip_cap = dataclasses.replace(PRESETS["dip"]().dip, num_iter=ZOO_DIP_CAP)
+    for key in NET_TYPES:
+        def one_step():
+            return port.inpaint(sample.noisy, sample.mask, variant="dip", clean=sample.clean, n_iters=1,
+                                dip_net=key, dip=dip_cap)
+        if key in ZOO_NO_SOLVE:
+            ISTA_KERNEL.launches = 0
+            try:
+                one_step()
+            except ZOO_NO_SOLVE[key] as e:
+                log(f"  {key:14s} dip step fails as in the JAX package: {type(e).__name__}: {str(e)[:90]}")
+            else:
+                raise AssertionError(f"dip_net={key!r} ran a solve; the JAX package cannot")
+            continue
+        (cube, hist), wall = drive(f"dip_net={key}", one_step, launches=1, nB=144)
+        by_path[f"dip_net={key}"] = ISTA_KERNEL.launches
+        check_recovery(f"dip_net={key}", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
+        iters = int(hist["dip_iters"][0])
+        per_iter = (hist["seconds"][0] * 1e3 - timing["float32"]["ms"]) / max(iters, 1)
+        log(f"  {key:14s} dip step: wall {wall:.2f} s, {iters} DIP iterations, ~{per_iter:.3f} ms per "
+            f"iteration (first use of the net's shapes included), mpsnr {hist['mpsnr'][0]:.4f}, "
+            f"B1 launches {ISTA_KERNEL.launches} (nB {ISTA_KERNEL.last_plan.nB})")
+
+    log(f"  (zoo dip steps {time.perf_counter() - t_phase:.1f} s)")
+
+    # 7. report
+    log(f"[report] chip_smoke.py total {time.perf_counter() - t_start:.1f} s")
     t = timing["float32"]
     kernels = [{
         "name": "pnp_ista_fused",

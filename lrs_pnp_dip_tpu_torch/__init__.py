@@ -8,9 +8,9 @@ reference; this package imports nothing of it and nothing of JAX.
 
 Layout mirrors the JAX package:
   data/      canonical HSI layout, masks, the shipped dictionary, tile streaming
-  ops/       blocks, PnP-ISTA (plain and the CUDA kernel), NLM, SVT,
-             data fidelity, metrics (PSNR/SSIM)
-  models/    the skip and Lipschitz DIP nets and the flax weight transplant
+  ops/       blocks, PnP-ISTA (plain and the CUDA kernel), the NLM and BM3D
+             denoisers, SVT, data fidelity, metrics (PSNR/SSIM), proxlib
+  models/    the DIP model zoo behind get_net and the flax weight transplant
   solvers/   the ADMM engine, DIP trainer, early stopping, the lockstep
              (batched, seed-ensemble) engines and tiled scenes
   utils/     config presets, device selection

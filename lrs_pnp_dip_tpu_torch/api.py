@@ -6,9 +6,8 @@
     cube, info = inpaint(noisy, mask, variant="dip_tuned", seeds=[0, 1, 2])
     scene = inpaint_scene(noisy, mask, variant="lrs_pnp", tile_batch=8)
 
-Every preset but `matlab` runs.  Without a dictionary, the shipped 36x36
-dictionary is used when the patch geometry matches; learning one is not
-ported yet.
+Every preset runs.  Without a dictionary, the shipped 36x36 dictionary is
+used when the patch geometry matches; learning one is not ported yet.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ the JAX package does, so both packages build identical inputs from a seed.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -19,6 +19,69 @@ def bernoulli_mask(
     """Random keep-mask: 1 with probability ``keep_prob``."""
     rng = np.random.default_rng(seed)
     return (rng.random(shape) < keep_prob).astype(np.float32)
+
+
+def strip_mask(
+    shape: Tuple[int, int],
+    strips: Sequence[Tuple[int, int, int, int]],
+) -> np.ndarray:
+    """Mask with rectangular dead regions: ``strips`` holds (row0, row1,
+    col0, col1) half-open boxes marked missing (0), as the MATLAB twin's
+    hand-built strip masks."""
+    mask = np.ones(shape, dtype=np.float32)
+    for r0, r1, c0, c1 in strips:
+        mask[r0:r1, c0:c1] = 0.0
+    return mask
+
+
+#: The MATLAB twin's strip boxes (``main_LRS_PnP.m:34-38``, there 1-indexed
+#: and inclusive), as 0-indexed half-open (row0, row1, col0, col1): 66 of the
+#: 1296 pixels.
+MATLAB_STRIPS = (
+    (7, 13, 26, 28),
+    (3, 5, 6, 12),
+    (17, 24, 4, 6),
+    (15, 17, 12, 19),
+    (23, 25, 12, 19),
+)
+
+
+def matlab_strip_mask(shape: Tuple[int, int] = (36, 36)) -> np.ndarray:
+    """The strip mask of ``main_LRS_PnP.m:31-43`` (36x36, 66 dead pixels,
+    the same in every band)."""
+    return strip_mask(shape, MATLAB_STRIPS)
+
+
+def matlab_twin_sample(seed: int = 0, bands: int = 128) -> HsiSample:
+    """The MATLAB-twin experiment's input (``main_LRS_PnP.m:4-47``): a
+    36x36x``bands`` synthetic low-rank clean cube (rank 8; the reference's
+    Chikusei crop is not available), sigma 0.12 gaussian noise on every
+    pixel, then the strip mask zeroing 66 pixels in every band."""
+    base = synthetic_sample(
+        height=36, width=36, bands=bands, rank=8, missing=0.0, noise_sigma=0.0, seed=seed,
+    )
+    mask = matlab_strip_mask((36, 36))
+    noisy = corrupt(base.clean, mask, noise_sigma=0.12, seed=seed)
+    return HsiSample(noisy=noisy, mask=mask, clean=base.clean, name="matlab_twin")
+
+
+def text_mask(
+    shape: Tuple[int, int],
+    text: str = "hello world",
+    font_size: Optional[int] = None,
+) -> np.ndarray:
+    """Render text as missing pixels (0 where the glyphs are)."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    h, w = shape
+    img = Image.new("L", (w, h), 255)
+    draw = ImageDraw.Draw(img)
+    try:
+        font = ImageFont.load_default(size=font_size) if font_size else ImageFont.load_default()
+    except TypeError:  # older PIL without the size argument
+        font = ImageFont.load_default()
+    draw.text((1, h // 3), text, fill=0, font=font)
+    return (np.asarray(img, dtype=np.float32) > 127).astype(np.float32)
 
 
 def corrupt(

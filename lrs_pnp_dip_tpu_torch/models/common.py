@@ -1,18 +1,27 @@
 """Shared NN building blocks for the DIP nets (counterpart of
 ``lrs_pnp_dip_tpu/models/common.py``).
 
-The modules run NCHW inside; the nets convert from the public (N, H, W, C)
-layout at their boundary.  Semantics follow the JAX package:
+The modules run NCHW (NCDHW for 3-D) inside; the nets convert from the
+public (N, H, W, C) layout at their boundary.  Semantics follow the JAX
+package:
 
   * BatchNorm in training mode only: batch statistics over (N, H, W),
     biased variance, eps 1e-5, no running statistics;
-  * ``(k-1)//2`` reflection or zero padding, then a VALID convolution;
-    ``stride`` downsampling only;
-  * nearest x2 upsampling; center-crop concatenation.
+  * ``(k-1)//2`` reflection, replication or zero padding, then a VALID
+    convolution; downsampling by stride, or at stride 1 followed by an
+    average or max pool or a Lanczos :class:`~.downsampler.Downsampler`;
+  * nearest or bilinear x2 upsampling; center-crop concatenation.
 
 Initialisation matches the JAX package in distribution: conv kernels
 U(+-1/sqrt(fan_in)) (``lrs_pnp_dip_tpu/models/common.py:31``), conv biases
-ZERO (flax's ``nn.Conv`` default, not torch's), BN scale 1 and bias 0.
+ZERO (flax's ``nn.Conv`` default, not torch's), BN scale 1 and bias 0; a
+plain flax ``nn.Conv`` or ``nn.Dense`` (:class:`Conv`, :class:`Dense`) draws
+its kernel from flax's default LeCun normal.
+
+Nets of the zoo derive from :class:`ZooModule`, which names submodules as
+flax names their counterparts (``Conv2d_0``, ``BatchNorm2d_1``, ... numbered
+per class in creation order), so a flax tree maps onto the state dict by
+renaming (:func:`~.transplant.params_from_flax`).
 """
 
 from __future__ import annotations
@@ -24,18 +33,67 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.nlm import np_pad_index
+
 
 def activation(name: str = "LeakyReLU") -> Callable[[torch.Tensor], torch.Tensor]:
-    """'LeakyReLU' (slope 0.2), the activation of the ported nets."""
+    """'LeakyReLU' (slope 0.2) | 'Swish' | 'ELU' | 'none'."""
     if name == "LeakyReLU":
         return lambda x: F.leaky_relu(x, negative_slope=0.2)
-    raise NotImplementedError(
-        f"activation {name!r} is not ported yet (ROADMAP Queue A, item 14)"
-    )
+    if name == "Swish":
+        return lambda x: x * torch.sigmoid(x)
+    if name == "ELU":
+        return F.elu
+    if name == "none":
+        return lambda x: x
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> None:
+    """flax's default kernel init: a normal truncated at two deviations,
+    scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class ZooModule(nn.Module):
+    """A module whose submodules carry flax's auto-names."""
+
+    def add(self, module: nn.Module) -> nn.Module:
+        """Register ``module`` as ``<Class>_<n>``, n counting that class's
+        submodules in creation order, as flax numbers them."""
+        counts = self.__dict__.setdefault("_flax_counts", {})
+        kind = type(module).__name__
+        n = counts.get(kind, 0)
+        counts[kind] = n + 1
+        self.add_module(f"{kind}_{n}", module)
+        return module
+
+    def reset_own_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Re-draw the parameters this module holds itself (none here)."""
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Re-draw every parameter as a fresh net would, kernels from
+        ``generator``."""
+        self.reset_own_parameters(generator)
+        for child in self.children():
+            if hasattr(child, "reset_parameters"):
+                child.reset_parameters(generator)
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """Training-mode batch normalisation over all axes but the channels' (1)."""
+    if x.numel() == x.shape[1]:
+        # one value per channel (a 1x1 map of one image): torch's kernel
+        # refuses it; x is its own mean and the variance is 0
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        return (x - x) / math.sqrt(eps) * weight.reshape(shape) + bias.reshape(shape)
+    return F.batch_norm(x, None, None, weight, bias, training=True, eps=eps)
 
 
 class BatchNorm2d(nn.Module):
-    """Training-mode batch normalisation over (N, H, W) per channel."""
+    """Training-mode batch normalisation over all axes but the channels'."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -43,31 +101,58 @@ class BatchNorm2d(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def reset_parameters(self) -> None:
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
             self.weight.fill_(1.0)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, None, None, self.weight, self.bias, training=True, eps=self.eps
-        )
+        return batch_norm(x, self.weight, self.bias, self.eps)
+
+
+class MeanOnlyBatchNorm(nn.Module):
+    """Subtract the batch mean per channel, add a learned bias (reference
+    ``models/common_for_Lipschitz_Control.py`` MeanOnlyBatchNorm)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = (0,) + tuple(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        return x - torch.mean(x, dim=axes, keepdim=True) + self.bias.reshape(shape)
 
 
 def pad_input(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
-    """Spatial padding of an NCHW tensor."""
+    """Spatial padding of an NCHW (or NCDHW) tensor."""
     if pad == 0:
         return x
-    widths = (pad, pad, pad, pad)
+    widths = (pad, pad) * (x.ndim - 2)
     if mode == "reflection":
-        return F.pad(x, widths, mode="reflect")
+        if min(x.shape[2:]) > pad:
+            return F.pad(x, widths, mode="reflect")
+        # np.pad's reflect, which the JAX package uses, also takes axes no
+        # longer than the pad (a 1x1 map repeats); torch's refuses them
+        for axis in range(2, x.ndim):
+            x = x.index_select(axis, np_pad_index(x.shape[axis], pad, "reflect", x.device))
+        return x
+    if mode == "replication":
+        return F.pad(x, widths, mode="replicate")
     if mode == "zero":
         return F.pad(x, widths)
     raise ValueError(f"unknown pad mode {mode!r}")
 
 
 class Conv2d(nn.Module):
-    """``(k-1)//2`` padding in mode ``pad``, then a VALID strided conv."""
+    """``(k-1)//2`` padding in mode ``pad``, then a VALID convolution.
+    ``downsample_mode`` 'stride' strides the conv; 'avg' and 'max' convolve
+    at stride 1 and pool; 'lanczos2' and 'lanczos3' convolve at stride 1 and
+    append a :class:`~.downsampler.Downsampler` (no parameters)."""
 
     def __init__(
         self,
@@ -80,11 +165,18 @@ class Conv2d(nn.Module):
         downsample_mode: str = "stride",
     ):
         super().__init__()
+        self.pool = None
+        self.factor = stride
         if stride != 1 and downsample_mode != "stride":
-            raise NotImplementedError(
-                f"downsample_mode={downsample_mode!r} is not ported yet "
-                "(ROADMAP Queue A, item 14)"
-            )
+            if downsample_mode not in ("avg", "max", "lanczos2", "lanczos3"):
+                raise ValueError(f"unknown downsample mode {downsample_mode!r}")
+            self.pool, stride = downsample_mode, 1
+            if downsample_mode.startswith("lanczos"):
+                from .downsampler import Downsampler
+
+                self.Downsampler_0 = Downsampler(
+                    factor=self.factor, kernel_type=downsample_mode, phase=0.5, preserve_size=True
+                )
         self.stride = stride
         self.pad = pad
         self.kernel_size = kernel_size
@@ -104,16 +196,85 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = pad_input(x, (self.kernel_size - 1) // 2, self.pad)
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride)
+        x = F.conv2d(x, self.weight, self.bias, stride=self.stride)
+        s = self.factor
+        if self.pool == "avg":
+            return F.avg_pool2d(x, s, s)
+        if self.pool == "max":
+            return F.max_pool2d(x, s, s)
+        if self.pool is not None:
+            return self.Downsampler_0(x)
+        return x
+
+
+class Conv(nn.Module):
+    """A plain flax ``nn.Conv`` over NCDHW volumes (UNet3D's): 'SAME' zero
+    padding (odd kernels), stride 1, kernel from flax's default LeCun normal,
+    bias zero.  Weight (out, in, kd, kh, kw)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Sequence[int]):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        padding = tuple(k // 2 for k in self.weight.shape[2:])
+        return F.conv3d(x, self.weight, self.bias, padding=padding)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: weight (out, in) from LeCun normal, bias zero."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis (eps 1e-6, flax's default)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
 
 
 def upsample2x(x: torch.Tensor, mode: str = "nearest") -> torch.Tensor:
-    """x2 spatial upsampling of NCHW."""
+    """x2 spatial upsampling of NCHW.  'bilinear' is
+    ``jax.image.resize(method='bilinear')``: half-pixel centres, the edge
+    taps renormalised, which at a factor of 2 is torch's
+    ``align_corners=False`` with the source index clamped at the border
+    (``tests/test_torch_zoo.py`` pins the two together)."""
     if mode == "nearest":
         return F.interpolate(x, scale_factor=2, mode="nearest")
-    raise NotImplementedError(
-        f"upsample mode {mode!r} is not ported yet (ROADMAP Queue A, item 14)"
-    )
+    if mode == "bilinear":
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    raise ValueError(f"unknown upsample mode {mode!r}")
 
 
 def concat_center_crop(inputs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -127,3 +288,16 @@ def concat_center_crop(inputs: Sequence[torch.Tensor]) -> torch.Tensor:
         dw = (t.shape[3] - tw) // 2
         cropped.append(t[:, :, dh : dh + th, dw : dw + tw])
     return torch.cat(cropped, dim=1)
+
+
+class GenNoise(nn.Module):
+    """A standard-normal tensor shaped like the NCHW input but with ``dim2``
+    channels, drawn from ``generator`` (reference ``models/common.py:45-60``)."""
+
+    def __init__(self, dim2: int):
+        super().__init__()
+        self.dim2 = dim2
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        shape = (x.shape[0], self.dim2) + tuple(x.shape[2:])
+        return torch.randn(shape, generator=generator, dtype=x.dtype, device=x.device)

@@ -15,7 +15,11 @@ The port's `LipschitzUNet` is flat and follows the same idea:
   * ``sn_state/SNConv2d_i/u``          -> ``SNConv2d_i.u`` (the power
     iteration's vector, ``sn_mode='power'`` only).
 
-Both take numpy arrays only (a flax tree after ``np.asarray``), so this
+:func:`params_from_flax` does the same for any net of the zoo whose
+submodules carry flax's names (:class:`~.common.ZooModule`): it walks the
+flax tree by name and takes its layout from the leaf's name and rank.
+
+All take numpy arrays only (a flax tree after ``np.asarray``), so this
 package needs nothing of JAX.
 """
 
@@ -25,6 +29,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def skip_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -83,4 +88,50 @@ def lipschitz_unet_params_from_flax(
             raise KeyError(f"unexpected flax module {name}")
     for name, sub in (sn_state or {}).items():
         state[f"{name}.u"] = _tensor(sub["u"])
+    return state
+
+
+def params_from_flax(params: Mapping, net: nn.Module) -> Dict[str, torch.Tensor]:
+    """A flax ``params`` tree of numpy arrays -> the state dict of ``net``,
+    the port's counterpart of the flax module.
+
+    Scopes map to submodules of the same name, with one exception: the
+    ``Conv_0`` inside a flax ``Conv2d_<n>`` wrapper is the port's
+    ``Conv2d_<n>`` itself.  Leaves:
+
+      * ``kernel`` -> ``weight``, the two feature axes moved to the front:
+        conv HWIO -> OIHW, DHWIO -> OIDHW, ``Dense`` (in, out) -> (out, in);
+      * ``scale`` (BatchNorm, LayerNorm) -> ``weight``;
+      * any other leaf (``bias``, ``bn_scale_0``, ...) keeps its name.
+
+    Raises ``KeyError`` for a flax parameter the net has no place for and
+    for a parameter of the net the tree does not give, ``ValueError`` for a
+    shape that does not fit."""
+    expected = net.state_dict()
+    state = {}
+
+    def walk(tree: Mapping, path: list) -> None:
+        for name, sub in tree.items():
+            if isinstance(sub, Mapping):
+                nested = name == "Conv_0" and path and path[-1].startswith("Conv2d_")
+                walk(sub, path if nested else path + [name])
+                continue
+            a = np.asarray(sub, dtype=np.float32)
+            leaf = {"kernel": "weight", "scale": "weight"}.get(name, name)
+            if name == "kernel":
+                a = a.transpose((a.ndim - 1, a.ndim - 2) + tuple(range(a.ndim - 2)))
+            key = ".".join(path + [leaf])
+            if key not in expected:
+                raise KeyError(
+                    f"flax parameter {'/'.join(path + [name])} has no counterpart {key!r} "
+                    f"in {type(net).__name__}"
+                )
+            if tuple(expected[key].shape) != a.shape:
+                raise ValueError(f"{key}: flax shape {a.shape}, port shape {tuple(expected[key].shape)}")
+            state[key] = torch.from_numpy(np.ascontiguousarray(a))
+
+    walk(params, [])
+    missing = sorted(set(dict(net.named_parameters())) - set(state))
+    if missing:
+        raise KeyError(f"the flax tree gives no value for {missing}")
     return state

@@ -9,11 +9,15 @@ Masked ISTA: for ``H = D[kept_rows]`` the pruned-row gradient equals
 
 and the reconstruction uses the full dictionary, ``Phi_z = x D^T``.
 
-:func:`pnp_ista_blocks` is the plain PyTorch loop and
-:func:`pnp_ista_blocks_fused` the same loop through kernel B1
-(``csrc/ista.cu``, CUDA tensors only).  :func:`sparse_prox` dispatches on
-the tensor's device: the kernel for tensors on the card, the plain loop for
-CPU tensors.
+:func:`pnp_ista_blocks` is the plain PyTorch loop, with any of the three
+denoisers: ``nlm_fast`` (skimage's fast-mode NLM, the Python reference's),
+``nlm_classic`` (the MATLAB twin's NLM) and ``bm3d``.
+:func:`pnp_ista_blocks_fused` is the loop through kernel B1 (``csrc/ista.cu``,
+CUDA tensors and ``nlm_fast`` only).  :func:`sparse_prox` launches the kernel
+exactly when the tensors are on the card and the denoiser is ``nlm_fast``, and
+runs the plain loop otherwise, on whatever device the tensors are: the JAX
+package likewise runs its Pallas kernel for ``nlm_fast`` only
+(``lrs_pnp_dip_tpu/ops/ista.py:_use_pallas``).
 """
 
 from __future__ import annotations
@@ -21,18 +25,24 @@ from __future__ import annotations
 import torch
 
 from ..utils.config import SparseProxConfig
+from .bm3d import Bm3dConfig, bm3d_coef_batch
 from .ista_cuda import ISTA_KERNEL
-from .nlm import nlm_column_batch_fast
+from .nlm import nlm_classic_column_batch, nlm_column_batch_fast
+
+# The BM3D profile of the coefficient denoiser (``lrs_pnp_dip_tpu/ops/ista.py:175``).
+_BM3D_COEF = Bm3dConfig(patch=4, stride=2, group=8, search=8, wiener=False)
 
 
-def _check_denoiser(cfg: SparseProxConfig) -> None:
-    if cfg.denoiser in ("nlm_classic", "bm3d"):
-        raise NotImplementedError(
-            f"denoiser={cfg.denoiser!r} is not ported yet: nlm_classic is ROADMAP "
-            "Queue A item 13 (MATLAB twin), bm3d is item 14 (long tail)"
-        )
-    if cfg.denoiser != "nlm_fast":
-        raise ValueError(f"unknown denoiser {cfg.denoiser!r}")
+def _denoiser(cfg: SparseProxConfig, h: torch.Tensor):
+    """The PnP denoiser of the loop, ``grad (nB, K) -> x (nB, K)`` with the
+    per-block bandwidth ``h`` (nB,)."""
+    if cfg.denoiser == "nlm_fast":
+        return lambda g: nlm_column_batch_fast(g, h)
+    if cfg.denoiser == "nlm_classic":
+        return lambda g: nlm_classic_column_batch(g, h)
+    if cfg.denoiser == "bm3d":
+        return lambda g: bm3d_coef_batch(g, h, _BM3D_COEF)
+    raise ValueError(f"unknown denoiser {cfg.denoiser!r}")
 
 
 def _alpha_trace4(D: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -83,7 +93,6 @@ def _round_operand(t: torch.Tensor, matmul_dtype: str) -> torch.Tensor:
 
 def _prepare(blocks, mask_blocks, D, cfg: SparseProxConfig, alpha):
     """The loop's inputs in f32: (Ym = M * Y, M, D, alpha, per-block NLM h)."""
-    _check_denoiser(cfg)
     Y = blocks.to(torch.float32)
     M = mask_blocks.to(torch.float32)
     D = D.to(torch.float32)
@@ -105,13 +114,14 @@ def pnp_ista_blocks(
     """Masked PnP-ISTA on every block from x0 = 0, plain PyTorch; returns
     the coefficients (nB, K).  This is the plain version of kernel B1."""
     Ym, M, D, alpha, h = _prepare(blocks, mask_blocks, D, cfg, alpha)
+    denoise = _denoiser(cfg, h)
     Dm = _round_operand(D, cfg.matmul_dtype)
     x = torch.zeros((Ym.shape[0], D.shape[1]), dtype=torch.float32, device=Ym.device)
     for _ in range(cfg.n_iter):
         pred = _round_operand(x, cfg.matmul_dtype) @ Dm.T  # (nB, P)
         resid = Ym - M * pred
         grad = x + (_round_operand(resid, cfg.matmul_dtype) @ Dm) / alpha[:, None]
-        x = nlm_column_batch_fast(grad, h)
+        x = denoise(grad)
     return x
 
 
@@ -123,8 +133,14 @@ def pnp_ista_blocks_fused(
     alpha=None,
 ) -> torch.Tensor:
     """:func:`pnp_ista_blocks` in one launch of kernel B1 and nothing else
-    on the card (with ``alpha`` given); takes CUDA tensors only and raises
-    on anything else, and on a shape the kernel does not take."""
+    on the card (with ``alpha`` given); takes CUDA tensors and the
+    ``nlm_fast`` denoiser only and raises on anything else, and on a shape the
+    kernel does not take."""
+    if cfg.denoiser != "nlm_fast":
+        raise ValueError(
+            f"kernel B1 runs the nlm_fast denoiser only, not {cfg.denoiser!r}: "
+            "sparse_prox runs the plain loop for the others"
+        )
     for name, t in (("blocks", blocks), ("mask_blocks", mask_blocks), ("D", D)):
         if t.device.type != "cuda" or t.device != blocks.device:
             raise ValueError(f"{name} must be on the CUDA device {blocks.device}, got {t.device}")
@@ -135,7 +151,6 @@ def pnp_ista_blocks_fused(
         )
     if cfg.matmul_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown matmul_dtype {cfg.matmul_dtype!r}")
-    _check_denoiser(cfg)
     Y = blocks.to(torch.float32).contiguous()
     M = mask_blocks.to(torch.float32).contiguous()
     D = D.to(torch.float32)
@@ -158,7 +173,9 @@ def sparse_prox(
 ) -> torch.Tensor:
     """Full sparse-coding prox: ISTA coefficients + full-dictionary
     reconstruction (reference ``Phi_z[:, j] = D @ Coefs``).  Returns the
-    reconstructed blocks (nB, P)."""
-    ista = pnp_ista_blocks_fused if blocks.is_cuda else pnp_ista_blocks
+    reconstructed blocks (nB, P).  Kernel B1 for ``nlm_fast`` on the card,
+    the plain loop otherwise."""
+    fused = blocks.is_cuda and cfg.denoiser == "nlm_fast"
+    ista = pnp_ista_blocks_fused if fused else pnp_ista_blocks
     coefs = ista(blocks, mask_blocks, D, cfg, alpha=alpha)
     return coefs @ D.to(torch.float32).T

@@ -26,7 +26,8 @@ class SparseProxConfig:
     backend: Literal["auto", "xla", "pallas"] = "auto"
     # Kept so the presets equal the JAX package's field for field.  The port
     # does not read it: ``ops.ista.sparse_prox`` runs the fused CUDA kernel
-    # for tensors on the card and the plain PyTorch loop for CPU tensors.
+    # for tensors on the card with the nlm_fast denoiser, and the plain
+    # PyTorch loop otherwise.
     matmul_dtype: Literal["float32", "bfloat16"] = "float32"
     # 'bfloat16': the two matrix products per ISTA iteration take bf16
     # operands and accumulate in f32; the NLM, step sizes and the carried

@@ -1,20 +1,20 @@
 #!/usr/bin/env python3
 """Where one outer step of a preset of the port spends its time, on the card.
 
-    python scripts/profile_port_step.py [--variant dip] [--dip-iters 100] \\
-        [--trace-iters 40] [--trace-out FILE]
+    python scripts/profile_port_step.py [--variant dip] [--dip-net KEY] \\
+        [--dip-iters 100] [--trace-iters 40] [--trace-out FILE]
 
-``--variant`` is any preset that runs (`dip`, `dip_1lip`, `dip_fast`,
-`lrs_pnp`, ...).  At the reference size (synthetic_sample(36, 36, 128,
-seed=0), the shipped dictionary, the preset's own net, 144 blocks), after
-one warm-up step, it prints:
+``--variant`` is any preset (`dip`, `dip_1lip`, `dip_fast`, `lrs_pnp`,
+`matlab`, ...); ``--dip-net`` a ``get_net`` key that replaces the preset's
+net.  At the reference size (synthetic_sample(36, 36, 128, seed=0), the
+shipped dictionary, 144 blocks), after one warm-up step, it prints:
 
   * the wall time of one outer step with the DIP fit capped at
     ``--dip-iters`` iterations (the early stop may end it sooner);
   * the sparse prox's time (CUDA events) and, for `lrs_pnp`, the SVT's;
   * for a DIP preset, the fit's time per iteration and a torch.profiler
-    table of ``--trace-iters`` DIP iterations; for `lrs_pnp`, the same
-    table of one outer step: device time and host time by operator, the
+    table of ``--trace-iters`` DIP iterations; for `lrs_pnp` and `matlab`,
+    the same table of one outer step: device time and host time by operator, the
     device's busy share of the wall time;
 
 and, with ``--trace-out``, writes the Chrome trace there.  It needs a CUDA
@@ -54,7 +54,8 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variant", default="dip", choices=sorted(set(PRESETS) - {"matlab"}))
+    ap.add_argument("--variant", default="dip", choices=sorted(PRESETS))
+    ap.add_argument("--dip-net", default="default", help="a get_net key for the DIP fit")
     ap.add_argument("--dip-iters", type=int, default=100)
     ap.add_argument("--trace-iters", type=int, default=40)
     ap.add_argument("--trace-out", default=None, help="Chrome trace file to write")
@@ -64,11 +65,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}; variant {args.variant}")
+    print(f"card: {smi}; torch {torch.__version__}; variant {args.variant}, dip_net {args.dip_net}")
 
     sample = synthetic_sample(36, 36, 128, seed=0)
     D = load_trained_dictionary(512)
-    cfg = PRESETS[args.variant]()
+    cfg = PRESETS[args.variant](dip_net=args.dip_net)
     if cfg.dip is not None:
         cfg = dataclasses.replace(cfg, dip=dataclasses.replace(cfg.dip, num_iter=args.dip_iters))
     solver = Solver(sample, D, cfg, device=device)
@@ -83,8 +84,9 @@ def main() -> int:
     grid = block_grid((36 * 36, 128), cfg.block_size, cfg.stride)
     blocks = extract_blocks(state.X + state.lambda1 / cfg.mu1, grid)
     prox_ms = cuda_ms(lambda: sparse_prox(blocks, c.mask_blocks, c.D, cfg.sparse, alpha=c.alpha))
-    print(f"sparse prox (B1 + reconstruction, {cfg.sparse.matmul_dtype} operands, "
-          f"{cfg.sparse.n_iter} iterations): {prox_ms:.3f} ms")
+    print(f"sparse prox ({cfg.sparse.denoiser}: B1 for nlm_fast, else the plain loop; with the "
+          f"reconstruction, {cfg.sparse.matmul_dtype} operands, {cfg.sparse.n_iter} iterations): "
+          f"{prox_ms:.3f} ms")
 
     if cfg.dip is None:
         z = state.X + state.lambda2 / cfg.mu2

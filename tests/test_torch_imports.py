@@ -21,6 +21,8 @@ from lrs_pnp_dip_tpu_torch.ops import ista_cuda, svt
 from lrs_pnp_dip_tpu_torch.solvers import batch, tiled
 from lrs_pnp_dip_tpu_torch.data import tiles
 from lrs_pnp_dip_tpu_torch.models import lipschitz, lipschitz_unet
+from lrs_pnp_dip_tpu_torch.models import attention, deep_decoder, downsampler, resnet, texture_nets, unet, unet3d
+from lrs_pnp_dip_tpu_torch.ops import bm3d, nlm, proxlib, ssim
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lrs_pnp_dip_tpu"))
 assert not bad, bad

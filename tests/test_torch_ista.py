@@ -206,9 +206,26 @@ def test_bf16_order_sensitivity(main_path_blocks, sparse, limit):
 
 @pytest.mark.parametrize("denoiser", ["nlm_classic", "bm3d"])
 def test_unported_denoisers_raise(denoiser):
+    """The denoisers kernel B1 does not implement: its wrapper raises for
+    them (before it looks at the device), and ``sparse_prox`` runs them in
+    the plain loop, which matches the JAX package's XLA path (computed with
+    subnormals flushed to zero, as XLA's CPU backend computes: at these
+    bandwidths some NLM weights are subnormal, ``tests/test_torch_matlab.py``).
+    On the card ``chip_smoke.py`` shows the same rule: no launch of B1 for
+    them."""
     Y, M, D = _problem(5, nB=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tista.sparse_prox(*_t(Y, M, D), SparseProxConfig(n_iter=2, denoiser=denoiser))
+    cfg = SparseProxConfig(n_iter=2, denoiser=denoiser)
+    with pytest.raises(ValueError, match="nlm_fast denoiser only"):
+        pnp_ista_blocks_fused(*_t(Y, M, D), cfg)
+    with pytest.raises(ValueError, match="unknown denoiser"):
+        tista.sparse_prox(*_t(Y, M, D), SparseProxConfig(n_iter=2, denoiser="tv"))
+    assert torch.set_flush_denormal(True)
+    try:
+        ours = tista.sparse_prox(*_t(Y, M, D), cfg).numpy()
+    finally:
+        torch.set_flush_denormal(False)
+    ref = np.asarray(jista.sparse_prox(jnp.asarray(Y), jnp.asarray(M), jnp.asarray(D), _jcfg(cfg)))
+    np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,8 @@ from lrs_pnp_dip_tpu.solvers import admm as jadmm
 from lrs_pnp_dip_tpu.utils import config as jconfig
 from lrs_pnp_dip_tpu_torch.data import synthetic_sample
 from lrs_pnp_dip_tpu_torch.models import (
-    ConvOperatorNorm, Identity, LipschitzUNet, Skip, SNBatchNorm2d, SNConv2d,
-    get_net, lipschitz_unet_params_from_flax,
+    ConvOperatorNorm, DeepDecoder, Identity, LipschitzUNet, ResDecoder, ResNet, Skip,
+    SNBatchNorm2d, SNConv2d, TextureNet, UNet, UNet3D, get_net, lipschitz_unet_params_from_flax,
 )
 from lrs_pnp_dip_tpu_torch.models import lipschitz as tlip
 from lrs_pnp_dip_tpu_torch.solvers import Solver
@@ -298,9 +298,13 @@ def test_get_net_and_default_net():
     assert isinstance(ident, Identity)
     x = torch.rand((1, 4, 4, 16), generator=torch.Generator().manual_seed(0))
     assert torch.equal(ident(x), x)
-    for key in ("ResNet", "texture_nets", "UNet", "UNet3D", "deep_decoder", "res_decoder"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 14"):
-            get_net(16, key)
+    zoo = {"ResNet": ResNet, "texture_nets": TextureNet, "UNet": UNet, "UNet3D": UNet3D,
+           "deep_decoder": DeepDecoder, "res_decoder": ResDecoder}
+    for key, cls in zoo.items():
+        net = get_net(16, key, n_channels=16)
+        assert type(net) is cls
+        first = next(p for p in net.parameters() if p.ndim > 1)
+        assert first.shape[1] == 16  # input_depth is the first layer's input width
     with pytest.raises(ValueError, match="unknown net_type"):
         get_net(16, "transformer")
     assert isinstance(default_net(tconfig.dip_preset(), 16), Skip)
@@ -308,5 +312,4 @@ def test_get_net_and_default_net():
     assert isinstance(one_lip, LipschitzUNet) and one_lip.SNConv2d_0.sn_mode == "exact"
     assert isinstance(default_net(tconfig.dip_preset(dip_net="lipschitz_unet"), 16), LipschitzUNet)
     assert default_net(tconfig.lrs_pnp_preset(), 16) is None
-    with pytest.raises(NotImplementedError, match="item 14"):
-        default_net(tconfig.dip_preset(dip_net="deep_decoder"), 16)
+    assert isinstance(default_net(tconfig.dip_preset(dip_net="deep_decoder"), 16), DeepDecoder)

@@ -171,17 +171,18 @@ def test_every_ported_preset_runs_through_inpaint_on_the_cpu(variant):
 
 
 def test_inpaint_on_cpu_and_unported_entry_points():
-    """What still raises names its ROADMAP item: the `matlab` preset
-    (nlm_classic), bm3d, and learning a dictionary (block_size != 36 without
-    ``dictionary=``), through ``inpaint`` and ``inpaint_scene`` alike."""
+    """The `matlab` preset (nlm_classic) and the bm3d denoiser run through
+    ``inpaint``; what still raises names its ROADMAP item: learning a
+    dictionary (block_size != 36 without ``dictionary=``), through
+    ``inpaint`` and ``inpaint_scene`` alike."""
     s = synthetic_sample(12, 12, 16, missing=0.1, seed=5)
     kw = dict(dictionary=_dictionary(), device="cpu", block_size=6, stride=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 13"):
-        inpaint(s.noisy, s.mask, variant="matlab", **kw)
+    cube, hist = inpaint(s.noisy, s.mask, variant="matlab", clean=s.clean, n_iters=2, **kw)
+    assert cube.shape == (12, 12, 16) and np.isfinite(cube).all() and len(hist["mpsnr"]) == 2
     bm3d = tconfig.lrs_pnp_preset(
-        block_size=6, stride=6, sparse=tconfig.SparseProxConfig(denoiser="bm3d"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        inpaint(s.noisy, s.mask, config=bm3d, dictionary=_dictionary(), device="cpu")
+        block_size=6, stride=6, sparse=tconfig.SparseProxConfig(n_iter=3, denoiser="bm3d"))
+    cube, hist = inpaint(s.noisy, s.mask, config=bm3d, dictionary=_dictionary(), device="cpu")
+    assert cube.shape == (12, 12, 16) and np.isfinite(cube).all() and len(hist["mpsnr"]) == 2
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 14"):
         inpaint(s.noisy, s.mask, variant="lrs_pnp", device="cpu", block_size=6, stride=6)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 14"):
