@@ -51,7 +51,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                that keeps the iterate's shape (DIP fit capped at 100), one
                launch of B1 at nB 144 each, and each other key failing
                where the JAX package fails;
-  7. report  — the total time, the card's name and power limit, a
+  7. long tail — the auto-dictionary and the rest of the JAX package's
+               surface, at full width: inpaint(variant="dip", block_size=24,
+               stride=24, n_iters=2) without dictionary= (it learns K atoms
+               from the observed pixels; one launch of B1 per outer step at
+               nB 324, P 576; DIP capped as in phase 5), the masked branch of
+               the learning, learn_dictionary card against CPU (2 outer
+               steps), B1 against its plain loop at nB 324 / P 576 (clusters
+               of 8 in f32) with K 512, 196 (the eighth CTA owns no column)
+               and 200 (four), f32 and bf16, timed at K 512 beside its bound
+               and the f32 and bf16 matmul yardsticks; inpaint_scene(
+               variant="lrs_pnp", block_size=24) without dictionary= on the
+               72x72x128 scene (learned from the central probe; one launch per
+               outer step at nB 4 x 324, tiles cut by the native library);
+               checkpoint and resume of an lrs_pnp solve (equal bits) and of a
+               dip solve's generator; fit() with adam, sgd and lbfgs; the
+               native host library against the port's torch functions; one
+               warm lrs_pnp outer step under utils.profiling.trace;
+  8. report  — the total time, the card's name and power limit, a
                {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -114,6 +131,22 @@ BM3D_CUBE_MATCH = (1e-2, 0.05)
 ZOO_MATCH = 5e-4
 # The DIP fit's cap in the zoo's outer steps.
 ZOO_DIP_CAP = 100
+# learn_dictionary on the card against the CPU from the same patches, two
+# outer steps at full width, relative L2 of the dictionaries.  MOD solves
+# with Z Z^T + 1e-6 I, which is ill-conditioned at full width (atoms that few
+# patches use), so the order of the sums alone moves the dictionary by far
+# more than rounding: the limit is 4 times what
+# the card's own learning moves when only the order of the patches changes,
+# and at least LEARN_MATCH.  The dictionaries are also held by what they are
+# for, the relative error with which they code the patches (LEARN_RECON).
+LEARN_MATCH = 1e-3
+LEARN_RECON = 1e-2
+# A resumed lrs_pnp step against the uninterrupted one, max |delta| / max |X|,
+# should cuSOLVER's eigh not repeat its bits (B1 does).
+RESUME_MATCH = 1e-6
+# The native host library's column NLM (double sums) against the port's
+# (f32 on the card), max |delta| on coefficients of order 0.1 to 1.
+NLM_MATCH = 1e-5
 
 
 # get_net keys whose net does not keep the (1, H, W, B) shape of the iterate
@@ -155,7 +188,7 @@ def time_cuda(fn, warmup: int = 2, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def problem(height: int, width: int, seed: int, dictionary, device="cuda"):
+def problem(height: int, width: int, seed: int, dictionary, device="cuda", block_size: int = 36):
     """Blocks, masks and trace4 alpha of a synthetic cube, as the first
     outer step of the dip solve hands them to the sparse prox."""
     from lrs_pnp_dip_tpu_torch.data import synthetic_sample
@@ -164,7 +197,7 @@ def problem(height: int, width: int, seed: int, dictionary, device="cuda"):
     from lrs_pnp_dip_tpu_torch.utils.config import dip_preset
 
     sample = synthetic_sample(height, width, 128, seed=seed)
-    cfg = dip_preset()
+    cfg = dip_preset(block_size=block_size, stride=block_size)
     consts = make_consts(sample, dictionary, cfg, device=device)
     grid = block_grid((height * width, 128), cfg.block_size, cfg.stride)
     return extract_blocks(consts.Y, grid), consts.mask_blocks, consts.D, consts.alpha
@@ -292,6 +325,295 @@ def relative_error(got, ref):
     got, ref = torch.as_tensor(got).cpu().double(), torch.as_tensor(ref).cpu().double()
     d = got - ref
     return float(d.abs().max() / ref.abs().max()), float(d.norm() / ref.norm())
+
+
+def native_checks(native, sample, scene) -> list:
+    """The native host library against the port's torch functions: block
+    extraction and scatter at blocks 36 and 24 (at most two terms per entry,
+    so the sums are exact), tile extraction against numpy slicing, and the
+    column NLM within NLM_MATCH.  Returns what failed."""
+    import numpy as np
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.data import tiles
+    from lrs_pnp_dip_tpu_torch.ops import block_grid, extract_blocks, nlm_column_batch, scatter_blocks
+
+    failures = []
+    Y = torch.from_numpy(sample.noisy.reshape(1296, 128)).cuda()
+    for bb in (36, 24):
+        grid = block_grid((1296, 128), bb, bb)
+        ours = native.extract_blocks(Y.cpu().numpy(), bb, bb)
+        if not np.array_equal(ours, extract_blocks(Y, grid).cpu().numpy()):
+            failures.append(f"native extract_blocks differs at block {bb}")
+        im, wt = native.scatter_blocks(ours, (1296, 128), bb, bb)
+        torch_im = scatter_blocks(torch.from_numpy(ours).cuda(), grid).cpu().numpy()
+        if not (np.array_equal(im, torch_im) and np.array_equal(wt, grid.weight().numpy())):
+            failures.append(f"native scatter_blocks differs at block {bb}")
+    origins = tiles.tile_origins(72, 72, 36, 36)
+    cut = native.extract_tiles(scene.noisy, origins, 36, 36)
+    if not all(np.array_equal(t, scene.noisy[h0:h0 + 36, w0:w0 + 36]) for t, (h0, w0) in zip(cut, origins)):
+        failures.append("native extract_tiles differs from numpy slicing")
+    rng = np.random.default_rng(0)
+    G = (0.3 * rng.standard_normal((324, 512))).astype(np.float32)
+    h = rng.uniform(0.05, 0.5, 324).astype(np.float32)
+    delta = float(np.abs(native.nlm_column_batch(G, h) - nlm_column_batch(
+        torch.from_numpy(G).cuda(), torch.from_numpy(h).cuda()).cpu().numpy()).max())
+    log(f"  extract_blocks / scatter_blocks (blocks 36 and 24) and extract_tiles: equal bits; "
+        f"nlm_column_batch (324 x 512) max|delta| {delta:.3e} (limit {NLM_MATCH})")
+    if not delta < NLM_MATCH:
+        failures.append("native nlm_column_batch disagrees with the port's")
+    return failures
+
+
+def long_tail(port, sample, input_mpsnr, scene, scene_in, capped, by_path, smi, peaks) -> dict:
+    """Phase 7 (module docstring).  Adds the driven paths' launches of B1 to
+    ``by_path``; returns B1's times at the auto-dictionary shape."""
+    import glob
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lrs_pnp_dip_tpu_torch import native
+    from lrs_pnp_dip_tpu_torch.api import _auto_dictionary
+    from lrs_pnp_dip_tpu_torch.data import learn_dictionary, synthetic_sample
+    from lrs_pnp_dip_tpu_torch.data.dictionary import _ista_code, _mod_step, column_normalize, extract_training_patches
+    from lrs_pnp_dip_tpu_torch.models import dip_skip_128, get_net
+    from lrs_pnp_dip_tpu_torch.ops import (
+        ISTA_KERNEL, block_grid, compute_alpha, extract_blocks, mpsnr, nlm_column_batch, pnp_ista_blocks,
+        pnp_ista_blocks_fused, scatter_blocks,
+    )
+    from lrs_pnp_dip_tpu_torch.solvers import FitConfig, Solver, fit, init_state
+    from lrs_pnp_dip_tpu_torch.utils import get_noise
+    from lrs_pnp_dip_tpu_torch.utils.checkpoint import SolverCheckpointer
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig, dip_preset, lrs_pnp_preset
+    from lrs_pnp_dip_tpu_torch.utils.profiling import annotate, trace
+
+    t_phase = time.perf_counter()
+    auto = dict(block_size=24, stride=24)
+    # what fails in the native library's checks is raised at the end of the
+    # phase, so that one run shows the rest of the phase too
+    native_failures = []
+    try:
+        native.LIBRARY.load()
+        log(f"[long tail] native host library built and loaded from {native.LIBRARY.build()}")
+    except native.NativeUnavailable as e:
+        native_failures.append(f"the native host library does not build here: {e}")
+        log(f"[long tail] {native_failures[-1]}")
+
+    def learn(s):
+        """The auto-dictionary of ``s`` at block 24, timed, with its branch."""
+        patches, mask_patches = extract_training_patches([s.noisy], block_size=24, stride=1, masks=[s.mask])
+        n_full = int((mask_patches.min(axis=0) > 0).sum())
+        branch = "full" if n_full >= max(64, patches.shape[1] // 4) else "masked"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D = _auto_dictionary(s, dip_preset(**auto))
+        torch.cuda.synchronize()
+        return D, branch, f"{n_full} of {patches.shape[1]} patches fully observed", time.perf_counter() - t0
+
+    log("[long tail] the auto-dictionary at block_size 24 on synthetic_sample(36, 36, 128, seed=0)")
+    D_auto, branch, counts, cold_s = learn(sample)
+    _, _, _, warm_s = learn(sample)
+    log(f"  learned ({branch} branch, {counts}): K={D_auto.shape[1]}, P={D_auto.shape[0]}; "
+        f"{cold_s:.3f} s cold, {warm_s:.3f} s warm; card {smi}")
+    if branch != "full" or D_auto.shape != (576, 512):
+        raise AssertionError(f"expected the full branch and a (576, 512) dictionary, got {branch} {D_auto.shape}")
+    holed = synthetic_sample(36, 36, 128, missing=0.2, seed=0)
+    D_masked, branch, counts, masked_s = learn(holed)
+    log(f"  missing=0.2: {branch} branch ({counts}), K={D_masked.shape[1]}, {masked_s:.3f} s")
+    if branch != "masked" or not np.isfinite(D_masked).all():
+        raise AssertionError(f"expected finite atoms from the masked branch, got {branch}")
+
+    log(f"[long tail] inpaint(variant='dip', block_size=24, stride=24, n_iters=2) without dictionary=, "
+        f"DIP fit capped at {DIP_CAP}")
+    (cube, hist), wall = drive("auto-dictionary dip", lambda: port.inpaint(
+        sample.noisy, sample.mask, variant="dip", clean=sample.clean, n_iters=2, **auto, **capped("dip")),
+        launches=2, nB=324)
+    plan = ISTA_KERNEL.last_plan
+    by_path["dip, auto-dictionary"] = ISTA_KERNEL.launches
+    if (plan.P, plan.K, plan.cluster_size) != (576, 512, 8):
+        raise AssertionError(f"B1 took P={plan.P}, K={plan.K}, clusters of {plan.cluster_size}")
+    check_recovery("auto-dictionary dip", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
+    log(f"  wall {wall:.2f} s (learning included), mpsnr {input_mpsnr:.4f} -> "
+        f"{[round(v, 4) for v in hist['mpsnr']]}, DIP iterations {[int(v) for v in hist['dip_iters']]}, "
+        f"per step {[round(v, 3) for v in hist['seconds']]} s; B1 launches {ISTA_KERNEL.launches} "
+        f"(nB {plan.nB}, P {plan.P}, K {plan.K}: {plan.n_clusters} clusters of {plan.cluster_size})")
+
+    log("[long tail] learn_dictionary(n_outer=2) on the card against the CPU, from the same patches")
+    patches, mask_patches = extract_training_patches([sample.noisy], block_size=24, stride=1, masks=[sample.mask])
+    full = np.ascontiguousarray(patches[:, mask_patches.min(axis=0) > 0])
+    kw = dict(n_atoms=512, n_outer=2, sparse_iters=20)
+    times = {}
+    learned = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learned[dev] = learn_dictionary(full, device=dev, **kw)
+        times[dev] = time.perf_counter() - t0
+    # the same two MOD steps on the card, from the same initial atoms, with
+    # the patches in another order: only the order of the sums changes
+    rng = np.random.default_rng(0)  # learn_dictionary's init, seed 0
+    init_idx = rng.choice(full.shape[1], size=512, replace=full.shape[1] < 512)
+    noise = rng.standard_normal((full.shape[0], 512)).astype(np.float32)
+    D_shuffled = column_normalize(torch.from_numpy(full[:, init_idx] + 1e-3 * noise).cuda())
+    Y_shuffled = torch.from_numpy(full[:, np.random.default_rng(1).permutation(full.shape[1])]).cuda()
+    for _ in range(kw["n_outer"]):
+        D_shuffled = _mod_step(Y_shuffled, D_shuffled, 0.05, kw["sparse_iters"])
+    shuffled = D_shuffled.cpu().numpy()
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def recon(D):
+        Yc = torch.from_numpy(full).cuda()
+        Dc = torch.from_numpy(D).cuda()
+        Z = _ista_code(Yc, Dc, 0.05, 20)
+        return float(torch.linalg.vector_norm(Dc @ Z - Yc) / torch.linalg.vector_norm(Yc))
+
+    rel = rel_l2(learned["cuda"], learned["cpu"])
+    order = rel_l2(shuffled, learned["cuda"])
+    limit = max(LEARN_MATCH, 4 * order)
+    errs = [recon(learned[dev]) for dev in ("cuda", "cpu")]
+    log(f"  {full.shape[1]} patches of {full.shape[0]}, K 512: card {times['cuda']:.3f} s, CPU {times['cpu']:.3f} s; "
+        f"relative L2 {rel:.3e} (the card's own, patches in another order: {order:.3e}; limit {limit:.3e}); "
+        f"coding error card {errs[0]:.5f}, CPU {errs[1]:.5f} (limit {LEARN_RECON} apart, relative)")
+    if not (rel < limit and abs(errs[0] - errs[1]) < LEARN_RECON * errs[1]):
+        raise AssertionError("the card's learning disagrees with the CPU's")
+
+    log("[long tail] B1 against the plain loop at the auto-dictionary's tiling: nB 324, P 576")
+    blocks, masks, D, alpha = problem(36, 36, 0, D_auto, block_size=24)
+    if blocks.shape != (324, 576):
+        raise AssertionError(f"expected 324 blocks of 576, got {tuple(blocks.shape)}")
+    dip_sparse = dip_preset().sparse
+    for K in (512, 196, 200):
+        D_k = D[:, :K].contiguous()
+        alpha_k = alpha if K == 512 else compute_alpha(D_k, masks, dip_sparse)
+        for mm in ("float32", "bfloat16"):
+            check_kernel(blocks, masks, D_k, alpha_k, mm)
+            segs = ISTA_KERNEL.plan(324, 576, K, mm == "bfloat16").k_segments()
+            log(f"        last CTA's columns {segs[-1]} (halo 4)")
+    for mm in ("float32", "bfloat16"):
+        check_same_bits(blocks, masks, D, alpha, mm)
+    n_iter = 100
+    x = torch.zeros((324, 512), device="cuda")
+    r = torch.zeros((324, 576), device="cuda")
+    timing = {}
+    for mm in ("float32", "bfloat16"):
+        cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
+        k_ms = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha))
+        p_ms = time_cuda(lambda: pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha), reps=3)
+        xo, ro, Do = (t.to(torch.bfloat16) for t in (x, r, D)) if mm == "bfloat16" else (x, r, D)
+
+        def matmuls():
+            for _ in range(n_iter):
+                torch.matmul(xo, Do.T)
+                torch.matmul(ro, Do)
+
+        lib_ms = time_cuda(matmuls)
+        b_ms, by, flops, io_bytes = bound_ms(324, 576, 512, n_iter, mm, peaks)
+        timing[mm] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
+        log(f"  {mm:9s} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({by}, {flops:.3e} flops) "
+            f"-> {b_ms / k_ms:.1%} of bound; {2 * n_iter} {mm} torch.matmul calls {lib_ms:.4f} ms; card {smi}")
+
+    log("[long tail] inpaint_scene(variant='lrs_pnp', block_size=24, stride=24, tile_batch=4) without "
+        "dictionary= on the 72x72x128 scene")
+    native_calls = []
+    real_extract = native.extract_tiles
+
+    def counted_extract(*args):
+        native_calls.append(len(args[1]))
+        return real_extract(*args)
+
+    native.extract_tiles = counted_extract  # the extractor a TileLoader takes when it is built
+    try:
+        rec, wall = drive("auto-dictionary scene", lambda: port.inpaint_scene(
+            scene.noisy, scene.mask, variant="lrs_pnp", tile_batch=4, **auto), launches=2, nB=4 * 324)
+    finally:
+        native.extract_tiles = real_extract
+    by_path["inpaint_scene, auto-dictionary"] = ISTA_KERNEL.launches
+    scene_out = float(mpsnr(torch.from_numpy(scene.clean), torch.from_numpy(rec)))
+    check_recovery("auto-dictionary scene", rec, (72, 72, 128), scene_out, scene_in)
+    log(f"  wall {wall:.2f} s (learning included), mpsnr {scene_in:.4f} -> {scene_out:.4f}, B1 launches "
+        f"{ISTA_KERNEL.launches} (nB {ISTA_KERNEL.last_plan.nB}); tiles cut by the native library: {native_calls}")
+    if native_calls != [4]:
+        native_failures.append(f"the scene's TileLoader did not take the native extractor once: {native_calls}")
+
+    log("[long tail] checkpoint and resume")
+    lrs_solver = Solver(sample, D_auto, lrs_pnp_preset(**auto))
+    st1, _ = lrs_solver.step(lrs_solver.init_state())
+    st2, _ = lrs_solver.step(st1)
+    with tempfile.TemporaryDirectory() as ck_dir:
+        ck = SolverCheckpointer(ck_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(int(st1.itr), st1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = ck.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(ck_dir, "step_1.pt"))
+        resumed, _ = lrs_solver.step(restored)
+        same = torch.equal(resumed.X, st2.X) and torch.equal(resumed.lambda1, st2.lambda1)
+        err = float((resumed.X - st2.X).abs().max() / st2.X.abs().max())
+        log(f"  lrs_pnp: save {save_s * 1e3:.2f} ms, restore {restore_s * 1e3:.2f} ms, {size} bytes; resumed "
+            f"step 2 {'equals' if same else 'differs from'} the uninterrupted one "
+            f"(max|dX|/max|X| = {err:.3e}, limit {RESUME_MATCH})")
+        if not (same or err <= RESUME_MATCH):
+            raise AssertionError("the resumed lrs_pnp step disagrees with the uninterrupted one")
+        state = init_state(sample, seed=0)
+        ck.save(0, state)
+        restored = ck.restore(0)
+        net = dip_skip_128(num_channels=128).cuda()
+        inits = []
+        for gen in (state.generator, restored.generator):
+            net.reset_parameters(gen)
+            inits.append({k: v.clone() for k, v in net.state_dict().items()})
+        if restored.generator.device.type != "cuda" or not all(
+                torch.equal(inits[0][k], inits[1][k]) for k in inits[0]):
+            raise AssertionError("the restored generator draws another DIP init")
+        log(f"  dip: the restored CUDA generator draws the same first skip-128 init, "
+            f"{sum(v.numel() for v in inits[0].values())} values, equal bits")
+
+    log("[long tail] fit(get_net('skip')) on the 36x36x128 target: adam (find_best), sgd (lr decay), lbfgs")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    net = get_net(32, "skip", pad="reflection", n_channels=128)
+    inp = get_noise(g, 32, (36, 36))
+    for cfg in (FitConfig(num_iter=20, lr=0.01),
+                FitConfig(num_iter=20, lr=0.01, optimizer="sgd", lr_decay_epoch=5),
+                FitConfig(num_iter=5, optimizer="lbfgs")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(net, g, inp, sample.noisy[None], mask=sample.mask[None, :, :, None], config=cfg)
+        torch.cuda.synchronize()
+        losses = res.losses.cpu()
+        log(f"  {cfg.optimizer:5s} {cfg.num_iter} steps {time.perf_counter() - t0:.2f} s: loss "
+            f"{float(losses[0]):.5f} -> {float(losses[-1]):.5f}")
+        if not (bool(torch.isfinite(losses).all()) and bool(torch.isfinite(res.out).all())
+                and float(losses[-1]) < float(losses[0])):
+            raise AssertionError(f"fit with {cfg.optimizer}: non-finite or no fall in the loss")
+
+    log("[long tail] the native host library against the port's torch functions")
+    if not native_failures:
+        native_failures.extend(native_checks(native, sample, scene))
+
+    log("[long tail] one warm lrs_pnp outer step under utils.profiling.trace")
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with trace(trace_dir):
+            with annotate("lrs_pnp_outer_step"):
+                lrs_solver.step(st1)
+        (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+        text = open(path).read()
+    names = ("pnp_ista_cluster_f32", "lrs_pnp_outer_step")
+    log(f"  Chrome trace {len(text)} bytes; names {', '.join(f'{n}: {n in text}' for n in names)}")
+    if not all(n in text for n in names):
+        raise AssertionError("the trace does not name B1's kernel and the annotation")
+    log(f"  (long-tail phase {time.perf_counter() - t_phase:.1f} s)")
+    if native_failures:
+        raise AssertionError("; ".join(native_failures))
+    return timing
 
 
 def main() -> int:
@@ -665,7 +987,10 @@ def main() -> int:
 
     log(f"  (zoo dip steps {time.perf_counter() - t_phase:.1f} s)")
 
-    # 7. report
+    # 7. the long tail
+    auto_timing = long_tail(port, sample, input_mpsnr, scene, scene_in, capped, by_path, smi, peaks)
+
+    # 8. report
     log(f"[report] chip_smoke.py total {time.perf_counter() - t_start:.1f} s")
     t = timing["float32"]
     kernels = [{
@@ -681,6 +1006,8 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": library_ms,
+        # B1 at the auto-dictionary's shape (nB 324, P 576, K 512), f32 and bf16
+        "at_nB324_P576_K512": auto_timing,
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -7,13 +7,16 @@ ADMM-style outer loop.  The JAX package ``lrs_pnp_dip_tpu`` is the
 reference; this package imports nothing of it and nothing of JAX.
 
 Layout mirrors the JAX package:
-  data/      canonical HSI layout, masks, the shipped dictionary, tile streaming
+  data/      canonical HSI layout, .mat loaders, masks, dictionary learning
+             and the shipped dictionary, tile streaming
   ops/       blocks, PnP-ISTA (plain and the CUDA kernel), the NLM and BM3D
              denoisers, SVT, data fidelity, metrics (PSNR/SSIM), proxlib
   models/    the DIP model zoo behind get_net and the flax weight transplant
   solvers/   the ADMM engine, DIP trainer, early stopping, the lockstep
-             (batched, seed-ensemble) engines and tiled scenes
-  utils/     config presets, device selection
+             (batched, seed-ensemble) engines, tiled scenes, the generic fit
+  utils/     config presets, device selection, noise inputs, checkpoints,
+             logging, profiling, figures
+  native.py  ctypes bindings to the host library native/lrs_native.cc
   csrc/      hand-written CUDA kernels, built with nvcc at first use
 """
 

@@ -6,8 +6,10 @@
     cube, info = inpaint(noisy, mask, variant="dip_tuned", seeds=[0, 1, 2])
     scene = inpaint_scene(noisy, mask, variant="lrs_pnp", tile_batch=8)
 
-Every preset runs.  Without a dictionary, the shipped 36x36 dictionary is
-used when the patch geometry matches; learning one is not ported yet.
+Every preset runs.  Dictionary acquisition is automatic: the shipped
+artifact when the patch geometry matches, otherwise a dictionary learned on
+the fly from the observed data (masked entries excluded), on the solve's
+device.
 """
 
 from __future__ import annotations
@@ -16,18 +18,36 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from .data.dictionary import load_trained_dictionary
+from .data.dictionary import extract_training_patches, learn_dictionary, load_trained_dictionary
 from .data.io import HsiSample
 from .utils.config import PRESETS, SolverConfig
 
 
-def _auto_dictionary(config: SolverConfig, n_atoms: int = 512) -> np.ndarray:
-    if config.block_size != 36:
-        raise NotImplementedError(
-            "learning a dictionary for block_size != 36 is not ported yet "
-            "(ROADMAP Queue A, item 14); pass dictionary="
-        )
-    return load_trained_dictionary(n_atoms)
+def _auto_dictionary(
+    sample: HsiSample, config: SolverConfig, n_atoms: int = 512, device="cuda"
+) -> np.ndarray:
+    if config.block_size * config.block_size == 36 * 36:
+        try:
+            return load_trained_dictionary(n_atoms)
+        except FileNotFoundError:
+            pass
+    # learn from the observed image itself, the noisy cube being all there
+    # is.  Masked entries are excluded: fully-observed patches when enough
+    # exist, otherwise mask-aware learning (holes carry zero weight), so
+    # zero-filled holes never train into atoms.
+    patches, mask_patches = extract_training_patches(
+        [sample.noisy], block_size=config.block_size, stride=1, masks=[sample.mask],
+    )
+    fully_observed = mask_patches.min(axis=0) > 0
+    n_full = int(fully_observed.sum())
+    if n_full >= max(64, patches.shape[1] // 4):
+        patches = patches[:, fully_observed]
+        mask_patches = None
+    n_atoms = min(n_atoms, max(64, patches.shape[1] // 2))
+    return learn_dictionary(
+        patches, n_atoms=n_atoms, n_outer=10, sparse_iters=20,
+        mask_patches=mask_patches, device=device,
+    )
 
 
 def inpaint(
@@ -62,7 +82,7 @@ def inpaint(
     )
     cfg = config or PRESETS[variant](**preset_overrides)
     if dictionary is None:
-        dictionary = _auto_dictionary(cfg)
+        dictionary = _auto_dictionary(sample, cfg, device=device)
     if seeds is not None:
         ens = SeedEnsembleSolver(sample, dictionary, cfg, seeds, device=device)
         state, hist = ens.run_chunked(n_iters)
@@ -94,19 +114,29 @@ def inpaint_scene(
     whole-scene counterpart of :func:`inpaint`.  Splits the scene into
     ``tile_shape`` tiles, solves ``tile_batch`` of them in lockstep
     (:func:`.solvers.tiled.solve_tiled`) and stitches with overlap
-    averaging.  The dictionary is handled as in :func:`inpaint`.  Returns the
-    recovered (H, W, B) cube.
+    averaging.  The dictionary is handled as in :func:`inpaint`, learned
+    from a central crop of at most 128 x 128 pixels.  Returns the recovered
+    (H, W, B) cube.
 
     ``scan`` is accepted for the JAX package's signature and changes
     nothing: the port steps every batch from the host.  ``net``,
     ``verbose`` and ``pad_final`` go to ``solve_tiled``."""
     from .solvers.tiled import solve_tiled
 
+    noisy = np.asarray(noisy, np.float32)
+    mask = np.asarray(mask, np.float32)
     cfg = config or PRESETS[variant](**preset_overrides)
     if dictionary is None:
-        dictionary = _auto_dictionary(cfg)
+        # the dictionary's geometry is cfg.block_size, whatever the tile size
+        h, w = noisy.shape[:2]
+        ch, cw = min(h, 128), min(w, 128)
+        h0, w0 = (h - ch) // 2, (w - cw) // 2
+        probe = HsiSample(
+            noisy=noisy[h0 : h0 + ch, w0 : w0 + cw], mask=mask[h0 : h0 + ch, w0 : w0 + cw],
+        )
+        dictionary = _auto_dictionary(probe, cfg, device=device)
     return solve_tiled(
-        np.asarray(noisy, np.float32), np.asarray(mask, np.float32), dictionary, cfg,
+        noisy, mask, dictionary, cfg,
         tile_shape=tile_shape, tile_batch=tile_batch, overlap=overlap, n_iters=n_iters,
         net=net, verbose=verbose, scan=bool(scan), pad_final=pad_final, device=device,
     )

@@ -4,11 +4,11 @@
   * ``tile_origins``: the tile grid, with the block grid's rule that the last
     row/column of tiles is pulled in so every pixel is covered;
   * ``TileLoader``: a double-buffered iterator over tile batches: while batch
-    k is being solved, batch k+1 is sliced out on a background thread;
+    k is being solved, batch k+1 is extracted on a background thread, by the
+    native host library (a memcpy per tile row, OpenMP over tiles,
+    ``native/lrs_native.cc:extract_tiles``) when it builds, else by numpy
+    slicing; both give the same bits;
   * ``mmap_cube``: zero-copy load of an ``.npy`` cube.
-
-The tiles are sliced with numpy; the JAX package's C++ extractor is not
-ported (ROADMAP Queue A, item 14).
 """
 
 from __future__ import annotations
@@ -53,7 +53,11 @@ def _extract_batch_numpy(cube, origins, th, tw):
 class TileLoader:
     """Double-buffered tile-batch iterator: while batch k is being consumed
     (by the solver, say), batch k+1 is extracted on a background thread.
-    The thread lives for one pass of :meth:`batches`."""
+    The thread lives for one pass of :meth:`batches`.
+
+    ``use_native=None`` takes the native extractor when the library builds
+    and the cube is a C-contiguous numpy array (a memory map included);
+    ``native`` says which extractor was taken."""
 
     def __init__(
         self,
@@ -61,12 +65,23 @@ class TileLoader:
         tile_shape: Tuple[int, int],
         batch_size: int = 8,
         stride: Optional[Tuple[int, int]] = None,
+        use_native: Optional[bool] = None,
     ):
         self.cube = cube
         self.th, self.tw = tile_shape
         self.batch_size = batch_size
         sh, sw = stride or (None, None)
         self.origins = tile_origins(cube.shape[0], cube.shape[1], self.th, self.tw, sh, sw)
+        from .. import native
+
+        if use_native is None:
+            use_native = (
+                isinstance(cube, np.ndarray)
+                and bool(cube.flags["C_CONTIGUOUS"])
+                and native.available()
+            )
+        self.native = bool(use_native)
+        self._extract = native.extract_tiles if use_native else _extract_batch_numpy
 
     @property
     def n_tiles(self) -> int:
@@ -84,11 +99,11 @@ class TileLoader:
         if not batch_list:
             return
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-            future = pool.submit(_extract_batch_numpy, self.cube, batch_list[0], self.th, self.tw)
+            future = pool.submit(self._extract, self.cube, batch_list[0], self.th, self.tw)
             for j, origins in enumerate(batch_list):
                 cur = future.result()
                 if j + 1 < len(batch_list):
                     future = pool.submit(
-                        _extract_batch_numpy, self.cube, batch_list[j + 1], self.th, self.tw
+                        self._extract, self.cube, batch_list[j + 1], self.th, self.tw
                     )
                 yield cur, origins

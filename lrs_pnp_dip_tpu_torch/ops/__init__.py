@@ -4,7 +4,7 @@ from .bm3d import Bm3dConfig, bm3d, bm3d_coef_batch, bm3d_prox
 from .fidelity import data_fidelity_update, dual_updates
 from .ista import compute_alpha, pnp_ista_blocks, pnp_ista_blocks_fused, sparse_prox
 from .ista_cuda import ISTA_KERNEL
-from .metrics import batch_mpsnr, mpsnr, psnr_ref
+from .metrics import batch_mpsnr, mpsnr, mse, psnr_ref, psnr_standard
 from .nlm import (
     nlm2d, nlm_classic, nlm_classic_column_batch, nlm_column, nlm_column_batch,
     nlm_column_batch_fast,
@@ -27,6 +27,7 @@ __all__ = [
     "dual_updates",
     "extract_blocks",
     "mpsnr",
+    "mse",
     "nlm2d",
     "nlm_classic",
     "nlm_classic_column_batch",
@@ -37,6 +38,7 @@ __all__ = [
     "pnp_ista_blocks_fused",
     "proxlib",
     "psnr_ref",
+    "psnr_standard",
     "scatter_blocks",
     "singular_energy_ratio",
     "singular_values_gram",

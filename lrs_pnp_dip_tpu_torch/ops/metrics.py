@@ -3,6 +3,7 @@
 The reference PSNR is deliberately non-standard, ``10 log10(255 / sqrt(mse))``
 on [0, 1]-ranged data (``main_LRS_PnP_DIP_pro.py:54-60``); it is kept
 exactly so MPSNR numbers compare with the JAX package and the reference.
+A standard PSNR is provided alongside.
 """
 
 from __future__ import annotations
@@ -10,10 +11,18 @@ from __future__ import annotations
 import torch
 
 
+def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean((a - b) ** 2)
+
+
 def psnr_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Reference-compatible PSNR: 10*log10(255 / sqrt(mse))."""
-    m = torch.mean((a - b) ** 2)
-    return 10.0 * torch.log10(255.0 / torch.sqrt(m))
+    return 10.0 * torch.log10(255.0 / torch.sqrt(mse(a, b)))
+
+
+def psnr_standard(a: torch.Tensor, b: torch.Tensor, peak: float = 1.0) -> torch.Tensor:
+    """Conventional PSNR = 10*log10(peak^2 / mse)."""
+    return 10.0 * torch.log10(peak * peak / mse(a, b))
 
 
 def mpsnr(clean: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:

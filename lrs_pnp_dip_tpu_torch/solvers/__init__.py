@@ -17,14 +17,17 @@ from .batch import (
     stack_consts,
     stack_states,
 )
-from .dip import DipResult, make_dip_fit
+from .dip import DipResult, get_dip_out, make_dip_fit
 from .early_stop import EarlyStopState, init_early_stop, update_early_stop
+from .fit import FitConfig, FitResult, find_best_update, fit
 from .tiled import solve_tiled
 
 __all__ = [
     "BatchedSolver",
     "DipResult",
     "EarlyStopState",
+    "FitConfig",
+    "FitResult",
     "OuterStages",
     "ProblemConsts",
     "SeedEnsembleSolver",
@@ -34,6 +37,9 @@ __all__ = [
     "StepAux",
     "build_lockstep_step",
     "build_step",
+    "find_best_update",
+    "fit",
+    "get_dip_out",
     "init_early_stop",
     "init_state",
     "make_consts",

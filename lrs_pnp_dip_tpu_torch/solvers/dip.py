@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..utils.config import DipConfig
+from ..utils.device import resolve_device
 from .early_stop import init_early_stop, update_early_stop
 
 
@@ -115,3 +116,30 @@ def make_dip_fit(model: nn.Module, cfg: DipConfig = DipConfig()):
         return DipResult(out=out, loss=loss, n_iters=i, stopped=es.stop)
 
     return fit
+
+
+def get_dip_out(
+    model: nn.Module,
+    generator: Optional[torch.Generator],
+    dip_input,
+    target,
+    mask,
+    num_iter: int = 5000,
+    learning_rate: float = 0.1,
+    show_every: int = 1,
+    init: Optional[Mapping[str, torch.Tensor]] = None,
+    device="cuda",
+) -> DipResult:
+    """One-shot convenience mirroring the reference ``get_DIP_out`` call.
+    The net starts from ``init`` (a state dict) when given, else from
+    ``generator`` (on ``device``).  Runs on ``device``: the card by default,
+    which raises when there is none."""
+    dev = resolve_device(device)
+    cfg = DipConfig(num_iter=num_iter, learning_rate=learning_rate, show_every=show_every)
+
+    def as_tensor(t):
+        return torch.as_tensor(t, dtype=torch.float32, device=dev)
+
+    return make_dip_fit(model.to(dev), cfg)(
+        as_tensor(dip_input), as_tensor(target), as_tensor(mask), init=init, generator=generator
+    )

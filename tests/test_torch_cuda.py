@@ -200,6 +200,26 @@ def test_kernel_at_the_lrs_pnp_sparse_settings(cuda, matmul_dtype):
         assert float((got - f32).abs().max()) < 0.02 * float(f32.abs().max())
 
 
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [512, 196, 200])
+def test_kernel_at_the_auto_dictionary_tiling(cuda, K, matmul_dtype):
+    """block_size 24 on the 36x36 cube: nB 324 blocks of P 576, clusters of
+    8 in f32 as in bf16; K 512 is the learned dictionary's, K 196 leaves the
+    eighth CTA no column and K 200 four, fewer than the NLM's reach."""
+    bf16 = matmul_dtype == "bfloat16"
+    plan = ISTA_KERNEL.plan(324, 576, K, bf16)
+    assert (plan.cluster_size, plan.rows) == (8, 11)
+    Y, M, D = _problem(cuda, 324, P=576, K=K, seed=K)
+    cfg = SparseProxConfig(n_iter=20, matmul_dtype=matmul_dtype)
+    got = pnp_ista_blocks_fused(Y, M, D, cfg)
+    ref = pnp_ista_blocks(Y, M, D, cfg)
+    if bf16:
+        f32 = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=20))
+        _assert_bf16_tracks(got, ref, f32, floor=_order_sensitivity(Y, M, D, cfg, ref))
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
 def test_wrapper_raises_for_shapes_the_kernel_does_not_take(cuda):
     Y, M, D = _problem(cuda, 4, P=1700, K=512)
     with pytest.raises(ValueError, match="rows of D per CTA"):

@@ -23,6 +23,10 @@ from lrs_pnp_dip_tpu_torch.data import tiles
 from lrs_pnp_dip_tpu_torch.models import lipschitz, lipschitz_unet
 from lrs_pnp_dip_tpu_torch.models import attention, deep_decoder, downsampler, resnet, texture_nets, unet, unet3d
 from lrs_pnp_dip_tpu_torch.ops import bm3d, nlm, proxlib, ssim
+from lrs_pnp_dip_tpu_torch import native
+from lrs_pnp_dip_tpu_torch.data import dictionary, io
+from lrs_pnp_dip_tpu_torch.utils import checkpoint, logging, noise, profiling, viz
+import lrs_pnp_dip_tpu_torch.solvers.fit
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lrs_pnp_dip_tpu"))
 assert not bad, bad
@@ -35,6 +39,26 @@ try:
 except RuntimeError as e:
     assert "no CUDA device" in str(e), e
     print("REFUSED")
+# the new entry points refuse the CPU by default too: learning a dictionary
+# (also inpaint's, without dictionary=), the generic fit, get_dip_out
+from lrs_pnp_dip_tpu_torch.data import learn_dictionary
+from lrs_pnp_dip_tpu_torch.models import Identity
+from lrs_pnp_dip_tpu_torch.solvers import FitConfig, fit, get_dip_out
+import numpy as np
+calls = [
+    lambda: learn_dictionary(np.ones((4, 8), np.float32), n_atoms=2, n_outer=1),
+    lambda: lrs_pnp_dip_tpu_torch.inpaint(s.noisy, s.mask, n_iters=1, block_size=6, stride=6),
+    lambda: fit(Identity(), None, s.noisy[None], s.noisy[None], config=FitConfig(num_iter=1)),
+    lambda: get_dip_out(Identity(), None, s.noisy[None], s.noisy[None], s.mask[None, :, :, None], num_iter=1),
+]
+for call in calls:
+    try:
+        call()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+        print("REFUSED")
+    else:
+        raise AssertionError("ran on the CPU without being asked")
 """
 
 
@@ -46,7 +70,7 @@ def test_port_imports_no_jax_and_refuses_cpu_fallback():
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     assert proc.returncode == 0, proc.stderr
-    assert "REFUSED" in proc.stdout
+    assert proc.stdout.split() == ["REFUSED"] * 5
 
 
 def test_port_sources_name_no_jax_module():

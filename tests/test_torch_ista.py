@@ -236,6 +236,9 @@ PLAN_SHAPES = (
     [(nB, 1296, 512) for nB in (144, 13, 2304, 1, 10, 11, 77, 78, 150, 151)]
     + [(nB, 48, 32) for nB in (1, 5, 8, 13, 40)]
     + [(11, 100, 32), (11, 100, 300), (11, 1300, 512), (11, 1300, 600), (7, 50, 6), (9, 36, 30)]
+    # the auto-dictionary's block 24 (P 576): the learned K, and K whose last
+    # segment is empty (196) or 4 columns (200)
+    + [(324, 576, 512), (324, 576, 196), (324, 576, 200), (1296, 576, 512)]
 )
 
 
@@ -271,9 +274,28 @@ def test_plan_at_the_main_shape():
     assert (other.rows, other.n_clusters, other.waves) == (9, 16, 2)
 
 
+def test_plan_at_the_auto_dictionary_shape():
+    """block_size 24 on the 36x36 cube: 324 blocks of P 576 against the
+    learned K 512.  f32 fits its 72-row slice of D in a cluster of 8 (the
+    first f32 tiling that is not a cluster of 16); bf16 takes the same
+    cluster and, spread evenly over two waves, 11 rows too.  At K 196 the
+    eighth CTA owns no column, at K 200 four."""
+    f32 = plan_ista(324, 576, 512, False)
+    assert (f32.cluster_size, f32.rows, f32.n_clusters, f32.waves, f32.slice_rows, f32.seg) == (8, 11, 30, 2, 72, 64)
+    assert f32.smem_bytes == 205696
+    bf16 = plan_ista(324, 576, 512, True)
+    assert (bf16.cluster_size, bf16.rows, bf16.n_clusters, bf16.waves, bf16.slice_rows) == (8, 11, 30, 2, 72)
+    assert bf16.smem_bytes == 131648
+    for bf in (False, True):
+        assert plan_ista(324, 576, 196, bf).k_segments()[-1] == (196, 196)
+        assert plan_ista(324, 576, 200, bf).k_segments()[-1] == (196, 200)
+    assert plan_ista(324, 576, 200, False).smem_bytes == 98944
+
+
 @pytest.mark.parametrize(
     "nB,P,K,bf16,reason",
     [
+        (324, 1600, 512, False, "P=1600, K=512 with f32 operands: cluster 8: 200 rows of D per CTA"),
         (4, 48, 5, False, "K >= 6"),
         (0, 48, 32, False, "nB >= 1"),
         (4, 1700, 512, False, "rows of D per CTA"),
@@ -353,6 +375,8 @@ def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
         (9, 36, 30, False, {8: 2, 16: 1}),  # K not a multiple of 4
         (6, 100, 300, False, H100_RESIDENT_CLUSTERS),  # a short last segment
         (13, 48, 32, True, {8: 1, 16: 1}),
+        (5, 576, 196, False, H100_RESIDENT_CLUSTERS),  # the eighth CTA owns no column
+        (5, 576, 200, True, H100_RESIDENT_CLUSTERS),  # the eighth CTA owns 4, its halo reflects
     ],
 )
 def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident):

@@ -172,9 +172,10 @@ def test_every_ported_preset_runs_through_inpaint_on_the_cpu(variant):
 
 def test_inpaint_on_cpu_and_unported_entry_points():
     """The `matlab` preset (nlm_classic) and the bm3d denoiser run through
-    ``inpaint``; what still raises names its ROADMAP item: learning a
-    dictionary (block_size != 36 without ``dictionary=``), through
-    ``inpaint`` and ``inpaint_scene`` alike."""
+    ``inpaint``; so does a missing dictionary at block_size != 36, through
+    ``inpaint`` and ``inpaint_scene`` alike: both learn one from the observed
+    pixels (tests/test_torch_api_auto.py holds them to the JAX package).  An
+    unknown variant raises."""
     s = synthetic_sample(12, 12, 16, missing=0.1, seed=5)
     kw = dict(dictionary=_dictionary(), device="cpu", block_size=6, stride=6)
     cube, hist = inpaint(s.noisy, s.mask, variant="matlab", clean=s.clean, n_iters=2, **kw)
@@ -183,10 +184,10 @@ def test_inpaint_on_cpu_and_unported_entry_points():
         block_size=6, stride=6, sparse=tconfig.SparseProxConfig(n_iter=3, denoiser="bm3d"))
     cube, hist = inpaint(s.noisy, s.mask, config=bm3d, dictionary=_dictionary(), device="cpu")
     assert cube.shape == (12, 12, 16) and np.isfinite(cube).all() and len(hist["mpsnr"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 14"):
-        inpaint(s.noisy, s.mask, variant="lrs_pnp", device="cpu", block_size=6, stride=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 14"):
-        inpaint_scene(s.noisy, s.mask, device="cpu", block_size=6, stride=6)
+    cube, hist = inpaint(s.noisy, s.mask, variant="lrs_pnp", clean=s.clean, device="cpu", block_size=6, stride=6)
+    assert cube.shape == (12, 12, 16) and np.isfinite(cube).all() and len(hist["mpsnr"]) == 2
+    scene = inpaint_scene(s.noisy, s.mask, device="cpu", block_size=6, stride=6, tile_shape=(12, 12))
+    assert scene.shape == (12, 12, 16) and np.isfinite(scene).all()
     with pytest.raises(ValueError, match="unknown variant"):
         inpaint(s.noisy, s.mask, config=tconfig.SolverConfig(variant="tv", block_size=6, stride=6),
                 dictionary=_dictionary(), device="cpu")
