@@ -68,7 +68,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                dip solve's generator; fit() with adam, sgd and lbfgs; the
                native host library against the port's torch functions; one
                warm lrs_pnp outer step under utils.profiling.trace;
-  8. report  — the total time, the card's name and power limit, a
+  8. parallel — the sharded engine (lrs_pnp_dip_tpu_torch.parallel), ranks
+               spawned through its launcher sharing the one card over gloo
+               with CUDA tensors, each case at full width (36x36x128, the
+               shipped dictionary): (a) the {patch: 2} sparse prox at nB 144
+               (72 per rank), f32 and bf16, and at nB 13 (one padding row),
+               one launch of B1 per rank, the result equal bit for bit to
+               one launch over all rows; (b) ShardedSolver on {patch: 2},
+               the whole lrs_pnp preset, one launch per rank per step at nB
+               72, X against the one-process solve; (c) {patch: 2, band: 2},
+               four ranks, one lrs_pnp step through the 2-D prox and SVT, no
+               launch of B1; (d) {data: 2}, two samples, lrs_pnp, 2 steps, one
+               launch per rank per step at nB 144, lanes against the
+               one-process BatchedSolver; (e) {model: 2}, one dip step with
+               channel TP of skip-128 (DIP capped at 100), against the
+               one-process step; (f) the two-rank multiprocess_dryrun; (g)
+               in this process, inpaint(block_size=40) on the card: with
+               backend="xla" it runs the plain loop (no launch of B1) and
+               lifts MPSNR, under "auto" the plan's ValueError names
+               backend="xla".  B1 at nB 72 is timed beside its bound;
+  9. report  — the total time, the card's name and power limit, a
                {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -147,6 +166,40 @@ RESUME_MATCH = 1e-6
 # The native host library's column NLM (double sums) against the port's
 # (f32 on the card), max |delta| on coefficients of order 0.1 to 1.
 NLM_MATCH = 1e-5
+
+
+# Phase 8, ranks sharing the card over gloo, each held to the one-process
+# port: the sharded lrs_pnp solve, X within SHARD_MATCH of max |X| (only the
+# order of the Gram's sums differs: tests/test_parallel.py:58's 5e-4); the
+# {data: 2} lanes within LANES_MATCH of the scale (tests/test_torch_batch.py).
+# Channel TP of skip-128 over {model: 2}: the first step's gradient, all
+# tensors as one vector, within TP_ORDER times the unsharded f32 gradient's
+# relative L2 distance from the same gradient in f64, or TP_GRAD_REL, of the
+# f64 one, with cuDNN's algorithms autotuned (cudnn.benchmark) for both; the
+# same by cuDNN's heuristics, the port's default, is reported: they choose a
+# less accurate weight-gradient algorithm for the split 64-channel kernels
+# than for the whole ones.  The first output at
+# tests/test_tensor_parallel.py:57's bounds.  (The elementwise gradient bounds
+# of :57 hold at the tests' widths, not at full width: the batch norms leave
+# f32 gradients of inner kernels about 9e-4 of their scale from f64.)
+# Then one dip step capped at TP_DIP_CAP from one init, phi_scatter within
+# 1e-5 of the one-process step, and X, the DIP loss and MPSNR within the
+# larger of :156's bounds and TP_ORDER times what the same one-process step
+# moves between the card and the CPU.  A DIP fit amplifies any change in the
+# order of sums: on the CPU a 100-step fit of skip-128 at lr 1e-4 in f32 ends
+# 0.13 from the same fit in f64 (max |U|), and at the preset's lr 0.1 the
+# one-process step moves X by 8.6e-2 when only the thread count changes.  The
+# step runs at lr TP_LR, as the dip_1lip step is compared
+# (tests/test_torch_lipschitz.py): at 0.1 the MPSNR of two orders parts too.
+SHARD_MATCH = 5e-4
+LANES_MATCH = 1e-5
+TP_GRAD_REL, TP_OUT_ATOL, TP_OUT_RTOL = 1e-3, 2e-3, 1e-2
+TP_PHI_ATOL, TP_X_ATOL, TP_LOSS_RTOL, TP_MPSNR_RTOL = 1e-5, 5e-2, 5e-2, 1e-3
+TP_ORDER = 4
+TP_DIP_CAP = 100
+TP_LR = 1e-4
+# Seconds a spawn of ranks may take before they are stopped and the phase fails.
+SPAWN_TIMEOUT = 300
 
 
 # get_net keys whose net does not keep the (1, H, W, B) shape of the iterate
@@ -616,6 +669,228 @@ def long_tail(port, sample, input_mpsnr, scene, scene_in, capped, by_path, smi, 
     return timing
 
 
+def parallel_phase(sample, input_mpsnr, D_np, by_path, peaks) -> dict:
+    """Phase 8 (module docstring).  Adds the ranks' launches of B1 to
+    ``by_path``; returns B1's times at nB 72, one rank's share of the main
+    shape."""
+    import numpy as np
+    import torch
+
+    from lrs_pnp_dip_tpu_torch import inpaint
+    from lrs_pnp_dip_tpu_torch.data import synthetic_sample
+    from lrs_pnp_dip_tpu_torch.models import dip_skip_128
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused, sparse_prox
+    from lrs_pnp_dip_tpu_torch.parallel.launch import spawn
+    from lrs_pnp_dip_tpu_torch.parallel.workers import run_cases
+    from lrs_pnp_dip_tpu_torch.solvers import BatchedSolver, Solver
+    from lrs_pnp_dip_tpu_torch.utils.config import PRESETS, SparseProxConfig
+
+    t_phase = time.perf_counter()
+    blocks, masks, D, alpha = problem(36, 36, 0, D_np)
+    host = [t.cpu().numpy() for t in (blocks, masks, D, alpha)]
+    prox_inputs = [(mm, nB) for mm in ("float32", "bfloat16") for nB in (144, 13)]
+    cases = [("prox_case", dict(
+        axis_sizes={"patch": 2}, blocks=host[0][:nB], mask=host[1][:nB], D=host[2],
+        cfg=SparseProxConfig(n_iter=100, matmul_dtype=mm), alpha=host[3][:nB],
+    )) for mm, nB in prox_inputs]
+    lrs = PRESETS["lrs_pnp"]()
+    dip = PRESETS["dip"]()
+    dip = dataclasses.replace(dip, dip=dataclasses.replace(dip.dip, num_iter=TP_DIP_CAP, learning_rate=TP_LR))
+    lanes = [synthetic_sample(36, 36, 128, seed=k) for k in (0, 1)]
+    init_net = dip_skip_128(128)
+    init_net.reset_parameters(torch.Generator().manual_seed(1))
+    dip_init = {k: v.clone() for k, v in init_net.state_dict().items()}
+    dip_in, dip_mask = sample.noisy[None], sample.mask[None, :, :, None]
+    cases += [
+        ("solver_case", dict(axis_sizes={"patch": 2}, samples=sample, dictionary=D_np, config=lrs, n_steps=2)),
+        ("solver_case", dict(axis_sizes={"data": 2}, samples=lanes, dictionary=D_np, config=lrs, n_steps=2)),
+        ("solver_case", dict(axis_sizes={"model": 2}, samples=sample, dictionary=D_np, config=dip, n_steps=1,
+                             dip_inits=[dip_init])),
+        ("dryrun_case", {}),
+    ]
+    tp_first_step = [("tp_case", dict(
+        axis_sizes={"model": 2}, net_spec=("dip_skip_128", dict(num_channels=128)), x=dip_in, target=dip_in,
+        mask=dip_mask, seed=1, lr=0.1, n_steps=1, cudnn_benchmark=benchmark,
+    )) for benchmark in (False, True)]
+    cases.append(tp_first_step[0])
+    log("[parallel] 2 ranks on the one card over gloo: the {patch: 2} sparse prox, ShardedSolver on "
+        "{patch: 2} (lrs_pnp), {data: 2} (lrs_pnp, 2 lanes), {model: 2} (dip, skip-128 channel TP, DIP "
+        f"capped at {TP_DIP_CAP}) and the dryrun")
+    t0 = time.perf_counter()
+    two = spawn(run_cases, 2, args=("cuda", cases), device="cuda", timeout_s=SPAWN_TIMEOUT)
+    log(f"  2-rank spawn {time.perf_counter() - t0:.1f} s (start-up of the ranks included)")
+    # in fresh ranks: cuDNN keeps the algorithm it chose for a shape, also
+    # when autotuning is turned on later in the process
+    tuned = spawn(run_cases, 2, args=("cuda", tp_first_step[1:]), device="cuda", timeout_s=SPAWN_TIMEOUT)
+    log("[parallel] 4 ranks: ShardedSolver on {patch: 2, band: 2}, one lrs_pnp step")
+    t0 = time.perf_counter()
+    four = spawn(run_cases, 4, args=("cuda", [("solver_case", dict(
+        axis_sizes={"patch": 2, "band": 2}, samples=sample, dictionary=D_np, config=lrs, n_steps=1,
+    ))]), device="cuda", timeout_s=SPAWN_TIMEOUT)
+    log(f"  4-rank spawn {time.perf_counter() - t0:.1f} s")
+    for ranks in (two, four):
+        for r in ranks:
+            for res in r:
+                if "device" in res and (res["device"] != "cuda:0" or any(res["tf32"])):
+                    raise AssertionError(f"a rank ran on {res['device']} with TF32 {res['tf32']}")
+
+    # (a) the sharded sparse prox: one launch per rank; the gathered coefficients,
+    # reconstructed once, equal one launch over all rows bit for bit
+    for i, (mm, nB) in enumerate(prox_inputs):
+        cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
+        ref = sparse_prox(blocks[:nB], masks[:nB], D, cfg, alpha=alpha[:nB]).cpu().numpy()
+        got = [r[i] for r in two]
+        per_rank = [(g["launches"], g["nB"]) for g in got]
+        if per_rank != [(1, -(-nB // 2))] * 2:
+            raise AssertionError(f"sharded prox nB {nB} {mm}: (launches, nB) per rank {per_rank}")
+        for g in got:
+            if not np.array_equal(g["out"], ref):
+                raise AssertionError(f"sharded prox nB {nB} {mm}: max|delta| {np.abs(g['out'] - ref).max():.3e}"
+                                     " against one launch over all rows")
+        by_path[f"parallel_prox_patch2_{mm}_nB{nB}"] = sum(g["launches"] for g in got)
+        log(f"  (a) {{patch: 2}} prox nB={nB:3d} {mm:9s}: B1 once per rank at nB {got[0]['nB']}, the result "
+            f"equals one launch over all rows bit for bit; {got[0]['bytes']} B gathered per rank, "
+            f"{got[0]['seconds'] * 1e3:.2f} ms per call")
+
+    def per_step(ranks, k, label, launches, nB):
+        steps = [r[k]["steps"] for r in ranks]
+        for rank, st in enumerate(steps):
+            got = [(s["launches"], s["nB"]) for s in st]
+            if got != [(launches, nB if launches else None)] * len(st):
+                raise AssertionError(f"{label}: rank {rank} (launches, nB) per step {got}")
+        by_path[f"parallel_{label}"] = sum(s["launches"] for st in steps for s in st)
+        for i, s in enumerate(steps[0]):
+            log(f"  {label} step {i}: mpsnr={np.ravel(s['mpsnr']).round(4).tolist()} wall {s['seconds']:.3f} s, "
+                f"B1 {s['launches']} per rank (nB {s['nB']}), {s['bytes']} B moved per rank")
+        return ranks[0][k]
+
+    # (b) {patch: 2}, the whole lrs_pnp preset
+    got = per_step(two, 4, "patch2_lrs_pnp", 1, 72)
+    one = Solver(sample, D_np, lrs, device="cuda")
+    st, hist = one.run()
+    X = st.X.cpu().numpy()
+    err, scale = float(np.abs(got["X"] - X).max()), float(np.abs(X).max())
+    log(f"  (b) {{patch: 2}} lrs_pnp: max|dX|={err:.3e} of max|X| {scale:.3e} ({err / scale:.2e}; limit "
+        f"{SHARD_MATCH}) against the one-process solve; mpsnr {float(got['steps'][-1]['mpsnr']):.4f} "
+        f"(one process {hist['mpsnr'][-1]:.4f}, input {input_mpsnr:.4f})")
+    if not err <= SHARD_MATCH * scale or not float(got["steps"][-1]["mpsnr"]) > input_mpsnr:
+        raise AssertionError("the {patch: 2} solve disagrees with the one-process solve")
+
+    # (c) {patch: 2, band: 2}, one step, no launch of B1
+    got = per_step(four, 0, "patch2_band2_lrs_pnp", 0, None)
+    st1, _ = one.step(one.init_state())
+    X1 = st1.X.cpu().numpy()
+    err, scale = float(np.abs(got["X"] - X1).max()), float(np.abs(X1).max())
+    log(f"  (c) {{patch: 2, band: 2}} one lrs_pnp step: max|dX|={err:.3e} ({err / scale:.2e} of max|X|)")
+    if not err <= SHARD_MATCH * scale:
+        raise AssertionError("the {patch: 2, band: 2} step disagrees with the one-process step")
+
+    # (d) {data: 2}: a lane per rank
+    got = per_step(two, 5, "data2_lrs_pnp", 1, 144)
+    bst, _ = BatchedSolver(lanes, D_np, lrs, device="cuda").run()
+    XB = bst.X.cpu().numpy()
+    err, scale = float(np.abs(got["X"] - XB).max()), float(np.abs(XB).max())
+    log(f"  (d) {{data: 2}} lanes against the one-process BatchedSolver: max|dX|={err:.3e} "
+        f"({err / scale:.2e} of the scale; limit {LANES_MATCH})")
+    if got["X"].shape != XB.shape or not err <= LANES_MATCH * scale:
+        raise AssertionError("the {data: 2} lanes disagree with the BatchedSolver")
+
+    # (e) {model: 2}: channel TP of skip-128 in the DIP fit
+    def rel_l2(a, b):
+        return float(np.sqrt(sum(np.sum((x - y) ** 2) for x, y in zip(a, b)) / sum(np.sum(y ** 2) for y in b)))
+
+    for ranks, autotuned in (([r[0] for r in tuned], True), ([r[8] for r in two], False)):
+        for rank, tp in enumerate(ranks):
+            ours, ref, _, g64 = zip(*tp["grads"].values())
+            e_tp, e_ref = rel_l2(ours, g64), rel_l2(ref, g64)
+            limit = max(TP_ORDER * e_ref, TP_GRAD_REL)
+            log(f"  (e) {{model: 2}} skip-128 at 36x36x128, first step, rank {rank}, cuDNN "
+                f"{'autotuned' if autotuned else 'by heuristics'}: the {len(ours)} gradients on its slices "
+                f"{e_tp:.3e} (relative L2) from f64, the unsharded f32 ones {e_ref:.3e}"
+                + (f" (limit {limit:.3e})" if autotuned else " (reported)")
+                + f"; forward max|d| {np.abs(tp['out_tp'] - tp['out_ref']).max():.3e}, loss "
+                f"{tp['tp_losses'][0]:.6f} against {tp['ref_losses'][0]:.6f}")
+            if autotuned and not e_tp <= limit:
+                raise AssertionError(f"TP gradient on rank {rank}: {e_tp:.3e} from f64, limit {limit:.3e}")
+            if not np.allclose(tp["out_tp"], tp["out_ref"], atol=TP_OUT_ATOL, rtol=TP_OUT_RTOL):
+                raise AssertionError(f"TP forward on rank {rank}: max|d| {np.abs(tp['out_tp'] - tp['out_ref']).max():.3e}")
+    log(f"      {two[0][8]['report']['n_shards']}-way split of {len(two[0][8]['report']['sharded'])} tensors, "
+        f"{len(two[0][8]['report']['indivisible_convs'])} kernels left whole")
+    got = per_step(two, 6, "model2_dip", 1, 144)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        solver = Solver(sample, D_np, dip, device=dev, dip_init=lambda itr: dip_init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, aux = solver.step(solver.init_state())
+        torch.cuda.synchronize()
+        runs[dev] = dict(X=st.X.cpu().numpy(), phi=aux.phi_scatter.cpu().numpy(), dip_loss=float(aux.dip_loss),
+                         mpsnr=float(aux.mpsnr), iters=aux.dip_iters, seconds=time.perf_counter() - t0)
+    s = got["steps"][0]
+    tp_run = dict(X=got["X"], dip_loss=float(s["dip_loss"]), mpsnr=float(np.ravel(s["mpsnr"])[0]))
+
+    def gaps(a, b):
+        return dict(X=float(np.abs(a["X"] - b["X"]).max()), dip_loss=abs(a["dip_loss"] - b["dip_loss"]) / b["dip_loss"],
+                    mpsnr=abs(a["mpsnr"] - b["mpsnr"]) / b["mpsnr"])
+
+    tp_gap, order_gap = gaps(tp_run, runs["cuda"]), gaps(runs["cpu"], runs["cuda"])
+    bounds = dict(X=TP_X_ATOL, dip_loss=TP_LOSS_RTOL, mpsnr=TP_MPSNR_RTOL)
+    limits = {k: max(bounds[k], TP_ORDER * order_gap[k]) for k in bounds}
+    phi_gap = float(np.abs(s["phi_scatter"] - runs["cuda"]["phi"]).max())
+    log(f"  (e) {{model: 2}} dip step from one init, DIP capped at {TP_DIP_CAP}, lr {TP_LR}: dip_iters "
+        f"{s['dip_iters']} (one process {runs['cuda']['iters']}, on the CPU {runs['cpu']['iters']}); phi_scatter "
+        f"max|d| {phi_gap:.3e} (limit {TP_PHI_ATOL}); " + ", ".join(
+            f"{k} TP {tp_gap[k]:.3e}, card against CPU {order_gap[k]:.3e} (limit {limits[k]:.3e})" for k in bounds))
+    log(f"      ms per DIP iteration: TP over 2 ranks {s['seconds'] * 1e3 / max(s['dip_iters'], 1):.3f}, "
+        f"one process {runs['cuda']['seconds'] * 1e3 / max(runs['cuda']['iters'], 1):.3f} (first use of the "
+        "shapes included in both; two ranks time-share one card and gloo stages through the host: overhead, "
+        "not scaling)")
+    if not phi_gap <= TP_PHI_ATOL or any(not tp_gap[k] <= limits[k] for k in bounds):
+        raise AssertionError("the {model: 2} dip step disagrees with the one-process step")
+
+    # (f) the dryrun
+    got = [r[7] for r in two]
+    diff = float(np.abs(got[0]["X"] - got[0]["X_local"]).max())
+    log(f"  (f) multiprocess_dryrun, 2 ranks on {{patch: 1, band: 2}}: max|X_sharded-X_local|={diff:.2e} "
+        f"(limit 5e-4), mpsnr {got[0]['mpsnr']:.3f}")
+    if not diff < 5e-4 or not np.array_equal(got[0]["X"], got[1]["X"]):
+        raise AssertionError("the dryrun diverged")
+
+    # (g) C1: block 40 in this process
+    log("[parallel] C1: inpaint(variant='lrs_pnp', block_size=40, stride=40) on the card")
+    xla = dataclasses.replace(lrs.sparse, backend="xla")
+    (cube, hist), wall = drive("block40_xla", lambda: inpaint(
+        sample.noisy, sample.mask, variant="lrs_pnp", clean=sample.clean, block_size=40, stride=40,
+        sparse=xla), launches=0, nB=0)
+    check_recovery("block40_xla", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
+    log(f"  backend='xla': mpsnr {hist['mpsnr'][-1]:.4f} (input {input_mpsnr:.4f}), wall {wall:.2f} s "
+        "with the learning of the dictionary, 0 launches of B1")
+    try:
+        inpaint(sample.noisy, sample.mask, variant="lrs_pnp", block_size=40, stride=40, n_iters=1)
+    except ValueError as e:
+        if 'backend="xla"' not in str(e):
+            raise
+        log(f"  backend='auto': {e}")
+    else:
+        raise AssertionError("block 40 under backend='auto' did not raise the plan's ValueError")
+
+    # B1 at one rank's share of the main shape
+    timing = {}
+    for mm in ("float32", "bfloat16"):
+        cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
+        args = (blocks[:72], masks[:72], D, cfg)
+        k_ms = time_cuda(lambda: pnp_ista_blocks_fused(*args, alpha=alpha[:72]))
+        p_ms = time_cuda(lambda: pnp_ista_blocks(*args, alpha=alpha[:72]), reps=3)
+        b_ms, by, _, _ = bound_ms(72, blocks.shape[1], D.shape[1], 100, mm, peaks)
+        plan = ISTA_KERNEL.plan(72, blocks.shape[1], D.shape[1], mm == "bfloat16")
+        timing[mm] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        log(f"[timing] B1 at nB=72 (one rank's share) {mm:9s}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({by}) -> {b_ms / k_ms:.1%} of bound; {plan.n_clusters} clusters of "
+            f"{plan.cluster_size}, {plan.rows} rows each")
+    log(f"  (parallel phase {time.perf_counter() - t_phase:.1f} s)")
+    return timing
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -990,7 +1265,10 @@ def main() -> int:
     # 7. the long tail
     auto_timing = long_tail(port, sample, input_mpsnr, scene, scene_in, capped, by_path, smi, peaks)
 
-    # 8. report
+    # 8. the sharded engine, ranks sharing the card
+    shard_timing = parallel_phase(sample, input_mpsnr, D_np, by_path, peaks)
+
+    # 9. report
     log(f"[report] chip_smoke.py total {time.perf_counter() - t_start:.1f} s")
     t = timing["float32"]
     kernels = [{
@@ -1008,6 +1286,8 @@ def main() -> int:
         "library_ms": library_ms,
         # B1 at the auto-dictionary's shape (nB 324, P 576, K 512), f32 and bf16
         "at_nB324_P576_K512": auto_timing,
+        # B1 at nB 72, one rank's share of the main shape under {patch: 2}
+        "at_nB72_per_rank": shard_timing,
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

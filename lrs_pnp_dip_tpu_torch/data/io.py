@@ -50,6 +50,15 @@ class HsiSample:
     def shape(self):
         return self.noisy.shape
 
+    @property
+    def n_pixels(self) -> int:
+        h, w, _ = self.noisy.shape
+        return h * w
+
+    @property
+    def n_bands(self) -> int:
+        return self.noisy.shape[-1]
+
 
 def load_mat_array(path: str, key: str) -> np.ndarray:
     """Load one variable from a .mat file, v5 or v7.3, in MATLAB dimension

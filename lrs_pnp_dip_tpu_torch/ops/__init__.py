@@ -2,7 +2,9 @@ from . import proxlib
 from .blocks import BlockGrid, block_grid, extract_blocks, scatter_blocks
 from .bm3d import Bm3dConfig, bm3d, bm3d_coef_batch, bm3d_prox
 from .fidelity import data_fidelity_update, dual_updates
-from .ista import compute_alpha, pnp_ista_blocks, pnp_ista_blocks_fused, sparse_prox
+from .ista import (
+    compute_alpha, pnp_ista_blocks, pnp_ista_blocks_fused, sparse_coefs, sparse_prox, use_kernel,
+)
 from .ista_cuda import ISTA_KERNEL
 from .metrics import batch_mpsnr, mpsnr, mse, psnr_ref, psnr_standard
 from .nlm import (
@@ -43,9 +45,11 @@ __all__ = [
     "singular_energy_ratio",
     "singular_values_gram",
     "soft_threshold",
+    "sparse_coefs",
     "sparse_prox",
     "ssim",
     "ssim_matlab",
     "svt",
     "svt_gram",
+    "use_kernel",
 ]

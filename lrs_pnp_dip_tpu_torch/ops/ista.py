@@ -14,16 +14,25 @@ denoisers: ``nlm_fast`` (skimage's fast-mode NLM, the Python reference's),
 ``nlm_classic`` (the MATLAB twin's NLM) and ``bm3d``.
 :func:`pnp_ista_blocks_fused` is the loop through kernel B1 (``csrc/ista.cu``,
 CUDA tensors and ``nlm_fast`` only).  :func:`sparse_prox` launches the kernel
-exactly when the tensors are on the card and the denoiser is ``nlm_fast``, and
-runs the plain loop otherwise, on whatever device the tensors are: the JAX
-package likewise runs its Pallas kernel for ``nlm_fast`` only
-(``lrs_pnp_dip_tpu/ops/ista.py:_use_pallas``).
+when :func:`use_kernel` says so: the tensors are on the card, the denoiser is
+``nlm_fast`` and ``backend`` is not ``"xla"``; it runs the plain loop
+otherwise, on whatever device the tensors are.  The JAX package likewise runs
+its Pallas kernel for ``nlm_fast`` only, and its scan for ``backend="xla"``
+(``lrs_pnp_dip_tpu/ops/ista.py:_use_pallas``).  A shape the kernel's plan
+refuses raises the plan's ``ValueError``, which names ``backend="xla"``.
+
+``group`` (a process group) splits the pixel rows of the blocks and of the
+dictionary over its ranks: every partial product against D is summed over
+the group with one ``all_reduce``, the counterpart of the JAX body's
+``axis_name`` / ``_psum``.  Without a group the hook is the identity, and the
+loop is the unsharded one, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.comm import all_reduce
 from ..utils.config import SparseProxConfig
 from .bm3d import Bm3dConfig, bm3d_coef_batch
 from .ista_cuda import ISTA_KERNEL
@@ -45,35 +54,35 @@ def _denoiser(cfg: SparseProxConfig, h: torch.Tensor):
     raise ValueError(f"unknown denoiser {cfg.denoiser!r}")
 
 
-def _alpha_trace4(D: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+def _alpha_trace4(D: torch.Tensor, M: torch.Tensor, group=None) -> torch.Tensor:
     """alpha_j = 4 * sum_r m_jr ||D[r,:]||^2  — per block (nB,)."""
-    row_normsq = torch.sum(D * D, dim=1)
-    return 4.0 * (M @ row_normsq)
+    row_normsq = torch.sum(D * D, dim=1)  # (P,) or this rank's (P_local,)
+    return 4.0 * all_reduce(M @ row_normsq, group)
 
 
-def _alpha_specnorm(D: torch.Tensor, M: torch.Tensor, n_steps: int) -> torch.Tensor:
+def _alpha_specnorm(D: torch.Tensor, M: torch.Tensor, n_steps: int, group=None) -> torch.Tensor:
     """alpha_j = lambda_max(D^T diag(m_j) D) via batched power iteration."""
     nB = M.shape[0]
     K = D.shape[1]
     v = torch.ones((nB, K), dtype=D.dtype, device=D.device) / (K ** 0.5)
     for _ in range(n_steps):
-        u = (M * (v @ D.T)) @ D
+        u = all_reduce((M * (v @ D.T)) @ D, group)
         v = u / (torch.linalg.norm(u, dim=1, keepdim=True) + 1e-30)
-    u = (M * (v @ D.T)) @ D
+    u = all_reduce((M * (v @ D.T)) @ D, group)
     return torch.sum(v * u, dim=1)  # Rayleigh quotient (v unit-norm)
 
 
 def compute_alpha(
-    D: torch.Tensor, mask_blocks: torch.Tensor, cfg: SparseProxConfig
+    D: torch.Tensor, mask_blocks: torch.Tensor, cfg: SparseProxConfig, group=None
 ) -> torch.Tensor:
     """Per-block ISTA step sizes (nB,) for the configured ``alpha_mode``,
     clamped at 1e-12 (a fully missing block gets the clamp)."""
     M = mask_blocks.to(torch.float32)
     D = D.to(torch.float32)
     if cfg.alpha_mode == "trace4":
-        alpha = _alpha_trace4(D, M)
+        alpha = _alpha_trace4(D, M, group)
     elif cfg.alpha_mode == "specnorm":
-        alpha = _alpha_specnorm(D, M, cfg.power_iters)
+        alpha = _alpha_specnorm(D, M, cfg.power_iters, group)
     else:
         raise ValueError(cfg.alpha_mode)
     return torch.clamp(alpha, min=1e-12)
@@ -91,13 +100,13 @@ def _round_operand(t: torch.Tensor, matmul_dtype: str) -> torch.Tensor:
     raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
 
 
-def _prepare(blocks, mask_blocks, D, cfg: SparseProxConfig, alpha):
+def _prepare(blocks, mask_blocks, D, cfg: SparseProxConfig, alpha, group=None):
     """The loop's inputs in f32: (Ym = M * Y, M, D, alpha, per-block NLM h)."""
     Y = blocks.to(torch.float32)
     M = mask_blocks.to(torch.float32)
     D = D.to(torch.float32)
     if alpha is None:
-        alpha = compute_alpha(D, M, cfg)
+        alpha = compute_alpha(D, M, cfg, group)
     else:
         alpha = torch.clamp(alpha.to(torch.float32), min=1e-12)
     h = cfg.h_scale * cfg.lambda_ista / (2.0 * alpha)
@@ -110,17 +119,22 @@ def pnp_ista_blocks(
     D: torch.Tensor,  # (P, K) dictionary
     cfg: SparseProxConfig = SparseProxConfig(),
     alpha=None,  # optional precomputed per-block step sizes (nB,)
+    group=None,  # process group over which the pixel rows are split
 ) -> torch.Tensor:
     """Masked PnP-ISTA on every block from x0 = 0, plain PyTorch; returns
-    the coefficients (nB, K).  This is the plain version of kernel B1."""
-    Ym, M, D, alpha, h = _prepare(blocks, mask_blocks, D, cfg, alpha)
+    the coefficients (nB, K).  This is the plain version of kernel B1.
+    With ``group``, ``blocks`` / ``mask_blocks`` hold this rank's pixel
+    columns and ``D`` the same rows: one ``all_reduce`` of the (nB, K)
+    partial gradient per iteration, and the coefficients come out equal on
+    every rank of the group."""
+    Ym, M, D, alpha, h = _prepare(blocks, mask_blocks, D, cfg, alpha, group)
     denoise = _denoiser(cfg, h)
     Dm = _round_operand(D, cfg.matmul_dtype)
     x = torch.zeros((Ym.shape[0], D.shape[1]), dtype=torch.float32, device=Ym.device)
     for _ in range(cfg.n_iter):
         pred = _round_operand(x, cfg.matmul_dtype) @ Dm.T  # (nB, P)
         resid = Ym - M * pred
-        grad = x + (_round_operand(resid, cfg.matmul_dtype) @ Dm) / alpha[:, None]
+        grad = x + all_reduce(_round_operand(resid, cfg.matmul_dtype) @ Dm, group) / alpha[:, None]
         x = denoise(grad)
     return x
 
@@ -164,6 +178,29 @@ def pnp_ista_blocks_fused(
     )
 
 
+def use_kernel(blocks: torch.Tensor, cfg: SparseProxConfig) -> bool:
+    """Whether :func:`sparse_prox` launches kernel B1: for CUDA tensors with
+    the ``nlm_fast`` denoiser, unless ``cfg.backend`` is ``"xla"`` (the
+    counterpart of the JAX package's ``_use_pallas``; ``"auto"`` and
+    ``"pallas"`` both take the kernel on the card)."""
+    if cfg.backend not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    return blocks.is_cuda and cfg.denoiser == "nlm_fast" and cfg.backend != "xla"
+
+
+def sparse_coefs(
+    blocks: torch.Tensor,
+    mask_blocks: torch.Tensor,
+    D: torch.Tensor,
+    cfg: SparseProxConfig = SparseProxConfig(),
+    alpha=None,
+) -> torch.Tensor:
+    """The ISTA coefficients (nB, K) of every block: kernel B1 where
+    :func:`use_kernel` says so, the plain loop otherwise."""
+    ista = pnp_ista_blocks_fused if use_kernel(blocks, cfg) else pnp_ista_blocks
+    return ista(blocks, mask_blocks, D, cfg, alpha=alpha)
+
+
 def sparse_prox(
     blocks: torch.Tensor,
     mask_blocks: torch.Tensor,
@@ -173,9 +210,5 @@ def sparse_prox(
 ) -> torch.Tensor:
     """Full sparse-coding prox: ISTA coefficients + full-dictionary
     reconstruction (reference ``Phi_z[:, j] = D @ Coefs``).  Returns the
-    reconstructed blocks (nB, P).  Kernel B1 for ``nlm_fast`` on the card,
-    the plain loop otherwise."""
-    fused = blocks.is_cuda and cfg.denoiser == "nlm_fast"
-    ista = pnp_ista_blocks_fused if fused else pnp_ista_blocks
-    coefs = ista(blocks, mask_blocks, D, cfg, alpha=alpha)
-    return coefs @ D.to(torch.float32).T
+    reconstructed blocks (nB, P)."""
+    return sparse_coefs(blocks, mask_blocks, D, cfg, alpha=alpha) @ D.to(torch.float32).T

@@ -131,6 +131,13 @@ class IstaPlan:
         ]
 
 
+_WAY_AROUND = 'SparseProxConfig(backend="xla") runs the plain loop for it'
+
+
+def _refused(reason: str) -> ValueError:
+    return ValueError(f"{reason}; {_WAY_AROUND}")
+
+
 def plan_ista(
     nB: int, P: int, K: int, bf16: bool,
     resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
@@ -139,11 +146,12 @@ def plan_ista(
     whose slice of D fits in shared memory, the most rows per cluster that
     fit beside it, then as few waves of resident clusters as cover nB, with
     the rows spread evenly over them.  Raises ValueError with the reason
-    for a shape the kernel does not take."""
+    for a shape the kernel does not take, which names ``backend="xla"`` as
+    the way around it."""
     if nB < 1 or P < 1 or K < 6:
-        raise ValueError(f"needs nB >= 1, P >= 1 and K >= 6 (nB={nB}, P={P}, K={K})")
+        raise _refused(f"needs nB >= 1, P >= 1 and K >= 6 (nB={nB}, P={P}, K={K})")
     if bf16 and _round_up(K, 32) > _BF16_MAX_K:
-        raise ValueError(f"K={K} is past the bf16 kernel's {_BF16_MAX_K} columns")
+        raise _refused(f"K={K} is past the bf16 kernel's {_BF16_MAX_K} columns")
     reasons = []
     for C in (8, 16):
         slice_rows = -(-P // C)
@@ -170,7 +178,7 @@ def plan_ista(
             n_clusters=-(-nB // rows), resident=resident[C], slice_rows=slice_rows,
             seg=seg, smem_bytes=smem_bytes(bf16, rows, slice_rows, K, seg),
         )
-    raise ValueError(
+    raise _refused(
         f"kernel B1 does not take P={P}, K={K} with {'bf16' if bf16 else 'f32'} operands: "
         + "; ".join(reasons)
     )

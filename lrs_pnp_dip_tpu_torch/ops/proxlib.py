@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.device import resolve_device
 from .bm3d import Bm3dConfig
 from .bm3d import bm3d_prox as _bm3d_prox
 from .nlm import nlm2d
@@ -38,9 +39,11 @@ def inpainting_operator(
     return MeasurementOp(A=lambda x: mask * x, At=lambda y: mask * y, diag=mask)
 
 
-def superresolution_operator(shape: Tuple[int, int], factor: int, device="cpu") -> MeasurementOp:
+def superresolution_operator(shape: Tuple[int, int], factor: int, device="cuda") -> MeasurementOp:
     """Strided-grid subsampling (reference ``A_superresolution``): every
-    ``factor``-th pixel on both axes is kept."""
+    ``factor``-th pixel on both axes is kept.  The mask lives on ``device``:
+    the card by default, which raises when there is none."""
+    device = resolve_device(device)
     h, w = shape
     rows = (torch.arange(h, device=device) % factor == 0)[:, None]
     cols = (torch.arange(w, device=device) % factor == 0)[None, :]

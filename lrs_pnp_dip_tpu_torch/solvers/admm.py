@@ -107,7 +107,13 @@ class OuterStages:
     ``net`` replaces the variant's default DIP net; ``svt_fn(Z, tau)``
     replaces :func:`..ops.svt.svt_gram`; ``dip_init(itr)``, when given,
     returns the state dict each outer step's DIP fit starts from (else the
-    net is re-drawn from ``state.generator``)."""
+    net is re-drawn from ``state.generator``).  The sharded engine
+    (:mod:`..parallel.engine`) sets the two other hooks:
+    ``sparse_prox_fn(blocks, mask_blocks, D, alpha=None)`` replaces
+    :func:`..ops.ista.sparse_prox` with the config's sparse settings, and
+    ``dip_fit_factory(net, dip_config)`` replaces :func:`.dip.make_dip_fit`
+    (channel TP of the net, or the fit on one rank with its result
+    broadcast).  Without them the step is the unsharded one, bit for bit."""
 
     def __init__(
         self,
@@ -117,12 +123,19 @@ class OuterStages:
         svt_fn: Optional[Callable] = None,
         dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
         device="cuda",
+        sparse_prox_fn: Optional[Callable] = None,
+        dip_fit_factory: Optional[Callable] = None,
     ):
         self.device = resolve_device(device)
         self.config = cfg = config
         self.image_shape = h, w, b = tuple(image_shape)
         self.grid = block_grid((h * w, b), cfg.block_size, cfg.stride)
         self.svt_fn = svt_fn or svt_gram
+        self.sparse_prox_fn = sparse_prox_fn or (
+            lambda blocks, mask_blocks, D, alpha=None: sparse_prox(
+                blocks, mask_blocks, D, cfg.sparse, alpha=alpha
+            )
+        )
         self.dip_init = dip_init
         self.dip_fit = None
         if cfg.variant in ("dip", "dip_1lip"):
@@ -132,7 +145,7 @@ class OuterStages:
                     f"got {cfg.dip.input_mode!r}"
                 )
             net = (net or default_net(cfg, b)).to(self.device)
-            self.dip_fit = make_dip_fit(net, cfg.dip)
+            self.dip_fit = (dip_fit_factory or make_dip_fit)(net, cfg.dip)
         elif cfg.variant != "lrs_pnp":
             raise ValueError(f"unknown variant {cfg.variant!r}")
 
@@ -196,15 +209,18 @@ def build_step(
     svt_fn: Optional[Callable] = None,
     dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
     device="cuda",
+    sparse_prox_fn: Optional[Callable] = None,
+    dip_fit_factory: Optional[Callable] = None,
 ) -> Callable[[SolverState, ProblemConsts], tuple]:
     """Build the outer-step function ``step(state, consts) -> (state, aux)``
     of one problem; the arguments are :class:`OuterStages`'s."""
-    stages = OuterStages(config, image_shape, net, svt_fn, dip_init, device)
+    stages = OuterStages(
+        config, image_shape, net, svt_fn, dip_init, device, sparse_prox_fn, dip_fit_factory
+    )
 
     def step(state: SolverState, consts: ProblemConsts):
-        phi = sparse_prox(
-            stages.sparse_blocks(state), consts.mask_blocks, consts.D,
-            config.sparse, alpha=consts.alpha,
+        phi = stages.sparse_prox_fn(
+            stages.sparse_blocks(state), consts.mask_blocks, consts.D, alpha=consts.alpha
         )
         return stages.finish(state, consts, phi, *stages.low_rank(state, consts))
 

@@ -29,7 +29,6 @@ import numpy as np
 import torch
 
 from ..data.io import HsiSample
-from ..ops.ista import sparse_prox
 from ..ops.metrics import mpsnr
 from ..ops.ssim import ssim
 from ..utils.config import SolverConfig
@@ -75,20 +74,24 @@ def build_lockstep_step(
     svt_fn: Optional[Callable] = None,
     dip_init: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None,
     device="cuda",
+    sparse_prox_fn: Optional[Callable] = None,
+    dip_fit_factory: Optional[Callable] = None,
 ) -> Callable[[SolverState, ProblemConsts], tuple]:
     """Build ``step(state, consts) -> (state, aux)`` over stacked lanes (any
     number of them: the step reads it off the state).  ``aux`` holds each
-    tensor field of :class:`StepAux` stacked and ``dip_iters`` as a list."""
-    stages = OuterStages(config, image_shape, net, svt_fn, dip_init, device)
+    tensor field of :class:`StepAux` stacked and ``dip_iters`` as a list.
+    The arguments are :class:`OuterStages`'s."""
+    stages = OuterStages(
+        config, image_shape, net, svt_fn, dip_init, device, sparse_prox_fn, dip_fit_factory
+    )
 
     def step(state: SolverState, consts: ProblemConsts):
         n_lanes = state.X.shape[0]
         lanes = [(_lane_state(state, i), _lane_consts(consts, i)) for i in range(n_lanes)]
         # 1. one sparse prox over the blocks of every lane
         blocks = torch.cat([stages.sparse_blocks(s) for s, _ in lanes])
-        phi = sparse_prox(
-            blocks, consts.mask_blocks.flatten(0, 1), consts.D, config.sparse,
-            alpha=consts.alpha.flatten(),
+        phi = stages.sparse_prox_fn(
+            blocks, consts.mask_blocks.flatten(0, 1), consts.D, alpha=consts.alpha.flatten()
         ).reshape(n_lanes, -1, blocks.shape[1])
         # 2. low-rank prox: one batched SVT, or the DIP fits lane by lane
         if stages.dip_fit is None:

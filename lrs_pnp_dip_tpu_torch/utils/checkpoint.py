@@ -7,9 +7,9 @@ deterministic step this gives exact resume.  A checkpoint is one file,
 ``step_<n>.pt``, holding only tensors, strings and integers, and it is read
 back with ``torch.load(weights_only=True)``.
 
-:func:`state_from_jax_pytree` carries a state across from the JAX package
-(its ``state_to_pytree`` dict of numpy arrays), as ``params_from_flax``
-carries weights.
+:func:`pytree_to_state` carries a state across from the JAX package (its
+``state_to_pytree`` dict of numpy arrays), as ``params_from_flax`` carries
+weights, and :func:`state_to_pytree` carries one back.
 """
 
 from __future__ import annotations
@@ -92,7 +92,23 @@ class SolverCheckpointer:
         """Nothing to release: every save is written and closed at once."""
 
 
-def state_from_jax_pytree(tree: Mapping[str, np.ndarray], generator: torch.Generator) -> SolverState:
+def state_to_pytree(state: SolverState, key) -> dict:
+    """The state in the JAX package's checkpoint layout (its
+    ``state_to_pytree``): a dict of numpy arrays ``X``, ``lambda1``,
+    ``lambda2``, ``key`` and ``itr``, which the JAX package's
+    ``pytree_to_state`` resumes.  The torch generator does not carry across:
+    ``key`` is the caller's JAX PRNG key as raw uint32 data (for example
+    ``np.asarray(jax.random.PRNGKey(seed))``)."""
+    return {
+        "X": state.X.detach().cpu().numpy(),
+        "lambda1": state.lambda1.detach().cpu().numpy(),
+        "lambda2": state.lambda2.detach().cpu().numpy(),
+        "key": np.asarray(key, np.uint32),
+        "itr": np.asarray(state.itr, np.int32),
+    }
+
+
+def pytree_to_state(tree: Mapping[str, np.ndarray], generator: torch.Generator) -> SolverState:
     """The port's SolverState from the dict of numpy arrays that the JAX
     package's ``state_to_pytree`` writes.  The JAX PRNG key does not carry
     across, so the caller gives the generator, and the state lives on the
@@ -106,3 +122,6 @@ def state_from_jax_pytree(tree: Mapping[str, np.ndarray], generator: torch.Gener
         X=tensor("X"), lambda1=tensor("lambda1"), lambda2=tensor("lambda2"),
         generator=generator, itr=int(tree["itr"]),
     )
+
+
+state_from_jax_pytree = pytree_to_state  # the name it had before pytree_to_state

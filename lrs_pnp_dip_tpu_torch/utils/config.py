@@ -24,10 +24,11 @@ class SparseProxConfig:
     patch_size: int = 3
     patch_distance: int = 3
     backend: Literal["auto", "xla", "pallas"] = "auto"
-    # Kept so the presets equal the JAX package's field for field.  The port
-    # does not read it: ``ops.ista.sparse_prox`` runs the fused CUDA kernel
-    # for tensors on the card with the nlm_fast denoiser, and the plain
-    # PyTorch loop otherwise.
+    # 'auto' and 'pallas' run kernel B1 (csrc/ista.cu) for tensors on the
+    # card with the nlm_fast denoiser; 'xla' runs the plain PyTorch loop on
+    # any device (``ops.ista.use_kernel``), the way around a shape the
+    # kernel's plan refuses.  CPU tensors and the other denoisers always run
+    # the plain loop.
     matmul_dtype: Literal["float32", "bfloat16"] = "float32"
     # 'bfloat16': the two matrix products per ISTA iteration take bf16
     # operands and accumulate in f32; the NLM, step sizes and the carried

@@ -159,7 +159,7 @@ def test_measurement_operators():
     again = tprox.inpainting_operator(torch.Generator().manual_seed(0), (6, 7), 0.6)
     assert torch.equal(again.diag, op.diag)
     j_op = jprox.superresolution_operator((7, 9), 3)
-    t_op = tprox.superresolution_operator((7, 9), 3)
+    t_op = tprox.superresolution_operator((7, 9), 3, device="cpu")
     np.testing.assert_array_equal(t_op.diag.numpy(), np.asarray(j_op.diag))
     xs = np.random.default_rng(4).random((7, 9)).astype(np.float32)
     np.testing.assert_array_equal(t_op.A(torch.from_numpy(xs)).numpy(), np.asarray(j_op.A(jnp.asarray(xs))))

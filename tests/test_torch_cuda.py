@@ -263,3 +263,23 @@ def test_svt_gram_on_the_card_matches_the_cpu(cuda):
     got = svt_gram(torch.from_numpy(X).to(cuda), 1 / 0.9).cpu()
     ref = svt_gram(torch.from_numpy(X), 1 / 0.9)
     assert float((got - ref).abs().max()) < 2e-5 * float(np.abs(X).max())
+
+
+@pytest.mark.parametrize("nB", [40, 13])
+def test_sharded_prox_launches_once_per_rank_with_equal_bits(cuda, nB):
+    """Two ranks on the one card over gloo ({patch: 2}): each launches B1
+    once on its half of the rows (13 takes one padding row), and the
+    gathered rows equal one launch over all rows bit for bit."""
+    from lrs_pnp_dip_tpu_torch.ops import sparse_prox
+    from lrs_pnp_dip_tpu_torch.parallel.launch import spawn
+    from lrs_pnp_dip_tpu_torch.parallel.workers import run_cases
+
+    ISTA_KERNEL.build()  # once, before the ranks load the library
+    Y, M, D = _problem(cuda, nB, P=48, K=32, seed=nB)
+    cfg = SparseProxConfig(n_iter=15)
+    case = dict(axis_sizes={"patch": 2}, blocks=Y.cpu().numpy(), mask=M.cpu().numpy(), D=D.cpu().numpy(), cfg=cfg)
+    ranks = spawn(run_cases, 2, args=("cuda", [("prox_case", case)]), device="cuda")
+    ref = sparse_prox(Y, M, D, cfg).cpu().numpy()
+    for (got,) in ranks:
+        assert (got["launches"], got["nB"]) == (1, -(-nB // 2))
+        np.testing.assert_array_equal(got["out"], ref)

@@ -27,6 +27,9 @@ from lrs_pnp_dip_tpu_torch import native
 from lrs_pnp_dip_tpu_torch.data import dictionary, io
 from lrs_pnp_dip_tpu_torch.utils import checkpoint, logging, noise, profiling, viz
 import lrs_pnp_dip_tpu_torch.solvers.fit
+from lrs_pnp_dip_tpu_torch import parallel
+from lrs_pnp_dip_tpu_torch.parallel import collectives, distributed, engine, launch, mesh, sharding, tensor, workers
+from lrs_pnp_dip_tpu_torch.utils import comm
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lrs_pnp_dip_tpu"))
 assert not bad, bad
@@ -44,12 +47,14 @@ except RuntimeError as e:
 from lrs_pnp_dip_tpu_torch.data import learn_dictionary
 from lrs_pnp_dip_tpu_torch.models import Identity
 from lrs_pnp_dip_tpu_torch.solvers import FitConfig, fit, get_dip_out
+from lrs_pnp_dip_tpu_torch.ops.proxlib import superresolution_operator
 import numpy as np
 calls = [
     lambda: learn_dictionary(np.ones((4, 8), np.float32), n_atoms=2, n_outer=1),
     lambda: lrs_pnp_dip_tpu_torch.inpaint(s.noisy, s.mask, n_iters=1, block_size=6, stride=6),
     lambda: fit(Identity(), None, s.noisy[None], s.noisy[None], config=FitConfig(num_iter=1)),
     lambda: get_dip_out(Identity(), None, s.noisy[None], s.noisy[None], s.mask[None, :, :, None], num_iter=1),
+    lambda: superresolution_operator((4, 4), 2),
 ]
 for call in calls:
     try:
@@ -70,7 +75,7 @@ def test_port_imports_no_jax_and_refuses_cpu_fallback():
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["REFUSED"] * 5
+    assert proc.stdout.split() == ["REFUSED"] * 6
 
 
 def test_port_sources_name_no_jax_module():

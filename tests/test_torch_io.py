@@ -105,3 +105,10 @@ def test_reference_tables_and_loaders_match(tmp_path, cubes):
     ours = tio.load_reference_pair("img2", str(tmp_path))
     assert ours.name == "img2+mask2"
     _assert_same_sample(ours, jio.load_reference_pair("img2", str(tmp_path)))
+
+
+def test_sample_sizes_match_jax():
+    cube = np.zeros((5, 7, 3), np.float32)
+    ours = tio.HsiSample(noisy=cube, mask=np.ones((5, 7), np.float32))
+    ref = jio.HsiSample(noisy=cube, mask=np.ones((5, 7), np.float32))
+    assert (ours.n_pixels, ours.n_bands) == (ref.n_pixels, ref.n_bands) == (35, 3)

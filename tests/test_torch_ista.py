@@ -390,3 +390,70 @@ def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident):
     else:
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
     assert torch.all(got[1] == 0.0)  # a fully missing block never moves
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor in the dispatch predicate, which reads
+    ``is_cuda`` only."""
+
+    is_cuda = True
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "xla"])
+@pytest.mark.parametrize("denoiser", ["nlm_fast", "nlm_classic", "bm3d"])
+def test_use_kernel_honours_backend(backend, denoiser):
+    """``backend="xla"`` runs the plain loop on any device; ``"auto"`` and
+    ``"pallas"`` take kernel B1 for CUDA tensors with nlm_fast; the other
+    denoisers and CPU tensors always run the plain loop."""
+    cfg = SparseProxConfig(backend=backend, denoiser=denoiser)
+    assert tista.use_kernel(_OnCard(), cfg) == (backend != "xla" and denoiser == "nlm_fast")
+    assert not tista.use_kernel(torch.zeros(2, 3), cfg)
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError, match="unknown backend"):
+        tista.use_kernel(torch.zeros(2, 3), SparseProxConfig(backend="triton"))
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "xla"])
+def test_sparse_prox_on_the_cpu_never_reaches_the_kernel(monkeypatch, backend):
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel B1's wrapper was called")
+
+    monkeypatch.setattr(tista, "pnp_ista_blocks_fused", refuse)
+    Y, M, D = _problem(3)
+    cfg = SparseProxConfig(n_iter=3, backend=backend)
+    out = tista.sparse_prox(*_t(Y, M, D), cfg)
+    ref = tista.pnp_ista_blocks(*_t(Y, M, D), cfg) @ torch.from_numpy(D).T
+    assert torch.equal(out, ref)
+
+
+def test_plan_refusal_names_the_way_around():
+    """Block 40 (P 1600) in f32: the plan refuses and names backend="xla"."""
+    with pytest.raises(ValueError, match='backend="xla"'):
+        plan_ista(132, 1600, 512, False)
+
+
+@pytest.mark.parametrize("alpha_mode", ["trace4", "specnorm"])
+def test_loop_without_a_group_is_the_loop_before_the_hook(alpha_mode):
+    """With no process group the all_reduce hook is the identity: the loop
+    equals, bit for bit, the loop written without it."""
+    Y, M, D = _problem(5, missing_block=True)
+    cfg = SparseProxConfig(n_iter=6, alpha_mode=alpha_mode, power_iters=7)
+    Ym, Mt, Dt, alpha, h = tista._prepare(*_t(Y, M, D), cfg, None)
+    denoise = tista._denoiser(cfg, h)
+    x = torch.zeros((Ym.shape[0], Dt.shape[1]))
+    for _ in range(cfg.n_iter):
+        resid = Ym - Mt * (x @ Dt.T)
+        x = denoise(x + (resid @ Dt) / alpha[:, None])
+    assert torch.equal(tista.pnp_ista_blocks(*_t(Y, M, D), cfg, group=None), x)
+    M_t, D_t = _t(M, D)
+    if alpha_mode == "trace4":
+        before = 4.0 * (M_t @ torch.sum(D_t * D_t, dim=1))
+    else:
+        v = torch.ones((M.shape[0], D.shape[1])) / (D.shape[1] ** 0.5)
+        for _ in range(cfg.power_iters):
+            u = (M_t * (v @ D_t.T)) @ D_t
+            v = u / (torch.linalg.norm(u, dim=1, keepdim=True) + 1e-30)
+        before = torch.sum(v * ((M_t * (v @ D_t.T)) @ D_t), dim=1)
+    assert torch.equal(tista.compute_alpha(D_t, M_t, cfg), torch.clamp(before, min=1e-12))

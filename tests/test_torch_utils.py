@@ -22,13 +22,17 @@ from lrs_pnp_dip_tpu.data.masks import synthetic_sample as j_synthetic_sample
 from lrs_pnp_dip_tpu.ops import metrics as jmetrics
 from lrs_pnp_dip_tpu.solvers import Solver as JSolver
 from lrs_pnp_dip_tpu.utils import config as jconfig
+from lrs_pnp_dip_tpu.utils.checkpoint import pytree_to_state as j_pytree_to_state
 from lrs_pnp_dip_tpu.utils.checkpoint import state_to_pytree
 from lrs_pnp_dip_tpu_torch.data import synthetic_sample
 from lrs_pnp_dip_tpu_torch.models import Skip
 from lrs_pnp_dip_tpu_torch.ops import mse, psnr_standard
 from lrs_pnp_dip_tpu_torch.solvers import Solver
 from lrs_pnp_dip_tpu_torch.utils import config as tconfig
-from lrs_pnp_dip_tpu_torch.utils.checkpoint import SolverCheckpointer, state_from_jax_pytree
+from lrs_pnp_dip_tpu_torch.utils.checkpoint import (
+    SolverCheckpointer, pytree_to_state, state_from_jax_pytree,
+)
+from lrs_pnp_dip_tpu_torch.utils.checkpoint import state_to_pytree as t_state_to_pytree
 from lrs_pnp_dip_tpu_torch.utils.logging import MetricLogger, StageTimer
 from lrs_pnp_dip_tpu_torch.utils.profiling import annotate, trace
 
@@ -118,6 +122,36 @@ def test_state_from_jax_pytree_continues_a_jax_solve():
     np.testing.assert_array_equal(state.X.numpy(), np.asarray(j_state.X))
     t_next, _ = Solver(s_t, D, _lrs_pnp(tconfig), device="cpu").step(state)
     j_next, _ = j_solver.step(j_state)
+    for name in ("X", "lambda1", "lambda2"):
+        ref = np.asarray(getattr(j_next, name))
+        np.testing.assert_allclose(getattr(t_next, name).numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+    assert t_next.itr == int(j_next.itr) == 2
+
+
+def test_state_to_pytree_resumes_in_the_jax_package():
+    """A port `lrs_pnp` state after one outer step, written in the JAX
+    layout with a caller's PRNG key, read by the JAX package's
+    ``pytree_to_state`` and continued one step in each package; the JAX
+    package writes it back to the same layout, which ``pytree_to_state``
+    reads as the same state."""
+    import jax
+
+    solver = Solver(_sample(), D, _lrs_pnp(tconfig), device="cpu")
+    state, _ = solver.step(solver.init_state())
+    key = np.asarray(jax.random.PRNGKey(7))
+    tree = t_state_to_pytree(state, key)
+    assert sorted(tree) == ["X", "itr", "key", "lambda1", "lambda2"]
+    assert tree["key"].dtype == np.uint32 and tree["itr"].dtype == np.int32
+    j_state = j_pytree_to_state(tree)
+    for name, value in state_to_pytree(j_state).items():
+        np.testing.assert_array_equal(value, tree[name])
+    back = pytree_to_state(state_to_pytree(j_state), torch.Generator().manual_seed(0))
+    assert state_from_jax_pytree is pytree_to_state
+    for name in ("X", "lambda1", "lambda2"):
+        assert torch.equal(getattr(back, name), getattr(state, name))
+    s_j = j_synthetic_sample(height=12, width=12, bands=16, missing=0.1, seed=6)
+    j_next, _ = JSolver(s_j, D, _lrs_pnp(jconfig)).step(j_state)
+    t_next, _ = solver.step(state)
     for name in ("X", "lambda1", "lambda2"):
         ref = np.asarray(getattr(j_next, name))
         np.testing.assert_allclose(getattr(t_next, name).numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
