@@ -32,7 +32,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                inpaint(variant="dip_fast") (B1 with bf16 operands, the bf16
                DIP fit) and inpaint(variant="dip_tuned", seeds=[0, 1]) (one
                launch per outer step at nB 288), 2 outer steps each with the
-               DIP fit capped at 400 iterations; inpaint_scene(
+               DIP fit capped at 200 iterations; inpaint_scene(
                variant="lrs_pnp") on a 72x72x128 scene, four tiles in one
                batch (one launch per outer step at nB 576), also against the
                CPU; one concatenated launch of B1 against four per-lane
@@ -87,7 +87,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                backend="xla" it runs the plain loop (no launch of B1) and
                lifts MPSNR, under "auto" the plan's ValueError names
                backend="xla".  B1 at nB 72 is timed beside its bound;
-  9. report  — the total time, the card's name and power limit, a
+  9. scanned — the device-resident solve (CUDA graphs), at full width:
+               B1 replayed from a captured graph against an eager launch
+               (equal bits, f32 and bf16, one launch counted per replay);
+               the lrs_pnp preset's step through Solver.run_scanned against
+               run (equal bits), each timed per step and sustained, with the
+               kernels, host launches, host syncs and device-busy share of
+               a step; `dip`, 2 outer steps (DIP capped as in phase 5)
+               through run_scanned, and from fixed DIP inits with zero
+               padding and deterministic cuDNN against run: dip_iters equal
+               step by step, X equal bits; ms per DIP iteration host-stepped against
+               replayed (skip-128 f32 and bf16, the Lipschitz U-Net), with
+               each fit's profile; one fit at chunk lengths 1, 8 and 32 and
+               the iterations each replays after the stop;
+               inpaint(variant="dip_tuned", seeds=[0, 1]) through run_chunked
+               against SeedEnsembleSolver.run; inpaint_scene on the 72x72
+               scene with scan=True against scan=False (equal bits); the
+               yardstick of B1 at nB 72, 288, 576 and 2304 and its plain
+               loop at nB 288, 576 and 2304;
+ 10. report  — the total time, the card's name and power limit, a
                {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -128,9 +146,10 @@ BF16_DRIFT = 0.02
 # against LAPACK's on an f32 Gram, two outer steps.  The CPU tests hold the
 # port to the JAX package at the same figure.
 SOLVE_MATCH = 1e-4
-# The DIP fit's cap in the paths of phase 5 (the preset's is 5000): depth cut
-# for the run's time, the early stop stays on.
-DIP_CAP = 400
+# The DIP fit's cap in the paths of phases 5, 7 and 9 (the preset's is 5000):
+# depth cut for the run's time (400 until phase 9 took the whole past 300 s
+# on a slow host), the early stop stays on.
+DIP_CAP = 200
 # The bm3d paths on the card against the CPU.  BM3D's hard threshold and its
 # block matching are discontinuous, so the order of sums moves single values
 # by far more than rounding: on the CPU, permuting the dictionary's rows
@@ -201,6 +220,12 @@ TP_LR = 1e-4
 # Seconds a spawn of ranks may take before they are stopped and the phase fails.
 SPAWN_TIMEOUT = 300
 
+
+# Outer steps of the lrs_pnp preset's step run back to back in phase 9 to
+# time it sustained.
+SCAN_STEPS = 20
+# DIP iterations timed per fit (a multiple of FIT_CHUNK: no iteration wasted).
+FIT_TIMED = 16
 
 # get_net keys whose net does not keep the (1, H, W, B) shape of the iterate
 # in a DIP solve, and the error the port raises there (the JAX package fails
@@ -891,6 +916,279 @@ def parallel_phase(sample, input_mpsnr, D_np, by_path, peaks) -> dict:
     return timing
 
 
+def profile_window(fn, units: int) -> dict:
+    """One run of ``fn`` under torch.profiler: wall ms, kernels on the card,
+    launches the host made (kernels and graphs) and the device's busy share
+    (the union of the kernels' intervals over the wall time), each per unit;
+    then the host's syncs per unit, counted by torch's sync debug mode in a
+    second run."""
+    import warnings
+
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    kernels = [
+        e for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    ]
+    launches = [e for e in events if e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch", "cuLaunchKernel"))]
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return dict(
+        ms=wall_us / 1e3 / units, kernels=len(kernels) / units, host_launches=len(launches) / units,
+        busy=busy_us / wall_us, syncs=syncs / units,
+    )
+
+
+def fmt_profile(p: dict) -> str:
+    return (f"{p['ms']:.3f} ms, {p['kernels']:.1f} kernels, {p['host_launches']:.1f} host launches, "
+            f"{p['syncs']:.2f} host syncs, device busy {p['busy']:.1%}")
+
+
+def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks) -> dict:
+    """Phase 9 (module docstring).  Adds the scanned paths' launches of B1 to
+    ``by_path``; returns the yardstick times at the engines' and the ranks'
+    shapes."""
+    import numpy as np
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.models import Skip, dip_skip_128
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.solvers import FIT_CHUNK, DipFit, SeedEnsembleSolver, Solver
+    from lrs_pnp_dip_tpu_torch.solvers.admm import default_net
+    from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
+    from lrs_pnp_dip_tpu_torch.utils.config import PRESETS, SparseProxConfig
+
+    t_phase = time.perf_counter()
+    log("[scanned] kernel B1 launched from a captured graph against an eager launch, nB 144, f32 and bf16")
+    blocks, masks, D, alpha = problem(36, 36, 0, D_np)
+    for mm in ("float32", "bfloat16"):
+        cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
+        eager = pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
+        graph = Captured(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha), "cuda")
+        graph()  # the warm-up, eager
+        ISTA_KERNEL.launches = 0
+        replayed = graph()  # captured, then replayed
+        again = graph()
+        torch.cuda.synchronize()
+        if graph.b1_launches != 1 or ISTA_KERNEL.launches != 2:
+            raise AssertionError(f"the graph holds {graph.b1_launches} launches of B1 and two replays counted "
+                                 f"{ISTA_KERNEL.launches}; expected 1 and 2")
+        if not (torch.equal(replayed, eager) and torch.equal(again, eager)):
+            raise AssertionError(f"{mm}: B1 replayed from a graph differs from the eager launch")
+        ms_graph = time_cuda(graph)
+        ms_eager = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha))
+        log(f"  {mm:9s} replay equals the eager launch bit for bit; replay {ms_graph:.4f} ms, eager call "
+            f"{ms_eager:.4f} ms; launches counted per replay 1")
+
+    log(f"[scanned] the lrs_pnp preset's step: Solver.run_scanned({SCAN_STEPS}) against run({SCAN_STEPS}), "
+        "from the same state")
+    solver = Solver(sample, D_np, PRESETS["lrs_pnp"]())
+    solver.run(2)  # cuSOLVER and cuBLAS set up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_state, eager_hist = solver.run(SCAN_STEPS)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    (scan_state, scan_hist), first_wall = drive(
+        "lrs_pnp run_scanned", lambda: solver.run_scanned(SCAN_STEPS), launches=SCAN_STEPS, nB=144)
+    by_path["lrs_pnp_run_scanned"] = ISTA_KERNEL.launches
+    t0 = time.perf_counter()
+    warm_state, _ = solver.run_scanned(SCAN_STEPS)
+    torch.cuda.synchronize()
+    scan_wall = time.perf_counter() - t0
+    gap, _ = relative_error(scan_state.X, eager_state.X)
+    same = torch.equal(scan_state.X, eager_state.X) and torch.equal(warm_state.X, eager_state.X)
+    log(f"  X after {SCAN_STEPS} steps: {'equal bits' if same else f'max|dX|/max|X| = {gap:.3e}'}; MPSNR "
+        f"{scan_hist['mpsnr'][-1]:.4f} (run {eager_hist['mpsnr'][-1]:.4f}); B1 launches {by_path['lrs_pnp_run_scanned']} "
+        f"in {SCAN_STEPS} steps, the first call capturing ({first_wall:.3f} s)")
+    if not same or not np.array_equal(np.float32(eager_hist["mpsnr"]), scan_hist["mpsnr"]):
+        raise AssertionError("lrs_pnp: run_scanned differs from run")
+    eager_step = statistics.median(eager_hist["seconds"])
+    log(f"  per step: run {eager_step * 1e3:.3f} ms (median), {eager_wall / SCAN_STEPS * 1e3:.3f} ms sustained; "
+        f"run_scanned {scan_wall / SCAN_STEPS * 1e3:.3f} ms sustained; card {smi}")
+    prof = {"run": profile_window(lambda: solver.run(SCAN_STEPS), SCAN_STEPS),
+            "run_scanned": profile_window(lambda: solver.run_scanned(SCAN_STEPS), SCAN_STEPS)}
+    for k, p in prof.items():
+        log(f"  per step, {k:11s}: {fmt_profile(p)}")
+
+    log(f"[scanned] dip: 2 outer steps through run_scanned (DIP fit capped at {DIP_CAP}): the preset, then "
+        "from fixed DIP inits, run and run_scanned, with skip-128 in zero padding and cuDNN's "
+        "deterministic algorithms")
+    cfg = PRESETS["dip"]()
+    cfg = dataclasses.replace(cfg, dip=dataclasses.replace(cfg.dip, num_iter=DIP_CAP))
+    solver = Solver(sample, D_np, cfg)
+    (scan_state, scan_hist), wall = drive("dip run_scanned", lambda: solver.run_scanned(2), launches=2, nB=144)
+    by_path["dip_run_scanned"] = ISTA_KERNEL.launches
+    check_recovery("dip run_scanned", scan_state.X.cpu().numpy().reshape(36, 36, 128), (36, 36, 128),
+                   float(scan_hist["mpsnr"][-1]), input_mpsnr)
+    log(f"  the preset: dip_iters {scan_hist['dip_iters'].tolist()}, MPSNR {scan_hist['mpsnr'].round(4).tolist()}, "
+        f"wall {wall:.2f} s (the capture of both graphs and of the fit included), B1 launches {ISTA_KERNEL.launches}")
+    stops = [n for n in scan_hist["dip_iters"].tolist() if n < DIP_CAP]
+    # reflection padding's backward sums with atomics on the card, and so do
+    # some of cuDNN's algorithms: two host-stepped fits of the preset's net
+    # differ, so the bits are held with zero padding and deterministic cuDNN
+    def zero_padded_skip_128():
+        return Skip(128, 128, (128,) * 5, (128,) * 5, (128,) * 5, pad="zero")
+
+    net = zero_padded_skip_128()
+    inits = []
+    for seed in (11, 12):
+        net.reset_parameters(torch.Generator().manual_seed(seed))
+        inits.append({k: v.clone() for k, v in net.state_dict().items()})
+    torch.backends.cudnn.deterministic = True
+    try:
+        solver = Solver(sample, D_np, cfg, net=net, dip_init=lambda itr: inits[itr % 2])
+        run_state, run_hist = solver.run(2)
+        (scan_state, scan_hist), wall = drive(
+            "dip run_scanned, deterministic", lambda: solver.run_scanned(2), launches=2, nB=144)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    by_path["dip_run_scanned_deterministic"] = ISTA_KERNEL.launches
+    run_iters = [int(v) for v in run_hist["dip_iters"]]
+    same = torch.equal(scan_state.X, run_state.X)
+    log(f"  deterministic: dip_iters run {run_iters}, run_scanned {scan_hist['dip_iters'].tolist()}; X: "
+        f"run_scanned {'equals' if same else 'differs from'} run bit for bit; MPSNR "
+        f"{scan_hist['mpsnr'].round(4).tolist()}; wall {wall:.2f} s")
+    # the same kernels in the same order: the graphs change nothing
+    if not (same and scan_hist["dip_iters"].tolist() == run_iters):
+        raise AssertionError("dip, deterministic: run_scanned differs from run")
+    stops += [n for n in run_iters if n < DIP_CAP]
+    for c in (1, 4, FIT_CHUNK, 16, 32):
+        waste = [-(-n // c) * c - n for n in stops]
+        log(f"  chunk {c:2d}: iterations replayed after the stop in the {len(waste)} fits that stopped "
+            f"before the cap: {waste}")
+
+    log(f"[scanned] ms per DIP iteration, host-stepped (eager) against replayed from a graph (chunk {FIT_CHUNK}), "
+        f"{FIT_TIMED} iterations at 36x36x128")
+    c = solver.consts
+    Z = torch.from_numpy(sample.noisy).cuda()[None]
+    fit_ms = {}
+    for label, variant, dtype in (("skip-128 f32", "dip", "float32"), ("skip-128 bf16", "dip", "bfloat16"),
+                                  ("Lipschitz U-Net f32", "dip_1lip", "float32")):
+        vcfg = PRESETS[variant]()
+        net = default_net(vcfg, 128).cuda()
+        fit = DipFit(net, dataclasses.replace(vcfg.dip, num_iter=FIT_TIMED, patience=10**9, compute_dtype=dtype))
+        gen = torch.Generator(device="cuda")
+        row = {}
+        for mode, chunk in (("eager", None), ("graph", FIT_CHUNK)):
+            first = fit(Z, c.dip_target, c.dip_mask, generator=gen.manual_seed(0), chunk=chunk).out  # set-up / capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            row[mode + "_out"] = fit(Z, c.dip_target, c.dip_mask, generator=gen.manual_seed(0), chunk=chunk).out
+            torch.cuda.synchronize()
+            row[mode] = (time.perf_counter() - t0) * 1e3 / FIT_TIMED
+            row[mode + "_repeats"] = torch.equal(first, row[mode + "_out"])
+            row[mode + "_prof"] = profile_window(
+                lambda: fit(Z, c.dip_target, c.dip_mask, generator=gen.manual_seed(0), chunk=chunk), FIT_TIMED)
+        fit_ms[label] = {"eager": row["eager"], "graph": row["graph"]}
+        log(f"  {label:20s} eager {row['eager']:.3f} ms, graph {row['graph']:.3f} ms per iteration "
+            f"({row['eager'] / row['graph']:.2f}x); card {smi}; two eager fits "
+            f"{'equal' if row['eager_repeats'] else 'differ'}, two graphed fits "
+            f"{'equal' if row['graph_repeats'] else 'differ'}, graphed against eager "
+            f"{relative_error(row['graph_out'], row['eager_out'])[0]:.3e} of max|out|")
+        for mode in ("eager", "graph"):
+            log(f"      {mode}: {fmt_profile(row[mode + '_prof'])} per iteration")
+        del net, fit
+
+    log("[scanned] chunk length of the DIP fit: one fit from one init at the preset's early stop (capped at "
+        f"{2 * DIP_CAP}), skip-128 in zero padding with deterministic cuDNN, so that every length runs the same "
+        "iterations")
+    fit = DipFit(zero_padded_skip_128().cuda(), dataclasses.replace(cfg.dip, num_iter=2 * DIP_CAP))
+    torch.backends.cudnn.deterministic = True
+    try:
+        fit(Z, c.dip_target, c.dip_mask, init=inits[0], chunk=FIT_CHUNK)  # capture
+        for chunk in (1, FIT_CHUNK, 32):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit(Z, c.dip_target, c.dip_mask, init=inits[0], chunk=chunk)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            log(f"  chunk {chunk:2d}: {res.n_iters} iterations ({'stopped' if res.stopped else 'the cap'}), "
+                f"{ms:.1f} ms, {ms / res.n_iters:.3f} ms per iteration, "
+                f"{-(-res.n_iters // chunk) * chunk - res.n_iters} replayed after the stop")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    log(f"[scanned] inpaint(variant='dip_tuned', seeds=[0, 1], n_iters=2) through run_chunked, DIP fits capped "
+        f"at {DIP_CAP}")
+    tuned = PRESETS["dip_tuned"]()
+    (cube, hist), wall = drive("dip_tuned ensemble, run_chunked", lambda: port.inpaint(
+        sample.noisy, sample.mask, variant="dip_tuned", clean=sample.clean, n_iters=2, seeds=[0, 1],
+        dip=dataclasses.replace(tuned.dip, num_iter=DIP_CAP)), launches=2, nB=288)
+    by_path["dip_tuned_seeds_run_chunked"] = ISTA_KERNEL.launches
+    log(f"  dip_iters {hist['dip_iters'].tolist()}, mpsnr {hist['mpsnr'].round(4).tolist()}, ens_mpsnr "
+        f"{hist['ens_mpsnr'].round(4).tolist()}; wall {wall:.2f} s")
+    for k, shape, dtype in (("mpsnr", (2, 2), np.float32), ("ssim", (2, 2), np.float32),
+                            ("dip_iters", (2, 2), np.int32), ("ens_mpsnr", (2,), np.float32),
+                            ("ens_ssim", (2,), np.float32)):
+        if hist[k].shape != shape or hist[k].dtype != dtype or not np.isfinite(hist[k]).all():
+            raise AssertionError(f"ensemble history {k}: {hist[k].shape} {hist[k].dtype}, expected {shape} {dtype}")
+    check_recovery("dip_tuned run_chunked", cube, (36, 36, 128), float(hist["ens_mpsnr"][-1]), input_mpsnr)
+
+    log("[scanned] inpaint_scene(variant='lrs_pnp', tile_batch=4) on the 72x72x128 scene, scan=True against "
+        "scan=False")
+    (rec_scan, wall_scan) = drive("inpaint_scene scan", lambda: port.inpaint_scene(
+        scene.noisy, scene.mask, variant="lrs_pnp", tile_batch=4, scan=True), launches=2, nB=576)
+    by_path["inpaint_scene_scan"] = ISTA_KERNEL.launches
+    t0 = time.perf_counter()
+    rec_host = port.inpaint_scene(scene.noisy, scene.mask, variant="lrs_pnp", tile_batch=4, scan=False)
+    wall_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    port.inpaint_scene(scene.noisy, scene.mask, variant="lrs_pnp", tile_batch=4, scan=True)
+    wall_warm = time.perf_counter() - t0
+    log(f"  scan=True {'equals' if np.array_equal(rec_scan, rec_host) else 'differs from'} scan=False bit for "
+        f"bit; wall: scan=True {wall_scan:.3f} s (capturing), {wall_warm:.3f} s warm, scan=False {wall_host:.3f} s")
+    if not np.array_equal(rec_scan, rec_host):
+        raise AssertionError("inpaint_scene: scan=True differs from scan=False")
+
+    log("[scanned] B1's yardstick (its 200 torch.matmul calls) at the engines' and the ranks' shapes, and "
+        "its plain loop at the engines' (nB 72's is in phase 8)")
+    library, plain = {}, {}
+    P, K = D.shape
+    scene_rows, big = problem(72, 72, 2, D_np), problem(144, 144, 1, D_np)
+    for nB in (72, 288, 576, 2304):
+        rows = big if nB == 2304 else tuple(t[:nB] for t in scene_rows[:2]) + (D, scene_rows[3][:nB])
+        for mm, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x = torch.zeros((nB, K), device="cuda", dtype=dt)
+            r = torch.zeros((nB, P), device="cuda", dtype=dt)
+            Dm = D.to(dt)
+
+            def matmuls():
+                for _ in range(100):
+                    torch.matmul(x, Dm.T)
+                    torch.matmul(r, Dm)
+
+            library[f"nB{nB}_{mm}"] = time_cuda(matmuls)
+            if nB != 72:
+                cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
+                plain[f"nB{nB}_{mm}"] = time_cuda(
+                    lambda: pnp_ista_blocks(rows[0], rows[1], D, cfg, alpha=rows[3]), warmup=1, reps=3)
+        log(f"  nB {nB:4d}: library_ms f32 {library[f'nB{nB}_float32']:.4f}, bf16 {library[f'nB{nB}_bfloat16']:.4f}"
+            + (f"; plain_ms f32 {plain[f'nB{nB}_float32']:.4f}, bf16 {plain[f'nB{nB}_bfloat16']:.4f}"
+               if nB != 72 else "") + f"; card {smi}")
+    log(f"  (scanned phase {time.perf_counter() - t_phase:.1f} s)")
+    return {"library_ms": library, "plain_ms": plain, "lrs_pnp_step": prof, "dip_iteration_ms": fit_ms}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1268,7 +1566,10 @@ def main() -> int:
     # 8. the sharded engine, ranks sharing the card
     shard_timing = parallel_phase(sample, input_mpsnr, D_np, by_path, peaks)
 
-    # 9. report
+    # 9. the device-resident solve
+    scanned = scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks)
+
+    # 10. report
     log(f"[report] chip_smoke.py total {time.perf_counter() - t_start:.1f} s")
     t = timing["float32"]
     kernels = [{
@@ -1288,6 +1589,13 @@ def main() -> int:
         "at_nB324_P576_K512": auto_timing,
         # B1 at nB 72, one rank's share of the main shape under {patch: 2}
         "at_nB72_per_rank": shard_timing,
+        # the yardstick at the engines' and the ranks' shapes (nB 72, 288, 576, 2304)
+        "library_ms_at": scanned["library_ms"],
+        # the plain loop at the engines' shapes (nB 288, 576, 2304)
+        "plain_ms_at": scanned["plain_ms"],
+        # the lrs_pnp step, host-stepped against device-resident; ms per DIP iteration
+        "lrs_pnp_step": scanned["lrs_pnp_step"],
+        "dip_iteration_ms": scanned["dip_iteration_ms"],
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -69,7 +69,8 @@ def inpaint(
     of N independent draws is a stronger estimator than any single run.  The
     returned cube is the ensemble mean at the final iteration; ``history``
     carries per-seed ``mpsnr`` (n_iters, n_seeds) and the ensemble's
-    ``ens_mpsnr`` (n_iters,).
+    ``ens_mpsnr`` (n_iters,).  The ensemble runs on the device
+    (``SeedEnsembleSolver.run_chunked``: 25 outer steps per host read).
 
     Runs on ``device``: the card by default, which raises when there is
     none; pass ``device='cpu'`` for the plain PyTorch path."""
@@ -118,8 +119,9 @@ def inpaint_scene(
     from a central crop of at most 128 x 128 pixels.  Returns the recovered
     (H, W, B) cube.
 
-    ``scan`` is accepted for the JAX package's signature and changes
-    nothing: the port steps every batch from the host.  ``net``,
+    ``scan``: ``None`` (default) takes the device-resident loop for
+    ``lrs_pnp`` and the host-stepped loop for the DIP variants, as the JAX
+    package chooses; ``True`` / ``False`` force either.  ``net``,
     ``verbose`` and ``pad_final`` go to ``solve_tiled``."""
     from .solvers.tiled import solve_tiled
 
@@ -135,8 +137,10 @@ def inpaint_scene(
             noisy=noisy[h0 : h0 + ch, w0 : w0 + cw], mask=mask[h0 : h0 + ch, w0 : w0 + cw],
         )
         dictionary = _auto_dictionary(probe, cfg, device=device)
+    if scan is None:
+        scan = cfg.variant == "lrs_pnp"
     return solve_tiled(
         noisy, mask, dictionary, cfg,
         tile_shape=tile_shape, tile_batch=tile_batch, overlap=overlap, n_iters=n_iters,
-        net=net, verbose=verbose, scan=bool(scan), pad_final=pad_final, device=device,
+        net=net, verbose=verbose, scan=scan, pad_final=pad_final, device=device,
     )

@@ -707,15 +707,29 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_cluster_bf16(const Args a) 
   write_out(cluster, a, s_xown, row0, nrows, cur);
 }
 
+// The attributes already set on each kernel (index: bf16), so that they are
+// set by the first launch of a shape and a launch recorded into a CUDA graph
+// after it calls no cudaFuncSetAttribute.
+struct KernelAttributes {
+  int smem = 0;
+  bool non_portable = false;
+};
+KernelAttributes g_attributes[2];
+
 template <typename Kernel>
-cudaError_t configure(Kernel kernel, int cluster_size, int nclusters, int smem,
+cudaError_t configure(Kernel kernel, int bf16, int cluster_size, int nclusters, int smem,
                       cudaStream_t stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  if (cluster_size > 8) {
+  KernelAttributes& set = g_attributes[bf16];
+  cudaError_t err;
+  if (smem > set.smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    set.smem = smem;
+  }
+  if (cluster_size > 8 && !set.non_portable) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
+    set.non_portable = true;
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(cluster_size * nclusters);
@@ -748,8 +762,8 @@ int lrs_pnp_ista_max_clusters(int bf16, int cluster_size, int smem) {
   cudaLaunchAttribute attr;
   int n = 0;
   cudaError_t err =
-      bf16 ? configure(pnp_ista_cluster_bf16, cluster_size, 1, smem, nullptr, &cfg, &attr)
-           : configure(pnp_ista_cluster_f32, cluster_size, 1, smem, nullptr, &cfg, &attr);
+      bf16 ? configure(pnp_ista_cluster_bf16, 1, cluster_size, 1, smem, nullptr, &cfg, &attr)
+           : configure(pnp_ista_cluster_f32, 0, cluster_size, 1, smem, nullptr, &cfg, &attr);
   if (err == cudaSuccess) {
     err = bf16 ? cudaOccupancyMaxActiveClusters(&n, pnp_ista_cluster_bf16, &cfg)
                : cudaOccupancyMaxActiveClusters(&n, pnp_ista_cluster_f32, &cfg);
@@ -771,10 +785,10 @@ int lrs_pnp_ista_launch(const float* y, const float* m, const float* d,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {
-    err = configure(pnp_ista_cluster_bf16, cluster_size, nclusters, smem, s, &cfg, &attr);
+    err = configure(pnp_ista_cluster_bf16, 1, cluster_size, nclusters, smem, s, &cfg, &attr);
     if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_cluster_bf16, a);
   } else {
-    err = configure(pnp_ista_cluster_f32, cluster_size, nclusters, smem, s, &cfg, &attr);
+    err = configure(pnp_ista_cluster_f32, 0, cluster_size, nclusters, smem, s, &cfg, &attr);
     if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_cluster_f32, a);
   }
   if (err != cudaSuccess) {

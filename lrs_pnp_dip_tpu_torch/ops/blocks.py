@@ -60,11 +60,9 @@ class BlockGrid:
         return self.block_size * self.block_size
 
     def weight(self, device="cpu") -> torch.Tensor:
-        """Per-entry block-coverage count (reference ``Weight``), (P, B)."""
-        ones = torch.ones(
-            (self.n_blocks, self.patch_dim), dtype=torch.float32, device=device
-        )
-        return scatter_blocks(ones, self)
+        """Per-entry block-coverage count (reference ``Weight``), (P, B),
+        made once per device and shared: do not write to it."""
+        return _coverage(self, torch.device(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,9 +99,18 @@ def _regular_layout(grid: BlockGrid):
     return xs, ys
 
 
-def _gather_indices(grid: BlockGrid, device):
+@functools.lru_cache(maxsize=64)
+def _coverage(grid: BlockGrid, device: torch.device) -> torch.Tensor:
+    ones = torch.ones((grid.n_blocks, grid.patch_dim), dtype=torch.float32, device=device)
+    return scatter_blocks(ones, grid)
+
+
+@functools.lru_cache(maxsize=64)
+def _gather_indices(grid: BlockGrid, device: torch.device):
     """(nB, bb, bb) = [block, band_local, pixel_local] row/col indices, so a
-    C-order flatten of the trailing two axes is band-major."""
+    C-order flatten of the trailing two axes is band-major.  Made once per
+    (grid, device): they come from host tuples, a copy that a captured
+    graph cannot hold."""
     bb = grid.block_size
     xs = torch.tensor(grid.x_starts, dtype=torch.int64, device=device)
     ys = torch.tensor(grid.y_starts, dtype=torch.int64, device=device)

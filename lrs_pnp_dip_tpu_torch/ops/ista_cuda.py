@@ -188,8 +188,11 @@ class FusedIstaKernel:
     """Builds, loads and launches ``csrc/ista.cu``.
 
     ``launches`` counts the launches of the fused loop: one per call that
-    reaches the kernel, and nothing else adds to it.  ``last_plan`` is the
-    tiling of the latest launch."""
+    reaches the kernel outside a CUDA graph capture, and the launches a
+    captured graph holds each time it is replayed (:meth:`replayed`).  A
+    call during a capture records a launch into the graph and adds to
+    ``captured`` instead.  ``last_plan`` is the tiling of the latest launch,
+    replays included."""
 
     source = _CSRC / "ista.cu"
     build_dir = _CSRC / "build"
@@ -197,6 +200,7 @@ class FusedIstaKernel:
     def __init__(self, extra_flags: tuple = ()):
         self.flags = _NVCC_FLAGS + tuple(extra_flags)
         self.launches = 0
+        self.captured = 0
         self.last_plan: Optional[IstaPlan] = None
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
@@ -266,7 +270,12 @@ class FusedIstaKernel:
     ) -> torch.Tensor:
         """Run the fused loop on the current stream; returns x (nB, K).  The
         kernel masks the targets and derives 1/alpha and the NLM's constants
-        itself, so the call launches nothing else."""
+        itself, so the call launches nothing else.  The first call of a
+        shape builds the library, asks the card for its resident clusters
+        and sets the kernel's attributes; a call during a CUDA graph
+        capture after that only records the launch.  ``h_coef`` and
+        ``n_iter`` are passed by value, so a captured launch keeps the
+        config's constants."""
         nB, P = y.shape
         K = d.shape[1]
         device = y.device
@@ -302,9 +311,19 @@ class FusedIstaKernel:
                 f"pnp_ista kernel launch refused: cudaError_t {err} for {plan.n_clusters} clusters "
                 f"of {plan.cluster_size} CTAs with {plan.smem_bytes} B of shared memory each"
             )
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         self.last_plan = plan
         return out
+
+    def replayed(self, n: int, plan: Optional[IstaPlan] = None) -> None:
+        """Count the ``n`` launches of a captured graph that was just
+        replayed, the last of them with the tiling ``plan``."""
+        self.launches += n
+        if n:
+            self.last_plan = plan
 
 
 ISTA_KERNEL = FusedIstaKernel()

@@ -39,10 +39,17 @@ def _band_matrix(n: int, window_size: int, sigma: float = 1.5) -> np.ndarray:
     return W
 
 
+@functools.lru_cache(maxsize=64)
+def _band_tensor(n: int, window_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`_band_matrix` on ``device``, copied there once: a captured
+    graph cannot hold a copy from host memory."""
+    return torch.from_numpy(_band_matrix(n, window_size)).to(device)
+
+
 def _gaussian_filter(x: torch.Tensor, window_size: int) -> torch.Tensor:
     """(N, H, W, C) zero-padded 'same' gaussian filtering."""
-    wh = torch.from_numpy(_band_matrix(x.shape[1], window_size)).to(x.device)
-    ww = torch.from_numpy(_band_matrix(x.shape[2], window_size)).to(x.device)
+    wh = _band_tensor(x.shape[1], window_size, x.device)
+    ww = _band_tensor(x.shape[2], window_size, x.device)
     y = torch.einsum("hj,njwc->nhwc", wh, x)
     return torch.einsum("wk,nhkc->nhwc", ww, y)
 

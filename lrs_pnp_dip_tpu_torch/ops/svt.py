@@ -30,22 +30,38 @@ def svt(X: torch.Tensor, tau) -> torch.Tensor:
     return (U * soft_threshold(s, tau)[..., None, :]) @ Vh
 
 
-def _gram_spectral_filter(G: torch.Tensor, tau, eps: float = 1e-12):
-    """Eigendecompose G = X^T X; returns the eigenvectors and the shrink
-    ratio of each (0 where the singular value is at most ``eps``)."""
-    w, V = torch.linalg.eigh(G)
+def _shrink_ratio(w: torch.Tensor, tau, eps: float = 1e-12) -> torch.Tensor:
+    """The shrink ratio of each eigenvalue ``w`` of a Gram matrix (0 where
+    the singular value is at most ``eps``)."""
     s = torch.sqrt(torch.clamp(w, min=0.0))
-    ratio = torch.where(
+    return torch.where(
         s > eps, soft_threshold(s, tau) / torch.clamp(s, min=eps), torch.zeros_like(s)
     )
-    return V, ratio
+
+
+def _gram_spectral_filter(G: torch.Tensor, tau):
+    """Eigendecompose G = X^T X; returns the eigenvectors and their shrink ratios."""
+    w, V = torch.linalg.eigh(G)
+    return V, _shrink_ratio(w, tau)
+
+
+def gram(X: torch.Tensor) -> torch.Tensor:
+    """X^T X over the trailing two axes."""
+    return X.transpose(-1, -2) @ X
+
+
+def svt_from_eigh(X: torch.Tensor, w: torch.Tensor, V: torch.Tensor, tau) -> torch.Tensor:
+    """:func:`svt_gram` from ``torch.linalg.eigh(gram(X))``.  ``eigh``
+    checks cuSOLVER's status on the host, which a CUDA graph cannot
+    capture, so the device-resident solve runs it between two graphs and
+    this half in the second."""
+    return ((X @ V) * _shrink_ratio(w, tau)[..., None, :]) @ V.transpose(-1, -2)
 
 
 def svt_gram(X: torch.Tensor, tau) -> torch.Tensor:
     """Gram + eigh route: exact SVT for any X with a small trailing axis."""
-    Xt = X.transpose(-1, -2)
-    V, ratio = _gram_spectral_filter(Xt @ X, tau)
-    return ((X @ V) * ratio[..., None, :]) @ V.transpose(-1, -2)
+    w, V = torch.linalg.eigh(gram(X))
+    return svt_from_eigh(X, w, V, tau)
 
 
 def singular_values_gram(X: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,11 @@ Per outer iteration (``main_LRS_PnP_DIP_pro.py:355-528``,
 
 :class:`OuterStages` holds those stages for one problem geometry;
 :func:`build_step` strings them into the single-problem step and
-:mod:`.batch` into the lockstep step of several problems.  ``run_scanned``
-has no counterpart: the port steps the outer loop from Python.
+:mod:`.batch` into the lockstep step of several problems.
+:meth:`Solver.run` steps the outer loop from the host;
+:meth:`Solver.run_scanned` is the device-resident loop of
+:mod:`.scan` (CUDA graphs on the card), the counterpart of the JAX
+package's ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -153,17 +156,28 @@ class OuterStages:
         """The sparse prox's target blocks (nB, bb*bb)."""
         return extract_blocks(state.X + state.lambda1 / self.config.mu1, self.grid)
 
+    def sparse(self, state: SolverState, consts: ProblemConsts) -> torch.Tensor:
+        """Stage 1 of one problem: the reconstructed blocks Phi_z (nB, bb*bb)."""
+        return self.sparse_prox_fn(
+            self.sparse_blocks(state), consts.mask_blocks, consts.D, alpha=consts.alpha
+        )
+
+    def low_rank_input(self, state: SolverState) -> torch.Tensor:
+        """The low-rank prox's input X + lambda2/mu2 (any leading axes)."""
+        return state.X + state.lambda2 / self.config.mu2
+
     def svt(self, Z: torch.Tensor) -> torch.Tensor:
         """The `lrs_pnp` low-rank prox; takes a leading batch axis."""
         return self.svt_fn(Z, 1.0 / self.config.mu2)
 
-    def low_rank(self, state: SolverState, consts: ProblemConsts):
+    def low_rank(self, state: SolverState, consts: ProblemConsts, chunk: Optional[int] = None):
         """The low-rank / DIP prox: (U, dip_iters, dip_loss).  The DIP fit
         takes one problem; the `lrs_pnp` SVT also takes a stacked state (a
-        leading lane axis), as one batched ``eigh``."""
+        leading lane axis), as one batched ``eigh``.  ``chunk`` is the DIP
+        fit's (:class:`.dip.DipFit`): None steps it from the host."""
         cfg = self.config
         h, w, b = self.image_shape
-        Z = state.X + state.lambda2 / cfg.mu2
+        Z = self.low_rank_input(state)
         if self.dip_fit is None:
             return self.svt(Z), 0, torch.zeros((), dtype=torch.float32, device=Z.device)
         if cfg.dip.input_mode == "noise":
@@ -176,6 +190,7 @@ class OuterStages:
             dip_input, consts.dip_target, consts.dip_mask,
             init=None if self.dip_init is None else self.dip_init(state.itr),
             generator=state.generator,
+            **({} if chunk is None else {"chunk": chunk}),
         )
         return res.out.reshape(h * w, b), res.n_iters, res.loss
 
@@ -214,14 +229,16 @@ def build_step(
 ) -> Callable[[SolverState, ProblemConsts], tuple]:
     """Build the outer-step function ``step(state, consts) -> (state, aux)``
     of one problem; the arguments are :class:`OuterStages`'s."""
-    stages = OuterStages(
+    return single_step(OuterStages(
         config, image_shape, net, svt_fn, dip_init, device, sparse_prox_fn, dip_fit_factory
-    )
+    ))
+
+
+def single_step(stages: OuterStages) -> Callable[[SolverState, ProblemConsts], tuple]:
+    """The outer step of one problem through ``stages``."""
 
     def step(state: SolverState, consts: ProblemConsts):
-        phi = stages.sparse_prox_fn(
-            stages.sparse_blocks(state), consts.mask_blocks, consts.D, alpha=consts.alpha
-        )
+        phi = stages.sparse(state, consts)
         return stages.finish(state, consts, phi, *stages.low_rank(state, consts))
 
     return step
@@ -294,11 +311,12 @@ class Solver:
         self.sample = sample
         self.config = config
         self.height, self.width, self.n_bands = sample.shape
-        self._step = build_step(
-            config, sample.shape, net=net, svt_fn=svt_fn, dip_init=dip_init,
-            device=self.device,
+        self.stages = OuterStages(
+            config, sample.shape, net=net, svt_fn=svt_fn, dip_init=dip_init, device=self.device
         )
+        self._step = single_step(self.stages)
         self.consts = make_consts(sample, dictionary, config, device=self.device)
+        self._scan = None
 
     def init_state(self, seed: Optional[int] = None) -> SolverState:
         return init_state(
@@ -351,6 +369,28 @@ class Solver:
                 callback(i, state, aux)
         hist["best_mpsnr"] = best[0]
         hist["best_X"] = best[1]
+        return state, hist
+
+    def run_scanned(self, n_iters: Optional[int] = None, state: Optional[SolverState] = None):
+        """Run ``n_iters`` outer steps on the device; returns (final_state,
+        history) with ``mpsnr``, ``ssim``, ``x_dist``, ``l1_dist``,
+        ``l2_dist`` and ``dip_iters``, each a numpy array of length n, read
+        from the device once at the end.
+
+        On the card each step replays captured graphs (:mod:`.scan`), and
+        the DIP fit replays its own; the first call captures them.  On the
+        CPU the same bodies run eagerly and give :meth:`run`'s bits.  No
+        divergence check and no ``best_X``: the loop reads nothing back."""
+        from .scan import ScannedSolve
+
+        n = self.config.outer_iters if n_iters is None else n_iters
+        state = self.init_state() if state is None else state
+        if self._scan is None:
+            self._scan = ScannedSolve(self.stages, self.consts)
+        state, rows = self._scan.run(state, n)
+        keys = ("mpsnr", "ssim", "x_dist", "l1_dist", "l2_dist", "dip_iters")
+        hist = {k: rows[:, j] for j, k in enumerate(keys)}
+        hist["dip_iters"] = hist["dip_iters"].astype(np.int32)
         return state, hist
 
     def result_cube(self, state: SolverState) -> np.ndarray:

@@ -17,8 +17,13 @@ How the lanes are batched here:
 
 A stacked :class:`SolverState` holds ``X``, ``lambda1``, ``lambda2`` as
 ``(N, P, B)`` and a tuple of N generators; a stacked :class:`ProblemConsts`
-holds every field with a leading lane axis except ``D``.  ``run_scanned``
-has no counterpart, as for :class:`Solver`.
+holds every field with a leading lane axis except ``D``.
+:meth:`SeedEnsembleSolver.run` steps from the host;
+:meth:`SeedEnsembleSolver.run_scanned` and
+:meth:`SeedEnsembleSolver.run_chunked` run the same step on the device
+(:mod:`.scan`: CUDA graphs on the card, the lanes' DIP fits one after
+another through the one captured fit), the ensemble metrics inside the
+step.
 """
 
 from __future__ import annotations
@@ -81,32 +86,52 @@ def build_lockstep_step(
     number of them: the step reads it off the state).  ``aux`` holds each
     tensor field of :class:`StepAux` stacked and ``dip_iters`` as a list.
     The arguments are :class:`OuterStages`'s."""
-    stages = OuterStages(
+    return lockstep_step(OuterStages(
         config, image_shape, net, svt_fn, dip_init, device, sparse_prox_fn, dip_fit_factory
-    )
+    ))
+
+
+def lockstep_sparse(stages: OuterStages, state: SolverState, consts: ProblemConsts) -> torch.Tensor:
+    """Stage 1 of stacked lanes: one sparse prox over the blocks of every
+    lane; returns Phi_z (N, nB, bb*bb)."""
+    n_lanes = state.X.shape[0]
+    blocks = torch.cat([stages.sparse_blocks(_lane_state(state, i)) for i in range(n_lanes)])
+    return stages.sparse_prox_fn(
+        blocks, consts.mask_blocks.flatten(0, 1), consts.D, alpha=consts.alpha.flatten()
+    ).reshape(n_lanes, -1, blocks.shape[1])
+
+
+def lockstep_finish(stages: OuterStages, state: SolverState, consts: ProblemConsts, phi, low_rank):
+    """Stages 3 to 5 lane by lane from Phi_z and each lane's (U, dip_iters,
+    dip_loss): (stacked state, aux)."""
+    done = [
+        stages.finish(_lane_state(state, i), _lane_consts(consts, i), phi[i], *low_rank[i])
+        for i in range(state.X.shape[0])
+    ]
+    aux = StepAux(*(
+        [a[k] for _, a in done] if name == "dip_iters"
+        else torch.stack([a[k] for _, a in done])
+        for k, name in enumerate(StepAux._fields)
+    ))
+    return stack_states([s for s, _ in done]), aux
+
+
+def lockstep_step(stages: OuterStages) -> Callable[[SolverState, ProblemConsts], tuple]:
+    """The lockstep step of stacked lanes through ``stages``."""
 
     def step(state: SolverState, consts: ProblemConsts):
         n_lanes = state.X.shape[0]
-        lanes = [(_lane_state(state, i), _lane_consts(consts, i)) for i in range(n_lanes)]
-        # 1. one sparse prox over the blocks of every lane
-        blocks = torch.cat([stages.sparse_blocks(s) for s, _ in lanes])
-        phi = stages.sparse_prox_fn(
-            blocks, consts.mask_blocks.flatten(0, 1), consts.D, alpha=consts.alpha.flatten()
-        ).reshape(n_lanes, -1, blocks.shape[1])
+        phi = lockstep_sparse(stages, state, consts)
         # 2. low-rank prox: one batched SVT, or the DIP fits lane by lane
         if stages.dip_fit is None:
             U, no_iters, no_loss = stages.low_rank(state, consts)
             low_rank = [(U[i], no_iters, no_loss) for i in range(n_lanes)]
         else:
-            low_rank = [stages.low_rank(s, c) for s, c in lanes]
-        # 3-5. per lane
-        done = [stages.finish(s, c, phi[i], *low_rank[i]) for i, (s, c) in enumerate(lanes)]
-        aux = StepAux(*(
-            [a[k] for _, a in done] if name == "dip_iters"
-            else torch.stack([a[k] for _, a in done])
-            for k, name in enumerate(StepAux._fields)
-        ))
-        return stack_states([s for s, _ in done]), aux
+            low_rank = [
+                stages.low_rank(_lane_state(state, i), _lane_consts(consts, i))
+                for i in range(n_lanes)
+            ]
+        return lockstep_finish(stages, state, consts, phi, low_rank)
 
     return step
 
@@ -133,9 +158,8 @@ class _LockstepEngine:
         self.device = resolve_device(device)
         self.config = config
         self.shape = shape
-        self._step = build_lockstep_step(
-            config, shape, net=net, dip_init=dip_init, device=self.device
-        )
+        self.stages = OuterStages(config, shape, net=net, dip_init=dip_init, device=self.device)
+        self._step = lockstep_step(self.stages)
 
     def step(self, state: SolverState):
         return self._step(state, self.consts)
@@ -211,6 +235,7 @@ class SeedEnsembleSolver(_LockstepEngine):
             name: getattr(one, name).expand(len(self.seeds), *getattr(one, name).shape)
             for name in ProblemConsts._fields if name != "D"
         })
+        self._scan = None
 
     def init_state(self) -> SolverState:
         return stack_states(
@@ -234,13 +259,32 @@ class SeedEnsembleSolver(_LockstepEngine):
         hist.update({k: np.asarray(v, np.float32) for k, v in ens.items()})
         return state, hist
 
-    def run_chunked(self, n_iters: Optional[int] = None, state=None, chunk: int = 25):
-        """:meth:`run`.  The JAX package dispatches ``chunk`` iterations as
-        one scan; the port steps from the host, so the chunk length changes
-        nothing but is checked as there."""
-        if chunk < 1:
+    def run_scanned(self, n_iters: Optional[int] = None, state=None):
+        """All iterations of all seeds on the device (:mod:`.scan`), the
+        ensemble metrics computed inside the step; the history, read once at
+        the end, is :meth:`run`'s (equal bits on the CPU)."""
+        return self.run_chunked(n_iters, state, chunk=None)
+
+    def run_chunked(self, n_iters: Optional[int] = None, state=None, chunk: Optional[int] = 25):
+        """:meth:`run_scanned` read back ``chunk`` outer steps at a time: one
+        host read of the history per chunk, a final partial chunk at its
+        remainder length (``chunk=None``: one read at the end)."""
+        if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        return self.run(n_iters, state)
+        from .scan import ScannedSolve
+
+        n = self.config.outer_iters if n_iters is None else n_iters
+        state = self.init_state() if state is None else state
+        if self._scan is None:
+            self._scan = ScannedSolve(self.stages, self.consts, lanes=True, ensemble=True)
+        state, rows = self._scan.run(state, n, chunk)
+        k = len(self.seeds)
+        hist = {
+            "mpsnr": rows[:, :k], "ssim": rows[:, k : 2 * k],
+            "dip_iters": rows[:, 2 * k : 3 * k].astype(np.int32),
+            "ens_mpsnr": rows[:, 3 * k], "ens_ssim": rows[:, 3 * k + 1],
+        }
+        return state, hist
 
     def spread(self, hist) -> dict:
         """Per-seed best MPSNR + aggregate stats from a run's history."""

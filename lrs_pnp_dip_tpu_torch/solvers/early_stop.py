@@ -1,5 +1,5 @@
-"""Windowed-variance DIP early stopping (counterpart of
-``lrs_pnp_dip_tpu/solvers/early_stop.py``).
+"""Windowed-variance DIP early stopping as a state machine of device tensors
+(counterpart of ``lrs_pnp_dip_tpu/solvers/early_stop.py``).
 
 Reference semantics (``main_LRS_PnP_DIP_pro.py:74-107,250-272``): keep the
 last ``size`` (=30) network outputs; once the window is full, the score is
@@ -18,23 +18,26 @@ Two evaluators of the score:
   variance (about zero they cancel catastrophically in f32 once
   ``var << mean^2``, which is where the stop is decided).  Every ``size``
   pushes the sums and the origin are recomputed exactly from the ring
-  buffer, the origin becoming the window's mean.  That resync is a plain
-  Python ``if`` here: it runs once per window period in a single fit and in
-  the lockstep engines alike, so the JAX package's caveat (under ``vmap``
-  both branches of its ``lax.cond`` run at every check) does not exist in
-  the port.
+  buffer, the origin becoming the window's mean.
 
-The ring buffer and the sums live on the tensors' device; the scalar
-bookkeeping lives on the host, since the fit loop reads the stop flag every
-iteration anyway.  The score is computed only once the window is full, the
-only time it is used.
+Every field, the scalars too (``count``, ``best_score``, ``best_iter``,
+``wait``, ``stop``), is a tensor on the window's device, and
+:func:`update_early_stop` writes them in place with ``torch.where``, as the
+JAX code does: it reads nothing back to the host, so a DIP iteration with
+its early stop can be captured in a CUDA graph and replayed.  The resync
+runs under ``torch.where`` too, both branches at every check, as the JAX
+code's ``lax.cond`` does under ``vmap``: ``count`` is a function of the
+iteration, so a second captured graph for the resync iterations would also
+work, but it would need a copy of the count logic on the host, and the
+resync costs one more pass over the window, the traffic the exact mode
+spends at every check.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -42,11 +45,11 @@ import torch
 @dataclasses.dataclass
 class EarlyStopState:
     window: torch.Tensor  # (size, D) ring buffer of flattened outputs
-    count: int = 0  # total pushes so far
-    best_score: float = math.inf  # best (lowest) windowed variance seen
-    best_iter: int = 0  # iteration of the best variance
-    wait: int = 0  # consecutive non-improving checks
-    stop: bool = False
+    count: torch.Tensor  # int64: total pushes so far
+    best_score: torch.Tensor  # f32: best (lowest) windowed variance seen
+    best_iter: torch.Tensor  # int64: iteration of the best variance
+    wait: torch.Tensor  # int64: consecutive non-improving checks
+    stop: torch.Tensor  # bool
     # incremental mode only (None otherwise): (D,) running sums of
     # (w - origin) and (w - origin)^2, and the origin they are taken about
     sum: Optional[torch.Tensor] = None
@@ -57,48 +60,77 @@ class EarlyStopState:
 def init_early_stop(
     size: int, dim: int, incremental: bool = False, device="cpu"
 ) -> EarlyStopState:
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    es = EarlyStopState(window=zeros(size, dim))
+    es = EarlyStopState(
+        window=zeros(size, dim),
+        count=zeros(dtype=torch.int64),
+        best_score=torch.full((), math.inf, dtype=torch.float32, device=device),
+        best_iter=zeros(dtype=torch.int64),
+        wait=zeros(dtype=torch.int64),
+        stop=zeros(dtype=torch.bool),
+    )
     if incremental:
         es.sum, es.sumsq, es.origin = zeros(dim), zeros(dim), zeros(dim)
     return es
 
 
+def reset_early_stop(es: EarlyStopState) -> None:
+    """Return ``es`` to its initial state in place (its tensors keep their
+    storage, which a captured graph holds)."""
+    for t in (es.window, es.count, es.best_iter, es.wait, es.stop, es.sum, es.sumsq, es.origin):
+        if t is not None:
+            t.zero_()
+    es.best_score.fill_(math.inf)
+
+
 def update_early_stop(
-    es: EarlyStopState, out_flat: torch.Tensor, cur_iter: int, patience: int
+    es: EarlyStopState,
+    out_flat: torch.Tensor,
+    cur_iter: Union[int, torch.Tensor],
+    patience: int,
+    enabled: Optional[torch.Tensor] = None,
 ) -> EarlyStopState:
-    """Push one output and advance the state machine.  The ring buffer and
-    the running sums are written in place; returns ``es``."""
+    """Push one output and advance the state machine, every field written
+    in place; returns ``es``.  ``enabled`` (a bool tensor) masks the whole
+    update: where it is false the state stays exactly as it was."""
     size = es.window.shape[0]
-    idx = es.count % size
-    incremental = es.sum is not None
-    if incremental:
+    idx = torch.remainder(es.count, size).reshape(1)
+    evicted = es.window.index_select(0, idx)[0]
+    # a disabled push writes the evicted row back: the window stays as it was
+    row = out_flat if enabled is None else torch.where(enabled, out_flat, evicted)
+    es.window.index_copy_(0, idx, row[None])
+    window = es.window
+    count = es.count + 1
+    if es.sum is not None:
         # S1's increment does not depend on the origin; S2's must use the
         # origin the running sums were accumulated under
-        evicted, c = es.window[idx], es.origin
-        es.sum += out_flat - evicted
-        es.sumsq += (out_flat - c) ** 2 - (evicted - c) ** 2
-    es.window[idx] = out_flat
-    es.count += 1
-    if incremental and es.count % size == 0:
-        # exact resync against f32 drift; the origin moves to the window mean
-        es.origin = torch.mean(es.window, dim=0)
-        d = es.window - es.origin[None, :]
-        es.sum, es.sumsq = torch.sum(d, dim=0), torch.sum(d * d, dim=0)
-    if es.count >= size:
-        if incremental:
-            ave = es.sum / size
-            var = float(torch.mean(torch.clamp(es.sumsq / size - ave * ave, min=0.0)))
-        else:
-            ave = torch.mean(es.window, dim=0)
-            var = float(torch.mean((es.window - ave[None, :]) ** 2))
-        if var < es.best_score:
-            es.best_score = var
-            es.best_iter = int(cur_iter)
-            es.wait = 0
-        else:
-            es.wait += 1
-        es.stop = es.stop or es.wait >= patience
+        c = es.origin
+        s1 = es.sum + (out_flat - evicted)
+        s2 = es.sumsq + ((out_flat - c) ** 2 - (evicted - c) ** 2)
+        # exact resync against f32 drift, the origin moved to the window mean
+        resync = torch.remainder(count, size) == 0
+        c_new = torch.mean(window, dim=0)
+        d = window - c_new[None, :]
+        s1 = torch.where(resync, torch.sum(d, dim=0), s1)
+        s2 = torch.where(resync, torch.sum(d * d, dim=0), s2)
+        c = torch.where(resync, c_new, c)
+        ave = s1 / size
+        var = torch.mean(torch.clamp(s2 / size - ave * ave, min=0.0))
+    else:
+        ave = torch.mean(window, dim=0)
+        var = torch.mean((window - ave[None, :]) ** 2)
+    filled = count >= size
+    better = filled & (var < es.best_score)
+    best_score = torch.where(better, var, es.best_score)
+    best_iter = torch.where(better, cur_iter, es.best_iter)
+    wait = torch.where(filled, torch.where(better, 0, es.wait + 1), es.wait)
+    stop = es.stop | (filled & (wait >= patience))
+    new = [(es.count, count), (es.best_score, best_score),
+           (es.best_iter, best_iter), (es.wait, wait), (es.stop, stop)]
+    if es.sum is not None:
+        new += [(es.sum, s1), (es.sumsq, s2), (es.origin, c)]
+    for old, value in new:
+        old.copy_(value if enabled is None else torch.where(enabled, value, old))
     return es

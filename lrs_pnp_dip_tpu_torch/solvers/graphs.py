@@ -1,0 +1,71 @@
+"""CUDA graphs of the device-resident solve (the counterpart of the JAX
+package's ``lax.scan`` / ``lax.while_loop`` loops).
+
+:class:`Captured` holds a function of static tensors: tensors that keep
+their storage from one call to the next, which the function reads and
+writes in place.  On the card its first call runs the function eagerly on a
+side stream: real work, and the warm-up that builds kernel B1 and lets
+cuBLAS, cuDNN and the autograd engine set themselves up outside a capture.
+The second call captures the function into a ``torch.cuda.CUDAGraph``, and
+that call and every later one replays the graph and returns the tensors the
+capture returned, which the replay refills.  On the CPU every call runs the
+function eagerly: the plain version, which the tests hold to the JAX
+package.  A capture that fails raises; nothing falls back to eager
+execution on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..ops.ista_cuda import ISTA_KERNEL
+
+
+class Captured:
+    """``fn()`` captured once and replayed on the card, run eagerly on the CPU."""
+
+    def __init__(self, fn: Callable, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.graph = None
+        self.out = None
+        self.b1_launches = 0  # launches of kernel B1 the graph holds
+        self.b1_plan = None  # the tiling of the last of them
+        self._warm = False
+
+    def __call__(self):
+        if self.device.type != "cuda":
+            return self.fn()
+        if self.graph is None:
+            if not self._warm:
+                self._warm = True
+                return self._on_side_stream()
+            self._capture()
+        self.graph.replay()
+        ISTA_KERNEL.replayed(self.b1_launches, self.b1_plan)
+        return self.out
+
+    def _on_side_stream(self):
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self.fn()
+        current.wait_stream(side)
+        return out
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        before = ISTA_KERNEL.captured
+        with torch.cuda.graph(graph):
+            out = self.fn()
+        self.graph, self.out = graph, out
+        self.b1_launches = ISTA_KERNEL.captured - before
+        self.b1_plan = ISTA_KERNEL.last_plan if self.b1_launches else None
+
+    def reset(self) -> None:
+        """Drop the graph (the function's tensors changed): the next call
+        captures anew."""
+        self.graph = self.out = None

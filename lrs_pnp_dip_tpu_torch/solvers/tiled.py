@@ -3,11 +3,12 @@
 
 Splits an arbitrarily large (H, W, B) scene into spatial tiles
 (:mod:`..data.tiles`), solves each batch of tiles in lockstep through one
-built step (:func:`.batch.build_lockstep_step`: one sparse prox, hence one
+built step (:func:`.batch.lockstep_step`: one sparse prox, hence one
 launch of kernel B1, per outer step over the blocks of every tile of the
 batch), and stitches the recovered tiles back with overlap averaging.  The
 tile feeder prefetches on a host thread while the device solves the
-previous batch.
+previous batch.  With ``scan=True`` a batch's steps run on the device
+(:class:`.scan.ScannedSolve`, CUDA graphs on the card), else from the host.
 """
 
 from __future__ import annotations
@@ -22,17 +23,36 @@ from ..data.io import HsiSample
 from ..data.tiles import TileLoader
 from ..utils.config import SolverConfig
 from ..utils.device import resolve_device
-from .admm import init_state, make_consts
-from .batch import build_lockstep_step, stack_consts, stack_states
+from .admm import OuterStages, init_state, make_consts
+from .batch import lockstep_step, stack_consts, stack_states
+from .scan import ScannedSolve
+
+
+class _TileEngine:
+    """The stages of one (config, tile shape, net, device), their lockstep
+    step, which takes any number of lanes, and a device-resident solve per
+    batch size (a final partial batch has its own)."""
+
+    def __init__(self, config: SolverConfig, tile3, net, device: torch.device):
+        self.stages = OuterStages(config, tile3, net=net, device=device)
+        self.step = lockstep_step(self.stages)
+        self._scans = {}
+
+    def scanned(self, consts) -> ScannedSolve:
+        n = consts.Y.shape[0]
+        if n not in self._scans:
+            self._scans[n] = ScannedSolve(self.stages, consts, lanes=True)
+        else:
+            self._scans[n].set_consts(consts)
+        return self._scans[n]
 
 
 @functools.lru_cache(maxsize=16)
-def _tiled_engine(config: SolverConfig, tile3, net, device: torch.device):
-    """The built lockstep step of one (config, tile shape, net, device),
-    kept across :func:`solve_tiled` calls: a second scene solve builds no new
-    net.  The step takes any number of lanes, so it also serves a final
-    partial batch."""
-    return build_lockstep_step(config, tile3, net=net, device=device)
+def _tiled_engine(config: SolverConfig, tile3, net, device: torch.device) -> _TileEngine:
+    """The engine of one (config, tile shape, net, device), kept across
+    :func:`solve_tiled` calls: a second scene solve builds no new net and,
+    on the card, captures no new graph."""
+    return _TileEngine(config, tile3, net, device)
 
 
 def solve_tiled(
@@ -56,8 +76,10 @@ def solve_tiled(
     overlapping recoveries (seam suppression).  Tile i of a batch is seeded
     with ``config.seed + i``.
 
-    ``scan`` is accepted for the JAX package's signature; the port has no
-    on-device scan, so both values take the host-stepped loop.
+    ``scan=True`` (default) runs a batch's ``n`` outer steps on the device
+    (:class:`.scan.ScannedSolve`: captured graphs on the card, the state
+    read back once per batch); ``scan=False`` steps each batch from the
+    host.  Both give the same bits on the CPU.
 
     A final partial batch runs at its real size by default; ``pad_final=True``
     pads it to ``tile_batch`` by duplicating its last tile (the extras are
@@ -66,7 +88,6 @@ def solve_tiled(
 
     Runs on ``device``: the card by default, which raises when there is none.
     """
-    del scan
     device = resolve_device(device)
     h, w, b = noisy.shape
     th, tw = tile_shape
@@ -76,7 +97,7 @@ def solve_tiled(
         batch_size=tile_batch, stride=stride,
     )
     n = config.outer_iters if n_iters is None else n_iters
-    step = _tiled_engine(config, (th, tw, b), net, device)
+    engine = _tiled_engine(config, (th, tw, b), net, device)
 
     out = np.zeros((h, w, b), np.float64)
     weight = np.zeros((h, w, 1), np.float64)
@@ -96,8 +117,11 @@ def solve_tiled(
         state = stack_states(
             [init_state(c.Y, config.seed + i, device=device) for i, c in enumerate(consts_list)]
         )
-        for _ in range(n):
-            state, _ = step(state, consts)
+        if scan:
+            state, _ = engine.scanned(consts).run(state, n)
+        else:
+            for _ in range(n):
+                state, _ = engine.step(state, consts)
         cubes = state.X.detach().cpu().numpy().reshape(-1, th, tw, b)[:n_real]
         for cube, (h0, w0) in zip(cubes, origins):
             out[h0 : h0 + th, w0 : w0 + tw] += cube

@@ -283,3 +283,102 @@ def test_sharded_prox_launches_once_per_rank_with_equal_bits(cuda, nB):
     for (got,) in ranks:
         assert (got["launches"], got["nB"]) == (1, -(-nB // 2))
         np.testing.assert_array_equal(got["out"], ref)
+
+
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_b1_replayed_from_a_graph_gives_the_eager_bits(cuda, matmul_dtype):
+    """Kernel B1 at the main shape (nB 144, P 1296, K 512) captured in a CUDA
+    graph: each replay equals an eager launch bit for bit, the capture
+    counts no launch, and each replay counts the one it holds."""
+    from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
+
+    Y, M, D = _problem(cuda, 144, P=1296, K=512, seed=7)
+    cfg = SparseProxConfig(n_iter=100, matmul_dtype=matmul_dtype)
+    eager = pnp_ista_blocks_fused(Y, M, D, cfg)
+    graph = Captured(lambda: pnp_ista_blocks_fused(Y, M, D, cfg), cuda)
+    ISTA_KERNEL.launches = 0
+    warm = graph()  # the first call runs eagerly
+    assert graph.graph is None and ISTA_KERNEL.launches == 1
+    first = graph()  # the second captures, then replays
+    assert graph.b1_launches == 1 and ISTA_KERNEL.launches == 2
+    pnp_ista_blocks_fused(Y[:13], M[:13], D, cfg)  # another launch between two replays
+    second = graph()
+    torch.cuda.synchronize()
+    assert ISTA_KERNEL.launches == 4 and ISTA_KERNEL.last_plan.nB == 144  # the replay's tiling
+    for got in (warm, first, second):
+        assert torch.equal(got, eager)
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """``torch.linalg.eigh`` reads cuSOLVER's status on the host, which a
+    capture refuses: the second call of a Captured that runs it raises,
+    and nothing is run eagerly in its place.  In a fresh process: a failed
+    capture can leave the process's CUDA context unusable."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured\n"
+        "G = torch.eye(8, device='cuda')\n"
+        "graph = Captured(lambda: torch.linalg.eigh(G), 'cuda')\n"
+        "graph()\n"
+        "try:\n"
+        "    graph()\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__, graph.graph is None)\n"
+        "else:\n"
+        "    print('did not raise')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert "raised" in proc.stdout and "True" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_run_scanned_on_the_card_equals_run(cuda):
+    """Solver.run_scanned replays graphs A and B around the eager eigh (and
+    B1 inside A): the same kernels as run, so the same bits, and one
+    launch of B1 per outer step."""
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((36, 48)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    sample = synthetic_sample(12, 12, 16, missing=0.1, seed=3)
+    cfg = SolverConfig(variant="lrs_pnp", block_size=6, stride=6, sparse=SparseProxConfig(n_iter=20))
+    solver = Solver(sample, D, cfg, device=cuda)
+    ref, ref_hist = solver.run(4)
+    ISTA_KERNEL.launches = 0
+    got, hist = solver.run_scanned(4)
+    again, _ = solver.run_scanned(4)
+    assert ISTA_KERNEL.launches == 8
+    assert torch.equal(got.X, ref.X) and torch.equal(again.X, ref.X)
+    np.testing.assert_array_equal(hist["mpsnr"], np.float32(ref_hist["mpsnr"]))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_dip_fit_replayed_equals_the_host_stepped_fit(cuda, compute_dtype):
+    """The DIP iteration replayed from a graph in chunks gives the
+    host-stepped fit's bits, its iteration count and its stop.  With zero
+    padding and cuDNN's deterministic algorithms: reflection padding's
+    backward and some of cuDNN's algorithms sum with atomics on the card,
+    so two host-stepped fits of the preset's net already differ."""
+    from lrs_pnp_dip_tpu_torch.models import Skip
+    from lrs_pnp_dip_tpu_torch.solvers import DipFit
+    from lrs_pnp_dip_tpu_torch.utils.config import DipConfig
+
+    rng = np.random.default_rng(5)
+    x, t = (torch.from_numpy(rng.random((1, 12, 12, 8), dtype=np.float32)).to(cuda) for _ in range(2))
+    m = torch.from_numpy((rng.random((1, 12, 12, 1)) > 0.15).astype(np.float32)).to(cuda)
+    net = Skip(num_input_channels=8, num_output_channels=8, channels_down=(8, 8), channels_up=(8, 8),
+               channels_skip=(4, 4), pad="zero").to(cuda)
+    fit = DipFit(net, DipConfig(num_iter=40, buffer_size=3, patience=2, learning_rate=0.01,
+                                compute_dtype=compute_dtype))
+    gen = torch.Generator(device=cuda)
+    torch.backends.cudnn.deterministic = True
+    try:
+        host = fit(x, t, m, generator=gen.manual_seed(0))
+        assert torch.equal(fit(x, t, m, generator=gen.manual_seed(0)).out, host.out)
+        for chunk in (1, 3, 8):
+            got = fit(x, t, m, generator=gen.manual_seed(0), chunk=chunk)
+            assert (got.n_iters, got.stopped) == (host.n_iters, host.stopped)
+            assert torch.equal(got.out, host.out) and torch.equal(got.loss, host.loss)
+    finally:
+        torch.backends.cudnn.deterministic = False
