@@ -14,10 +14,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                plan chose for each; the same at the lrs_pnp sparse settings
                (80 iterations, specnorm alpha, h_scale 0.1); and two
                launches on the same inputs must give equal bits (the
-               engines' shapes, nB 288 and 576, are held in phase 5);
-  3. timing  — B1 at the main-path shape and at nB 2304 with CUDA events,
-               beside its bound, its plain version and (main shape) the
-               2 n_iter torch.matmul calls;
+               engines' shapes, nB 288 and 576, are held in phase 5); then
+               at nB 144 the shapes only the streamed kernel takes, with
+               random dictionaries (wide_problem): blocks 40, 48 and 52 at K
+               512 and P 1296 at K 1024, f32 and bf16, and P 576 at K 1152
+               in bf16, each against its plain loop, with equal bits on
+               repeat, its plan printed;
+  3. timing  — B1 at the main-path shape, at nB 2304 and at the streamed
+               shapes with CUDA events, beside its bound, its plain version
+               and the 2 n_iter torch.matmul calls;
   4. solve   — api.inpaint(variant="dip", n_iters=2) at full width (36x36x128,
                skip-128, 144 blocks, default DIP cap and early stop) on the
                card, counting B1's launches; then one short outer step on
@@ -32,7 +37,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                inpaint(variant="dip_fast") (B1 with bf16 operands, the bf16
                DIP fit) and inpaint(variant="dip_tuned", seeds=[0, 1]) (one
                launch per outer step at nB 288), 2 outer steps each with the
-               DIP fit capped at 200 iterations; inpaint_scene(
+               DIP fit capped at 50 iterations; inpaint_scene(
                variant="lrs_pnp") on a 72x72x128 scene, four tiles in one
                batch (one launch per outer step at nB 576), also against the
                CPU; one concatenated launch of B1 against four per-lane
@@ -45,10 +50,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                matlab_twin_sample(seed=0, bands=128), all 13 outer steps,
                no launch of B1, and 2 steps against the CPU; sparse_prox
                with denoiser="bm3d" at nB 144 (5 iterations) and bm3d_prox
-               on a 36x36x8 cube, card against CPU, no launch of B1; every
+               on a 36x36x8 cube, card against CPU, no launch of B1, and two
+               calls of each on the card give equal bits; every
                get_net key's forward on the card against the same weights
                on the CPU; one `dip` outer step at 36x36x128 with each key
-               that keeps the iterate's shape (DIP fit capped at 100), one
+               that keeps the iterate's shape (DIP fit capped at 50), one
                launch of B1 at nB 144 each, and each other key failing
                where the JAX package fails;
   7. long tail — the auto-dictionary and the rest of the JAX package's
@@ -81,25 +87,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                launch of B1; (d) {data: 2}, two samples, lrs_pnp, 2 steps, one
                launch per rank per step at nB 144, lanes against the
                one-process BatchedSolver; (e) {model: 2}, one dip step with
-               channel TP of skip-128 (DIP capped at 100), against the
+               channel TP of skip-128 (DIP capped at 50), against the
                one-process step; (f) the two-rank multiprocess_dryrun; (g)
-               in this process, inpaint(block_size=40) on the card: with
-               backend="xla" it runs the plain loop (no launch of B1) and
-               lifts MPSNR, under "auto" the plan's ValueError names
-               backend="xla".  B1 at nB 72 is timed beside its bound;
+               in this process, inpaint(block_size=40) on the card: under
+               the default backend B1's streamed kernel once per step (nB
+               132, P 1600), against backend="xla" (the plain loop, no
+               launch of B1); a shape past the TPU kernel's range (block
+               54) raises the plan's ValueError naming backend="xla".  B1
+               at nB 72 is timed beside its bound;
   9. scanned — the device-resident solve (CUDA graphs), at full width:
                B1 replayed from a captured graph against an eager launch
-               (equal bits, f32 and bf16, one launch counted per replay);
+               (equal bits, f32 and bf16, one launch counted per replay),
+               and at a streamed shape (block 40, f32);
                the lrs_pnp preset's step through Solver.run_scanned against
                run (equal bits), each timed per step and sustained, with the
                kernels, host launches, host syncs and device-busy share of
-               a step; `dip`, 2 outer steps (DIP capped as in phase 5)
-               through run_scanned, and from fixed DIP inits with zero
-               padding and deterministic cuDNN against run: dip_iters equal
-               step by step, X equal bits; ms per DIP iteration host-stepped against
-               replayed (skip-128 f32 and bf16, the Lipschitz U-Net), with
-               each fit's profile; one fit at chunk lengths 1, 8 and 32 and
-               the iterations each replays after the stop;
+               a step; `dip`, the preset, 2 outer steps through run_scanned
+               against run from the same seed, the DIP fit capped at 200,
+               above its stop: dip_iters equal step by step, every fit
+               stopped before the cap, X equal bits; phase 4's
+               inpaint(variant="dip", n_iters=2) again, equal bits; for skip-128 f32 and bf16 and the Lipschitz U-Net, two
+               eager fits equal, two graphed fits equal, graphed equal to
+               eager, and ms per DIP iteration host-stepped against replayed,
+               with each fit's profile, beside the same net in its
+               unordered formulation (scripts/time_dip_formulations.py:
+               F.pad reflection, cuDNN's default flags); one iteration of each
+               solve-capable net under torch.use_deterministic_algorithms
+               in a child process (scripts/probe_deterministic.py); one fit
+               at chunk lengths 1, 8 and 32, capped at 200: each stops
+               before the cap at the same iteration, and the iterations each
+               replays after the stop;
                inpaint(variant="dip_tuned", seeds=[0, 1]) through run_chunked
                against SeedEnsembleSolver.run; inpaint_scene on the 72x72
                scene with scan=True against scan=False (equal bits); the
@@ -121,6 +138,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Published dense peaks of the H100 SXM (NVIDIA data sheet): f32 on the CUDA
 # cores, bf16 on the tensor cores, device-memory bandwidth.
@@ -139,6 +157,13 @@ BF16_MATCH = 1e-5
 # the CPU: tests/test_torch_ista.py), so no kernel can meet 1e-5 there.  The
 # limit is some 8 times that sensitivity; an f32 product still fails it.
 BF16_MATCH_SHARP = 1e-4
+# At the streamed shapes with random dictionaries the coefficients are
+# smaller (max |ref| 0.03 to 0.09) and the bf16 plain loop moves by 6e-6 to
+# 9e-6 of max |ref| with only the order of its sums changed, near 1e-5, so
+# phase 2 measures that sensitivity on the card and holds the kernel to
+# the larger of BF16_MATCH and this many times it, the rule of
+# tests/test_torch_cuda.py (_assert_bf16_tracks); an f32 product still fails.
+BF16_ORDER_FACTOR = 4
 # bf16 kernel against the f32 plain loop, as tests/test_ista_pallas.py.
 BF16_DRIFT = 0.02
 # A deterministic lrs_pnp solve on the card against the same solve on the
@@ -146,10 +171,26 @@ BF16_DRIFT = 0.02
 # against LAPACK's on an f32 Gram, two outer steps.  The CPU tests hold the
 # port to the JAX package at the same figure.
 SOLVE_MATCH = 1e-4
+# Shapes that take B1's streamed kernel at nB 144 (wide_problem): (block, K,
+# operand types).  Blocks 40, 48 and 52 at K 512, P 1296 at K 1024 (f32
+# slices past shared memory), P 576 at K 1152 (bf16 past 640 columns).
+WIDE_SHAPES = (
+    (40, 512, ("float32", "bfloat16")),
+    (48, 512, ("float32", "bfloat16")),
+    (52, 512, ("float32", "bfloat16")),
+    (36, 1024, ("float32", "bfloat16")),
+    (24, 1152, ("bfloat16",)),
+)
 # The DIP fit's cap in the paths of phases 5, 7 and 9 (the preset's is 5000):
 # depth cut for the run's time (400 until phase 9 took the whole past 300 s
-# on a slow host), the early stop stays on.
-DIP_CAP = 200
+# on a slow host, 200 until the checks of B1's streamed kernel and of the
+# fits' determinism were added, then 100), the early stop stays on.
+DIP_CAP = 50
+# The cap of phase 9's fits that check the early stop at full width (the
+# preset's run against run_scanned, and the chunk lengths): above the
+# preset's stop, which came at 163 and 177 iterations on the card, so that
+# these fits stop before it.
+STOP_CAP = 200
 # The bm3d paths on the card against the CPU.  BM3D's hard threshold and its
 # block matching are discontinuous, so the order of sums moves single values
 # by far more than rounding: on the CPU, permuting the dictionary's rows
@@ -167,8 +208,9 @@ BM3D_CUBE_MATCH = (1e-2, 0.05)
 # the train-mode batch norms over 1x1 to 4x4 maps amplify that: measured up
 # to 8.3e-5, texture_nets at 36x36x128).
 ZOO_MATCH = 5e-4
-# The DIP fit's cap in the zoo's outer steps.
-ZOO_DIP_CAP = 100
+# The DIP fit's cap in the zoo's outer steps (100 until the checks of B1's
+# streamed kernel and of the fits' determinism were added).
+ZOO_DIP_CAP = 50
 # learn_dictionary on the card against the CPU from the same patches, two
 # outer steps at full width, relative L2 of the dictionaries.  MOD solves
 # with Z Z^T + 1e-6 I, which is ill-conditioned at full width (atoms that few
@@ -215,7 +257,7 @@ LANES_MATCH = 1e-5
 TP_GRAD_REL, TP_OUT_ATOL, TP_OUT_RTOL = 1e-3, 2e-3, 1e-2
 TP_PHI_ATOL, TP_X_ATOL, TP_LOSS_RTOL, TP_MPSNR_RTOL = 1e-5, 5e-2, 5e-2, 1e-3
 TP_ORDER = 4
-TP_DIP_CAP = 100
+TP_DIP_CAP = 50  # 100 until the checks of B1's streamed kernel and of determinism were added
 TP_LR = 1e-4
 # Seconds a spawn of ranks may take before they are stopped and the phase fails.
 SPAWN_TIMEOUT = 300
@@ -281,6 +323,22 @@ def problem(height: int, width: int, seed: int, dictionary, device="cuda", block
     return extract_blocks(consts.Y, grid), consts.mask_blocks, consts.D, consts.alpha
 
 
+def wide_problem(block: int, K: int, seed: int = 0, nB: int = 144):
+    """nB blocks of ``block`` x ``block`` (P = block^2) of a 72x72x128
+    synthetic cube with a random (P, K) dictionary of unit columns drawn
+    from ``seed``: the inputs of B1 at a shape the shipped dictionary does not
+    reach."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((block * block, K)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    blocks, masks, D_t, alpha = problem(72, 72, seed, D, block_size=block)
+    if blocks.shape[0] < nB:
+        raise AssertionError(f"block {block}: {blocks.shape[0]} blocks, fewer than {nB}")
+    return blocks[:nB], masks[:nB], D_t, alpha[:nB]
+
+
 def check_kernel(blocks, masks, D, alpha, matmul_dtype: str, bf16_match=BF16_MATCH, **sparse) -> float:
     """Kernel B1 against the plain version on the same card tensors;
     returns max |delta|, raises when outside the tolerance.  With bf16
@@ -323,10 +381,20 @@ def check_kernel(blocks, masks, D, alpha, matmul_dtype: str, bf16_match=BF16_MAT
     plan = ISTA_KERNEL.plan(blocks.shape[0], blocks.shape[1], D.shape[1], matmul_dtype == "bfloat16")
     log(f"  nB={blocks.shape[0]:5d} {matmul_dtype:9s} max|delta|={err:.3e} "
         f"max|ref|={scale:.3e}{note} ok")
-    log(f"        plan: {plan.n_clusters} clusters of {plan.cluster_size} CTAs ({plan.resident} resident, "
-        f"{plan.waves} wave(s)), {plan.rows} rows per cluster, {plan.slice_rows} rows of D and "
-        f"{plan.seg} columns of x per CTA, {plan.smem_bytes} B of shared memory")
+    log(f"        plan: {describe_plan(plan)}")
     return err
+
+
+def describe_plan(plan) -> str:
+    text = (f"{plan.n_clusters} clusters of {plan.cluster_size} CTAs ({plan.resident} resident, "
+            f"{plan.waves} wave(s)), {plan.rows} rows per cluster, {plan.slice_rows} rows of D and "
+            f"{plan.seg} columns of x per CTA, {plan.smem_bytes} B of shared memory")
+    if plan.streamed:
+        text += (f"; streamed: {plan.resident_rows} rows of each slice resident, {plan.streamed_rows} "
+                 f"through a ring of {plan.stages} stages of {plan.stage_rows} rows, "
+                 f"{plan.scratch_floats * 4} B of scratch, {plan.l2_bytes_per_iteration} B through L2 per "
+                 "cluster and iteration")
+    return text
 
 
 def check_same_bits(blocks, masks, D, alpha, matmul_dtype: str) -> None:
@@ -348,6 +416,54 @@ def check_same_bits(blocks, masks, D, alpha, matmul_dtype: str) -> None:
         differing = int((first != second).sum())
         raise AssertionError(f"two launches differ in {differing} of {first.numel()} values")
     log(f"  nB={blocks.shape[0]:5d} {matmul_dtype:9s} two launches give equal bits")
+
+
+def order_sensitivity(blocks, masks, D, alpha, seeds=(0, 1)) -> float:
+    """How far the bf16 plain loop moves, in max |delta| over max |ref|, when
+    only the order of its sums changes (the rows of D permuted), on the
+    card: the floor under any limit that holds a kernel to it."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import pnp_ista_blocks
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    cfg = SparseProxConfig(n_iter=100, matmul_dtype="bfloat16")
+    ref = pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha)
+    worst = 0.0
+    for seed in seeds:
+        perm = torch.randperm(D.shape[0], generator=torch.Generator().manual_seed(seed)).to(D.device)
+        got = pnp_ista_blocks(blocks[:, perm], masks[:, perm], D[perm], cfg, alpha=alpha)
+        worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+    return worst
+
+
+def time_b1(blocks, masks, D, alpha, matmul_dtype: str, peaks: dict, n_iter: int = 100) -> dict:
+    """B1's time beside its bound, its plain loop and the 2 n_iter
+    torch.matmul calls of its two products (a partial yardstick: no single
+    PyTorch call computes the fused loop with its NLM), in ms."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    nB, P = blocks.shape
+    K = D.shape[1]
+    cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=matmul_dtype)
+    k_ms = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha), reps=5)
+    p_ms = time_cuda(lambda: pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha), warmup=1, reps=3)
+    dt = torch.float32 if matmul_dtype == "float32" else torch.bfloat16
+    x = torch.zeros((nB, K), device="cuda", dtype=dt)
+    r = torch.zeros((nB, P), device="cuda", dtype=dt)
+    Dm = D.to(dt)
+
+    def matmuls():
+        for _ in range(n_iter):
+            torch.matmul(x, Dm.T)
+            torch.matmul(r, Dm)
+
+    lib_ms = time_cuda(matmuls)
+    b_ms, by, _, _ = bound_ms(nB, P, K, n_iter, matmul_dtype, peaks)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
 
 
 def bound_ms(nB: int, P: int, K: int, n_iter: int, matmul_dtype: str, peaks: dict):
@@ -881,23 +997,39 @@ def parallel_phase(sample, input_mpsnr, D_np, by_path, peaks) -> dict:
     if not diff < 5e-4 or not np.array_equal(got[0]["X"], got[1]["X"]):
         raise AssertionError("the dryrun diverged")
 
-    # (g) C1: block 40 in this process
-    log("[parallel] C1: inpaint(variant='lrs_pnp', block_size=40, stride=40) on the card")
+    # (g) C1: block 40 in this process, on B1's streamed kernel
+    log("[parallel] C1: inpaint(variant='lrs_pnp', block_size=40, stride=40) on the card, the default backend "
+        "against backend='xla'")
+    (cube, hist), wall = drive("block40", lambda: inpaint(
+        sample.noisy, sample.mask, variant="lrs_pnp", clean=sample.clean, block_size=40, stride=40),
+        launches=2, nB=132)
+    plan = ISTA_KERNEL.last_plan
+    by_path["lrs_pnp_block40"] = ISTA_KERNEL.launches
+    if not plan.streamed or plan.P != 1600:
+        raise AssertionError(f"block 40 took B1 at P {plan.P}, streamed {plan.streamed}")
+    check_recovery("block40", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
     xla = dataclasses.replace(lrs.sparse, backend="xla")
-    (cube, hist), wall = drive("block40_xla", lambda: inpaint(
+    (cube_xla, hist_xla), wall_xla = drive("block40_xla", lambda: inpaint(
         sample.noisy, sample.mask, variant="lrs_pnp", clean=sample.clean, block_size=40, stride=40,
         sparse=xla), launches=0, nB=0)
-    check_recovery("block40_xla", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
-    log(f"  backend='xla': mpsnr {hist['mpsnr'][-1]:.4f} (input {input_mpsnr:.4f}), wall {wall:.2f} s "
-        "with the learning of the dictionary, 0 launches of B1")
+    err, _ = relative_error(cube, cube_xla)
+    log(f"  default backend: B1 {by_path['lrs_pnp_block40']} launches in 2 steps (nB "
+        f"{plan.nB}, P {plan.P}, K {plan.K}: {describe_plan(plan)}), mpsnr {hist['mpsnr'][-1]:.4f}, wall {wall:.2f} "
+        f"s; backend='xla': mpsnr {hist_xla['mpsnr'][-1]:.4f}, wall {wall_xla:.2f} s (learning included in "
+        f"both); max|dX|/max|X| = {err:.3e} (limit {SOLVE_MATCH}: B1 against the plain loop, the only change)")
+    if not err < SOLVE_MATCH:
+        raise AssertionError("block 40: B1's solve disagrees with backend='xla'")
+    log("[parallel] a shape past the TPU kernel's range: block 54 (P 2916), K 512, f32")
+    rng = np.random.default_rng(0)
+    past = [torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda() for shape in ((4, 2916), (4, 2916), (2916, 512))]
     try:
-        inpaint(sample.noisy, sample.mask, variant="lrs_pnp", block_size=40, stride=40, n_iters=1)
+        sparse_prox(*past, SparseProxConfig(n_iter=2))
     except ValueError as e:
         if 'backend="xla"' not in str(e):
             raise
-        log(f"  backend='auto': {e}")
+        log(f"  raises: {e}")
     else:
-        raise AssertionError("block 40 under backend='auto' did not raise the plan's ValueError")
+        raise AssertionError("block 54 did not raise the plan's ValueError")
 
     # B1 at one rank's share of the main shape
     timing = {}
@@ -963,14 +1095,24 @@ def fmt_profile(p: dict) -> str:
             f"{p['syncs']:.2f} host syncs, device busy {p['busy']:.1%}")
 
 
-def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks) -> dict:
+def _load_script(name: str):
+    """A module of scripts/ beside this file."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, dip_first) -> dict:
     """Phase 9 (module docstring).  Adds the scanned paths' launches of B1 to
     ``by_path``; returns the yardstick times at the engines' and the ranks'
     shapes."""
     import numpy as np
     import torch
 
-    from lrs_pnp_dip_tpu_torch.models import Skip, dip_skip_128
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
     from lrs_pnp_dip_tpu_torch.solvers import FIT_CHUNK, DipFit, SeedEnsembleSolver, Solver
     from lrs_pnp_dip_tpu_torch.solvers.admm import default_net
@@ -978,9 +1120,11 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks) -
     from lrs_pnp_dip_tpu_torch.utils.config import PRESETS, SparseProxConfig
 
     t_phase = time.perf_counter()
-    log("[scanned] kernel B1 launched from a captured graph against an eager launch, nB 144, f32 and bf16")
+    log("[scanned] kernel B1 launched from a captured graph against an eager launch, nB 144, f32 and bf16, "
+        "and at a streamed shape (block 40, K 512, f32)")
     blocks, masks, D, alpha = problem(36, 36, 0, D_np)
-    for mm in ("float32", "bfloat16"):
+    for mm, inputs in (("float32", None), ("bfloat16", None), ("float32", wide_problem(40, 512))):
+        blocks, masks, D, alpha = inputs or problem(36, 36, 0, D_np)
         cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
         eager = pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
         graph = Captured(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha), "cuda")
@@ -994,10 +1138,13 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks) -
                                  f"{ISTA_KERNEL.launches}; expected 1 and 2")
         if not (torch.equal(replayed, eager) and torch.equal(again, eager)):
             raise AssertionError(f"{mm}: B1 replayed from a graph differs from the eager launch")
+        if graph.b1_plan.streamed != (inputs is not None):
+            raise AssertionError(f"B1 at P {graph.b1_plan.P}: streamed {graph.b1_plan.streamed}")
         ms_graph = time_cuda(graph)
         ms_eager = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha))
-        log(f"  {mm:9s} replay equals the eager launch bit for bit; replay {ms_graph:.4f} ms, eager call "
-            f"{ms_eager:.4f} ms; launches counted per replay 1")
+        log(f"  P {blocks.shape[1]} {mm:9s} replay equals the eager launch bit for bit; replay {ms_graph:.4f} ms, "
+            f"eager call {ms_eager:.4f} ms; launches counted per replay 1")
+    blocks, masks, D, alpha = problem(36, 36, 0, D_np)
 
     log(f"[scanned] the lrs_pnp preset's step: Solver.run_scanned({SCAN_STEPS}) against run({SCAN_STEPS}), "
         "from the same state")
@@ -1030,60 +1177,64 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks) -
     for k, p in prof.items():
         log(f"  per step, {k:11s}: {fmt_profile(p)}")
 
-    log(f"[scanned] dip: 2 outer steps through run_scanned (DIP fit capped at {DIP_CAP}): the preset, then "
-        "from fixed DIP inits, run and run_scanned, with skip-128 in zero padding and cuDNN's "
-        "deterministic algorithms")
-    cfg = PRESETS["dip"]()
-    cfg = dataclasses.replace(cfg, dip=dataclasses.replace(cfg.dip, num_iter=DIP_CAP))
+    log(f"[scanned] dip: the preset, 2 outer steps through run and through run_scanned from the same seed, "
+        f"the DIP fit capped at {STOP_CAP}, above its stop")
+    preset = PRESETS["dip"]()
+    cfg = dataclasses.replace(preset, dip=dataclasses.replace(preset.dip, num_iter=STOP_CAP))
     solver = Solver(sample, D_np, cfg)
+    fit_fn, first_fit = solver.stages.dip_fit, {}
+
+    def recording_fit(dip_input, target, mask, generator=None, **kw):
+        # the first fit's inputs and generator state, for the chunk lengths below
+        if not first_fit:
+            first_fit.update(args=(dip_input.clone(), target, mask), state=generator.get_state())
+        return fit_fn(dip_input, target, mask, generator=generator, **kw)
+
+    solver.stages.dip_fit = recording_fit
+    t0 = time.perf_counter()
+    run_state, run_hist = solver.run(2)
+    torch.cuda.synchronize()
+    run_wall = time.perf_counter() - t0
+    solver.stages.dip_fit = fit_fn
     (scan_state, scan_hist), wall = drive("dip run_scanned", lambda: solver.run_scanned(2), launches=2, nB=144)
     by_path["dip_run_scanned"] = ISTA_KERNEL.launches
     check_recovery("dip run_scanned", scan_state.X.cpu().numpy().reshape(36, 36, 128), (36, 36, 128),
                    float(scan_hist["mpsnr"][-1]), input_mpsnr)
-    log(f"  the preset: dip_iters {scan_hist['dip_iters'].tolist()}, MPSNR {scan_hist['mpsnr'].round(4).tolist()}, "
-        f"wall {wall:.2f} s (the capture of both graphs and of the fit included), B1 launches {ISTA_KERNEL.launches}")
-    stops = [n for n in scan_hist["dip_iters"].tolist() if n < DIP_CAP]
-    # reflection padding's backward sums with atomics on the card, and so do
-    # some of cuDNN's algorithms: two host-stepped fits of the preset's net
-    # differ, so the bits are held with zero padding and deterministic cuDNN
-    def zero_padded_skip_128():
-        return Skip(128, 128, (128,) * 5, (128,) * 5, (128,) * 5, pad="zero")
-
-    net = zero_padded_skip_128()
-    inits = []
-    for seed in (11, 12):
-        net.reset_parameters(torch.Generator().manual_seed(seed))
-        inits.append({k: v.clone() for k, v in net.state_dict().items()})
-    torch.backends.cudnn.deterministic = True
-    try:
-        solver = Solver(sample, D_np, cfg, net=net, dip_init=lambda itr: inits[itr % 2])
-        run_state, run_hist = solver.run(2)
-        (scan_state, scan_hist), wall = drive(
-            "dip run_scanned, deterministic", lambda: solver.run_scanned(2), launches=2, nB=144)
-    finally:
-        torch.backends.cudnn.deterministic = False
-    by_path["dip_run_scanned_deterministic"] = ISTA_KERNEL.launches
     run_iters = [int(v) for v in run_hist["dip_iters"]]
     same = torch.equal(scan_state.X, run_state.X)
-    log(f"  deterministic: dip_iters run {run_iters}, run_scanned {scan_hist['dip_iters'].tolist()}; X: "
-        f"run_scanned {'equals' if same else 'differs from'} run bit for bit; MPSNR "
-        f"{scan_hist['mpsnr'].round(4).tolist()}; wall {wall:.2f} s")
-    # the same kernels in the same order: the graphs change nothing
+    log(f"  dip_iters run {run_iters}, run_scanned {scan_hist['dip_iters'].tolist()} (phase 4, uncapped: "
+        f"{[int(v) for v in dip_first[1]['dip_iters']]}); X: run_scanned {'equals' if same else 'differs from'} run "
+        f"bit for bit; MPSNR {scan_hist['mpsnr'].round(4).tolist()}; wall run {run_wall:.2f} s, run_scanned "
+        f"{wall:.2f} s (the capture of both graphs and of the fit included), B1 launches {ISTA_KERNEL.launches}")
     if not (same and scan_hist["dip_iters"].tolist() == run_iters):
-        raise AssertionError("dip, deterministic: run_scanned differs from run")
-    stops += [n for n in run_iters if n < DIP_CAP]
+        raise AssertionError("dip, the preset: run_scanned differs from run")
+    if max(run_iters) >= STOP_CAP:
+        raise AssertionError(f"dip, the preset: a fit ran to the cap of {STOP_CAP} ({run_iters})")
+    stops = [n for n in run_iters if n < STOP_CAP]
     for c in (1, 4, FIT_CHUNK, 16, 32):
         waste = [-(-n // c) * c - n for n in stops]
         log(f"  chunk {c:2d}: iterations replayed after the stop in the {len(waste)} fits that stopped "
             f"before the cap: {waste}")
 
+    log("[scanned] phase 4's inpaint(variant='dip', n_iters=2) once more, from the same seed")
+    first_cube, first_hist = dip_first
+    (cube, hist), wall = drive("dip again", lambda: port.inpaint(
+        sample.noisy, sample.mask, variant="dip", clean=sample.clean, n_iters=2), launches=2, nB=144)
+    by_path["dip_again"] = ISTA_KERNEL.launches
+    same = np.array_equal(cube, first_cube) and list(hist["dip_iters"]) == list(first_hist["dip_iters"])
+    log(f"  dip_iters {[int(v) for v in hist['dip_iters']]} (phase 4 {[int(v) for v in first_hist['dip_iters']]}); "
+        f"the cube {'equals' if same else 'differs from'} phase 4's bit for bit; wall {wall:.2f} s")
+    if not same:
+        raise AssertionError(f"two dip solves from one seed differ: max|d| {np.abs(cube - first_cube).max():.3e}")
+
     log(f"[scanned] ms per DIP iteration, host-stepped (eager) against replayed from a graph (chunk {FIT_CHUNK}), "
-        f"{FIT_TIMED} iterations at 36x36x128")
+        f"{FIT_TIMED} iterations at 36x36x128, each beside the same net's unordered formulation "
+        "(scripts/time_dip_formulations.py)")
+    formulations = _load_script("time_dip_formulations")
     c = solver.consts
     Z = torch.from_numpy(sample.noisy).cuda()[None]
     fit_ms = {}
-    for label, variant, dtype in (("skip-128 f32", "dip", "float32"), ("skip-128 bf16", "dip", "bfloat16"),
-                                  ("Lipschitz U-Net f32", "dip_1lip", "float32")):
+    for label, variant, dtype in formulations.NETS:
         vcfg = PRESETS[variant]()
         net = default_net(vcfg, 128).cuda()
         fit = DipFit(net, dataclasses.replace(vcfg.dip, num_iter=FIT_TIMED, patience=10**9, compute_dtype=dtype))
@@ -1099,34 +1250,53 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks) -
             row[mode + "_repeats"] = torch.equal(first, row[mode + "_out"])
             row[mode + "_prof"] = profile_window(
                 lambda: fit(Z, c.dip_target, c.dip_mask, generator=gen.manual_seed(0), chunk=chunk), FIT_TIMED)
-        fit_ms[label] = {"eager": row["eager"], "graph": row["graph"]}
+            with formulations.unordered_formulation():
+                row["unordered_" + mode] = formulations.ms_per_iteration(
+                    variant, dtype, FIT_TIMED, chunk, Z, c.dip_target, c.dip_mask)
+        graphed_is_eager = torch.equal(row["graph_out"], row["eager_out"])
+        fit_ms[label] = {k: row[k] for k in ("eager", "graph", "unordered_eager", "unordered_graph")}
         log(f"  {label:20s} eager {row['eager']:.3f} ms, graph {row['graph']:.3f} ms per iteration "
-            f"({row['eager'] / row['graph']:.2f}x); card {smi}; two eager fits "
-            f"{'equal' if row['eager_repeats'] else 'differ'}, two graphed fits "
-            f"{'equal' if row['graph_repeats'] else 'differ'}, graphed against eager "
-            f"{relative_error(row['graph_out'], row['eager_out'])[0]:.3e} of max|out|")
+            f"({row['eager'] / row['graph']:.2f}x); unordered formulation eager {row['unordered_eager']:.3f} ms, "
+            f"graph {row['unordered_graph']:.3f} ms; card {smi}; two eager fits {'equal' if row['eager_repeats'] else 'differ'}, "
+            f"two graphed fits {'equal' if row['graph_repeats'] else 'differ'}, graphed "
+            f"{'equals' if graphed_is_eager else 'differs from'} eager "
+            f"({relative_error(row['graph_out'], row['eager_out'])[0]:.3e} of max|out|)")
         for mode in ("eager", "graph"):
             log(f"      {mode}: {fmt_profile(row[mode + '_prof'])} per iteration")
+        if not (row["eager_repeats"] and row["graph_repeats"] and graphed_is_eager):
+            raise AssertionError(f"{label}: the DIP fit does not repeat bit for bit")
         del net, fit
 
-    log("[scanned] chunk length of the DIP fit: one fit from one init at the preset's early stop (capped at "
-        f"{2 * DIP_CAP}), skip-128 in zero padding with deterministic cuDNN, so that every length runs the same "
-        "iterations")
-    fit = DipFit(zero_padded_skip_128().cuda(), dataclasses.replace(cfg.dip, num_iter=2 * DIP_CAP))
-    torch.backends.cudnn.deterministic = True
-    try:
-        fit(Z, c.dip_target, c.dip_mask, init=inits[0], chunk=FIT_CHUNK)  # capture
-        for chunk in (1, FIT_CHUNK, 32):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fit(Z, c.dip_target, c.dip_mask, init=inits[0], chunk=chunk)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            log(f"  chunk {chunk:2d}: {res.n_iters} iterations ({'stopped' if res.stopped else 'the cap'}), "
-                f"{ms:.1f} ms, {ms / res.n_iters:.3f} ms per iteration, "
-                f"{-(-res.n_iters // chunk) * chunk - res.n_iters} replayed after the stop")
-    finally:
-        torch.backends.cudnn.deterministic = False
+    log("[scanned] one DIP iteration of each solve-capable net (and a fit step of every other get_net key) "
+        "under torch.use_deterministic_algorithms, in a child process (scripts/probe_deterministic.py)")
+    t0 = time.perf_counter()
+    probe = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "scripts" / "probe_deterministic.py")],
+        capture_output=True, text=True, timeout=SPAWN_TIMEOUT,
+    )
+    log("  " + (probe.stdout.strip().splitlines() or ["(no output)"])[-1] + f" ({time.perf_counter() - t0:.1f} s)")
+    if probe.returncode != 0:
+        raise AssertionError(f"the determinism probe failed ({probe.returncode}): {probe.stderr[-2000:]}")
+
+    log("[scanned] chunk length of the DIP fit: the first fit of the preset's run above again, from its inputs "
+        f"and generator state (capped at {STOP_CAP}): every length stops where run's fit stopped")
+    fit = DipFit(default_net(cfg, 128).cuda(), cfg.dip)
+    gen = torch.Generator(device="cuda")
+    fit(*first_fit["args"], generator=gen.set_state(first_fit["state"]), chunk=FIT_CHUNK)  # capture
+    ran = set()
+    for chunk in (1, FIT_CHUNK, 32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(*first_fit["args"], generator=gen.set_state(first_fit["state"]), chunk=chunk)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ran.add((res.n_iters, bool(res.stopped)))
+        log(f"  chunk {chunk:2d}: {res.n_iters} iterations ({'stopped' if res.stopped else 'the cap'}), "
+            f"{ms:.1f} ms, {ms / res.n_iters:.3f} ms per iteration, "
+            f"{-(-res.n_iters // chunk) * chunk - res.n_iters} replayed after the stop")
+    if ran != {(run_iters[0], True)}:
+        raise AssertionError(f"the chunk lengths ran {sorted(ran)} iterations (stopped?); the first fit of run "
+                             f"stopped after {run_iters[0]}")
 
     log(f"[scanned] inpaint(variant='dip_tuned', seeds=[0, 1], n_iters=2) through run_chunked, DIP fits capped "
         f"at {DIP_CAP}")
@@ -1259,6 +1429,27 @@ def main() -> int:
     for mm in ("float32", "bfloat16"):
         check_same_bits(*main, mm)
         check_same_bits(*big, mm)
+    log("[check] the streamed kernel at nB 144: random unit-column dictionaries, blocks of a 72x72x128 "
+        "synthetic cube, 100 iterations, trace4 alpha")
+    wide_timing = {}
+    t_phase = time.perf_counter()
+    for block, K, types in WIDE_SHAPES:
+        wide = wide_problem(block, K)
+        sens = order_sensitivity(*wide)
+        bf16_match = max(BF16_MATCH, BF16_ORDER_FACTOR * sens)
+        log(f"  block {block} (P {block * block}), K {K}: the bf16 plain loop moves {sens:.3e} of max|ref| with "
+            f"the order of its sums; bf16 limit {bf16_match:.3e}")
+        for mm in types:
+            err = check_kernel(*wide, mm, bf16_match=bf16_match)
+            check_same_bits(*wide, mm)
+            t = time_b1(*wide, mm, peaks)
+            plan = ISTA_KERNEL.plan(144, block * block, K, mm == "bfloat16")
+            wide_timing[f"P{block * block}_K{K}_{mm}"] = dict(
+                t, max_abs_err=err, streamed=plan.streamed, order_sensitivity=sens)
+            log(f"  {mm:9s} kernel_ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) -> "
+                f"{t['bound_ms'] / t['ms']:.1%} of bound; plain_ms={t['plain_ms']:.4f}; {2 * 100} {mm} "
+                f"torch.matmul calls {t['library_ms']:.4f} ms; card {smi}")
+    log(f"  (streamed shapes {time.perf_counter() - t_phase:.1f} s)")
 
     # 3. timing at the main-path shape
     blocks, masks, D, alpha = main
@@ -1307,6 +1498,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cube, hist = port.inpaint(sample.noisy, sample.mask, variant="dip", clean=sample.clean, n_iters=2)
     solve_s = time.perf_counter() - t0
+    dip_first = (cube, hist)  # repeated in phase 9
     launches = ISTA_KERNEL.launches
     by_path = {"dip": launches}
     f32_dip_ms = (hist["seconds"][1] * 1e3 - timing["float32"]["ms"]) / max(hist["dip_iters"][1], 1)
@@ -1507,6 +1699,12 @@ def main() -> int:
         f"{BM3D_CUBE_MATCH[1]} dB)")
     if not (rel < BM3D_CUBE_MATCH[0] and abs(db[1] - db[2]) < BM3D_CUBE_MATCH[1] and db[1] > db[0]):
         raise AssertionError("the card's bm3d_prox disagrees with the CPU's")
+    prox_again, den_again = bm3d_paths()
+    torch.cuda.synchronize()
+    if not (torch.equal(prox_again, prox_card) and torch.equal(den_again, den_card)):
+        raise AssertionError("bm3d: two calls on the card differ: "
+                             f"{int((prox_again != prox_card).sum())} and {int((den_again != den_card).sum())} values")
+    log("  a second call of each on the card gives equal bits (aggregation in a fixed order)")
     ms = time_cuda(lambda: sparse_prox(blocks, masks, D, bm3d_cfg, alpha=alpha), warmup=1, reps=3)
     log(f"  sparse_prox with bm3d, 5 iterations at nB 144: {ms:.2f} ms (wall of both paths {wall:.2f} s); "
         f"card {smi}")
@@ -1567,7 +1765,7 @@ def main() -> int:
     shard_timing = parallel_phase(sample, input_mpsnr, D_np, by_path, peaks)
 
     # 9. the device-resident solve
-    scanned = scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks)
+    scanned = scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, dip_first)
 
     # 10. report
     log(f"[report] chip_smoke.py total {time.perf_counter() - t_start:.1f} s")
@@ -1587,6 +1785,8 @@ def main() -> int:
         "library_ms": library_ms,
         # B1 at the auto-dictionary's shape (nB 324, P 576, K 512), f32 and bf16
         "at_nB324_P576_K512": auto_timing,
+        # B1 at nB 144 at the shapes of the streamed kernel (random dictionaries)
+        "at_streamed_shapes": wide_timing,
         # B1 at nB 72, one rank's share of the main shape under {patch: 2}
         "at_nB72_per_rank": shard_timing,
         # the yardstick at the engines' and the ranks' shapes (nB 72, 288, 576, 2304)

@@ -80,6 +80,45 @@
 // overlaps it: the next product needs every CTA's new x.  In bf16 the
 // products take half the cycles of the f32 ones, and step 3 and the syncs
 // are half of the time.
+//
+// The streamed path (pnp_ista_stream, f32 and bf16).  The resident kernels
+// take a shape only while a CTA's slice of D fits its register tiles (at most
+// 96 rows in f32, K <= 640 in bf16) and shared memory beside the operand copy
+// of x and the partial gradient.  Every other shape of the TPU kernel's range
+// (its wrapper's VMEM arithmetic at its smallest tile, 2 P K 4 + 3 8 (2P + 2K
+// + 10) 4 <= 12 MiB: block 52 at K 512, K 1152 at P 1296) takes the streamed
+// kernel, which holds nothing whose size grows with K in shared memory:
+//
+//   0. CTA c keeps the first Pr rows of its slice D[p_c, :] resident (whole
+//      stages of 32 rows, or the whole slice), as many as fit beside a ring
+//      of two stages; x, the residual and each CTA's gradient window live in
+//      device memory (scratch, 16 rows a cluster; L2 holds it);
+//   1. pred[:, p_c] = x D[p_c, :]^T in stages of 32 rows by 128 columns: a
+//      resident stage is read in place, a streamed one arrives by cp.async
+//      into the ring while the previous one is computed; each 128-column
+//      piece of x arrives with it.  Lane = row of D, warp = two of the 16
+//      block rows; each sum runs over K in column order.  The residual r[:,
+//      p_c] = Ym - M * pred goes to device memory.   -- cluster.sync --
+//   2. CTA c sums g over all P for its columns k_c and their halo of 4 (no
+//      sum crosses CTAs, so no reduction through the cluster): stages of 32
+//      rows of D by 64 columns of the window, with 32 columns of r, in row
+//      order; thread = column, four block rows each.  g = x + (r D)/alpha
+//      goes to its window in device memory; the NLM writes the new x of its
+//      columns.                                         -- cluster.sync --
+//
+// Every sum runs in a fixed order without atomics, so two launches give
+// equal bits.  bf16 rounds x, r and D to bf16 where they enter a product and
+// multiplies on the CUDA cores (exact in f32), which is the bf16 plain loop's
+// arithmetic in another order.  Bound: the same 4 nB P K n_iter operations
+// (at block 40, K 512, nB 144: 4.7e10 flops, 0.70 ms in f32); besides, each
+// cluster moves through L2 per iteration, in floats, C (Pc - Pr) K of streamed
+// rows + P (K + 8 C) of product 2's windows + 16 C ceil(Pc / 32) kp of x + 16
+// P (C + 1) of residual, about 9 MB at block 40 (IstaPlan.l2_bytes_per_iteration):
+// 12.8 GB in 100 iterations of 14 clusters, some 2 ms of L2 bandwidth.
+// What bounds it is neither: its inner loops issue one shared-memory load
+// per FMA or more (product 2 loads D and four broadcasts of r per four FMAs),
+// each stage costs two barriers, and bf16 adds the rounding of every operand.
+// A simple kernel that is right; making it fast is later work.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -707,19 +746,330 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_cluster_bf16(const Args a) 
   write_out(cluster, a, s_xown, row0, nrows, cur);
 }
 
-// The attributes already set on each kernel (index: bf16), so that they are
-// set by the first launch of a shape and a launch recorded into a CUDA graph
-// after it calls no cudaFuncSetAttribute.
+// ----------------------------------------------------------- streamed ----
+//
+// The kernel for a shape whose slice of D, operand copy of x or partial
+// gradient does not fit a CTA's shared memory (see the note at the head).
+
+constexpr int kStRows = 32;    // rows of D per stage: one per lane in product 1
+constexpr int kStColsA = 128;  // columns of a product-1 stage
+constexpr int kStColsB = 64;   // columns of a product-2 stage
+constexpr int kStages = 2;     // the ring: one stage computed while the next loads
+constexpr int kRowsSt = 16;    // rows per cluster (R <= 16)
+constexpr int kLdA = kStColsA + 4;
+constexpr int kStageFloats =
+    kStRows * kLdA + kRowsSt * kStColsA > kStRows * kStColsB + kRowsSt * kStRows
+        ? kStRows * kLdA + kRowsSt * kStColsA
+        : kStRows * kStColsB + kRowsSt * kStRows;
+
+struct StreamLayout {
+  int kp;   // K padded to 4
+  int ldd;  // row stride of the resident rows: kp + 4 floats
+  int ring, resident, vec, total;
+};
+
+__host__ __device__ inline StreamLayout make_stream_layout(int K, int Pr) {
+  StreamLayout L;
+  L.kp = round_up(K, 4);
+  L.ldd = L.kp + 4;
+  L.ring = 0;
+  L.resident = L.ring + round_up(kStages * kStageFloats * 4, 16);
+  L.vec = L.resident + round_up(Pr * L.ldd * 4, 16);
+  L.total = L.vec + 2 * kRowsSt * 4;
+  return L;
+}
+
+// Floats of device-memory scratch per cluster: the carried x twice, the
+// residual, and each CTA's gradient window (16 rows each).
+__host__ __device__ inline size_t stream_scratch_floats(int P, int K, int C, int seg) {
+  return (size_t)kRowsSt * (2 * round_up(K, 4) + round_up(P, 4) + (size_t)C * (seg + 2 * kHalo));
+}
+
+struct StreamArgs {
+  Args a;
+  float* scratch;  // stream_scratch_floats per cluster
+  int Pr;          // rows of the slice kept resident (a multiple of 32, or the whole slice)
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  // 16 bytes through L2 only (peers write x and the residual); zeros when !valid
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// A product operand: f32 as it is, or rounded to bf16 (held in f32).
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  if (kBf16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// Rows [p, p + 32) x columns [c, c + ncols) of D into a stage with row
+// stride ld, zeros outside rows < p_end and columns < c_end.
+__device__ __forceinline__ void load_d_tile(float* dst, int ld, const float* d, int K, int p,
+                                            int p_end, int c, int c_end, int ncols) {
+  if (K % 4 == 0) {  // rows of D are 16-byte aligned, and so are c and c_end
+    const int nq = ncols / 4;
+    for (int e = threadIdx.x; e < kStRows * nq; e += kThreads) {
+      const int i = e / nq, col = c + 4 * (e - i * nq);
+      const bool ok = p + i < p_end && col < c_end;
+      cp_async16(dst + i * ld + (col - c), ok ? d + (size_t)(p + i) * K + col : d, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kStRows * ncols; e += kThreads) {
+      const int i = e / ncols, col = c + (e - i * ncols);
+      const bool ok = p + i < p_end && col < c_end;
+      cp_async4(dst + i * ld + (col - c), ok ? d + (size_t)(p + i) * K + col : d, ok);
+    }
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const Args& a = sa.a;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const StreamLayout L = make_stream_layout(a.K, sa.Pr);
+  float* s_ring = reinterpret_cast<float*>(smem + L.ring);     // [kStages][kStageFloats]
+  float* s_dres = reinterpret_cast<float*>(smem + L.resident);  // [Pr][ldd] resident rows
+  float* s_ia = reinterpret_cast<float*>(smem + L.vec);
+  float* s_nih = s_ia + kRowsSt;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = cluster.num_blocks();
+  const int rank = cluster.block_rank();
+  const int cluster_id = blockIdx.x / C;
+  const int row0 = cluster_id * a.R;
+  const int nrows = min(a.R, a.nB - row0);
+  const int P = a.P, K = a.K, kp = L.kp, ldd = L.ldd, Pr = sa.Pr;
+  const int pp = round_up(P, 4);
+  const int p0 = min(P, rank * a.Pc);
+  const int pc = min(P, p0 + a.Pc) - p0;  // this CTA's rows of D in product 1
+  const int k0 = min(K, rank * a.seg), k1 = min(K, k0 + a.seg);  // its columns in step 3
+  const int lo = max(0, k0 - kHalo), hi = k1 > k0 ? min(K, k1 + kHalo) : lo;
+  const int segw = a.seg + 2 * kHalo;
+
+  float* base = sa.scratch + (size_t)cluster_id * stream_scratch_floats(P, K, C, a.seg);
+  float* g_x = base;                       // [2][16][kp] carried x
+  float* g_res = g_x + 2 * kRowsSt * kp;   // [16][pp] residual
+  float* g_win = g_res + (size_t)kRowsSt * pp + (size_t)rank * kRowsSt * segw;  // [16][segw]
+
+  // x = 0 and the residual's padding, shared out over the cluster; the
+  // resident rows of the slice; the per-row scalars.
+  const size_t nzero = (size_t)kRowsSt * (2 * kp + pp);
+  for (size_t i = (size_t)rank * kThreads + tid; i < nzero; i += (size_t)C * kThreads) base[i] = 0.f;
+  for (int i = tid; i < Pr * kp; i += kThreads) {
+    const int p = i / kp, k = i - p * kp;
+    s_dres[p * ldd + k] = (p < pc && k < K) ? __ldg(a.d + (size_t)(p0 + p) * K + k) : 0.f;
+  }
+  if (tid < kRowsSt) {
+    float ia = 0.f, nih = -1.f;
+    if (tid < nrows) {
+      const float alpha = fmaxf(a.alpha[row0 + tid], 1e-12f);
+      const float h = a.h_coef / (2.0f * alpha);
+      ia = 1.0f / alpha;
+      nih = -1.0f / fmaxf(h * h * 9.0f, 1e-30f);
+    }
+    s_ia[tid] = ia;
+    s_nih[tid] = nih;
+  }
+  __threadfence();
+  cluster.sync();
+
+  // Product 1: tiles of 32 rows of the slice by 128 columns, the row tiles
+  // in order and the column tiles in order within each.
+  const int n_kt = (kp + kStColsA - 1) / kStColsA;
+  const int n_tiles_a = (pc + kStRows - 1) / kStRows * n_kt;
+  // Product 2: tiles of 32 rows of D (all P) by 64 columns of this CTA's
+  // window [lo, hi), the row tiles in order within each column tile.
+  const int n_pb = (P + kStRows - 1) / kStRows;
+  const int n_tiles_b = (hi - lo + kStColsB - 1) / kStColsB * n_pb;
+  const int r0 = warp, r1 = warp + kWarps;          // product 1: this thread's rows
+  const int cb = tid & (kStColsB - 1), rg = tid / kStColsB;  // product 2: column, row group
+
+  int cur = 0;
+  for (int it = 0; it < a.n_iter; ++it) {
+    const float* xcur = g_x + (size_t)cur * kRowsSt * kp;
+
+    // 1. pred = x D_c^T, then r = Ym - M * pred for the slice's columns p.
+    auto load_a = [&](int t) {
+      float* st = s_ring + (t & 1) * kStageFloats;
+      const int pt = t / n_kt, kb = (t - pt * n_kt) * kStColsA;
+      const int ncols = min(kStColsA, kp - kb);
+      float* st_x = st + kStRows * kLdA;
+      for (int e = tid; e < kRowsSt * (kStColsA / 4); e += kThreads) {
+        const int r = e / (kStColsA / 4), col = kb + 4 * (e - r * (kStColsA / 4));
+        cp_async16(st_x + r * kStColsA + (col - kb), col < kp ? xcur + r * kp + col : xcur, col < kp);
+      }
+      if (pt * kStRows >= Pr)  // a streamed row tile
+        load_d_tile(st, kLdA, a.d, K, p0 + pt * kStRows, p0 + pc, kb, K, ncols);
+      cp_async_commit();
+    };
+    float acc0 = 0.f, acc1 = 0.f;
+    if (n_tiles_a > 0) load_a(0);
+    for (int t = 0; t < n_tiles_a; ++t) {
+      if (t + 1 < n_tiles_a) {
+        load_a(t + 1);
+        cp_async_wait_one();
+      } else {
+        cp_async_wait_all();
+      }
+      __syncthreads();
+      const float* st = s_ring + (t & 1) * kStageFloats;
+      const int pt = t / n_kt, kt = t - pt * n_kt, kb = kt * kStColsA;
+      const int nq = min(kStColsA, kp - kb) / 4;
+      const int p = pt * kStRows + lane;
+      const float4* drow;
+      if (pt * kStRows < Pr)
+        drow = reinterpret_cast<const float4*>(s_dres + (p < Pr ? p : 0) * ldd + kb);
+      else
+        drow = reinterpret_cast<const float4*>(st + lane * kLdA);
+      const float4* x0 = reinterpret_cast<const float4*>(st + kStRows * kLdA + r0 * kStColsA);
+      const float4* x1 = reinterpret_cast<const float4*>(st + kStRows * kLdA + r1 * kStColsA);
+      if (kt == 0) acc0 = acc1 = 0.f;
+#pragma unroll 4
+      for (int q = 0; q < nq; ++q) {
+        const float4 d = drow[q], u = x0[q], v = x1[q];
+        const float d4[4] = {operand<kBf16>(d.x), operand<kBf16>(d.y), operand<kBf16>(d.z),
+                             operand<kBf16>(d.w)};
+        const float u4[4] = {u.x, u.y, u.z, u.w}, v4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc0 = fmaf(operand<kBf16>(u4[i]), d4[i], acc0);
+          acc1 = fmaf(operand<kBf16>(v4[i]), d4[i], acc1);
+        }
+      }
+      if (kt == n_kt - 1 && p < pc) {
+        const float accs[2] = {acc0, acc1};
+        const int rows[2] = {r0, r1};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = rows[j];
+          if (r < a.R) {
+            float res = 0.f;
+            if (r < nrows) {
+              const size_t at = (size_t)(row0 + r) * P + p0 + p;
+              const float mv = __ldg(a.m + at);
+              res = mv * __ldg(a.y + at) - mv * accs[j];
+            }
+            g_res[(size_t)r * pp + p0 + p] = operand<kBf16>(res);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    __threadfence();
+    cluster.sync();
+
+    // 2. g = x + (r D)[:, lo:hi] / alpha over all P in row order: this
+    // CTA's columns and their halo, so that no partial sum crosses CTAs.
+    auto load_b = [&](int t) {
+      float* st = s_ring + (t & 1) * kStageFloats;
+      const int ct = t / n_pb, pb = (t - ct * n_pb) * kStRows;
+      load_d_tile(st, kStColsB, a.d, K, pb, P, lo + ct * kStColsB, hi, kStColsB);
+      float* st_r = st + kStRows * kStColsB;
+      for (int e = tid; e < kRowsSt * (kStRows / 4); e += kThreads) {
+        const int r = e / (kStRows / 4), col = pb + 4 * (e - r * (kStRows / 4));
+        cp_async16(st_r + r * kStRows + (col - pb), col < pp ? g_res + (size_t)r * pp + col : g_res, col < pp);
+      }
+      cp_async_commit();
+    };
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (n_tiles_b > 0) load_b(0);
+    for (int t = 0; t < n_tiles_b; ++t) {
+      if (t + 1 < n_tiles_b) {
+        load_b(t + 1);
+        cp_async_wait_one();
+      } else {
+        cp_async_wait_all();
+      }
+      __syncthreads();
+      const float* st = s_ring + (t & 1) * kStageFloats;
+      const float* st_r = st + kStRows * kStColsB;
+      const int ct = t / n_pb, pt = t - ct * n_pb;
+      if (pt == 0) acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < kStRows; ++i) {
+        const float d = operand<kBf16>(st[i * kStColsB + cb]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j] = fmaf(st_r[(rg + 4 * j) * kStRows + i], d, acc[j]);
+      }
+      const int col = lo + ct * kStColsB + cb;
+      if (pt == n_pb - 1 && col < hi) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = rg + 4 * j;
+          if (r < nrows) g_win[r * segw + (col - lo)] = __ldcg(xcur + r * kp + col) + acc[j] * s_ia[r];
+        }
+      }
+      __syncthreads();
+    }
+
+    // 3. the NLM on this CTA's columns, into the next carried x.
+    float* x_new = g_x + (size_t)(cur ^ 1) * kRowsSt * kp;
+    const int nseg = k1 - k0;
+    for (int e = tid; e < nrows * nseg; e += kThreads) {
+      const int r = e / nseg, k = k0 + (e - r * nseg);
+      const float* g = g_win + r * segw - lo;  // g[col] for col in [lo, hi)
+      const float nh = s_nih[r];
+      float v[9];
+#pragma unroll
+      for (int j = -4; j <= 4; ++j) v[4 + j] = g[reflect_index(k + j, K)];
+      float num = 8.f * v[4];
+      float den = 8.f;
+#pragma unroll
+      for (int delta = 1; delta <= 3; ++delta) {
+        float p = v[3] - v[3 + delta], q = v[4] - v[4 + delta], s = v[5] - v[5 + delta];
+        const float wf = 7.f * expf(3.f * (p * p + q * q + s * s) * nh);
+        num += wf * v[4 + delta];
+        den += wf;
+        p = v[3 - delta] - v[3];
+        q = v[4 - delta] - v[4];
+        s = v[5 - delta] - v[5];
+        const float wb = 7.f * expf(3.f * (p * p + q * q + s * s) * nh);
+        num += wb * v[4 - delta];
+        den += wb;
+      }
+      x_new[r * kp + k] = num / den;
+    }
+    cur ^= 1;
+    __threadfence();
+    cluster.sync();
+  }
+  const float* x = g_x + (size_t)cur * kRowsSt * kp;
+  for (int e = tid; e < nrows * (k1 - k0); e += kThreads) {
+    const int r = e / (k1 - k0), k = k0 + (e - r * (k1 - k0));
+    a.out[(size_t)(row0 + r) * K + k] = __ldcg(x + r * kp + k);
+  }
+}
+
+// The kernels' slots below: 0 f32, 1 bf16 (slices of D resident), 2 f32, 3
+// bf16 (streamed).
+constexpr int kKernels = 4;
+
+// The attributes already set on each kernel, so that they are set by the
+// first launch of a shape and a launch recorded into a CUDA graph after it
+// calls no cudaFuncSetAttribute.
 struct KernelAttributes {
   int smem = 0;
   bool non_portable = false;
 };
-KernelAttributes g_attributes[2];
+KernelAttributes g_attributes[kKernels];
 
 template <typename Kernel>
-cudaError_t configure(Kernel kernel, int bf16, int cluster_size, int nclusters, int smem,
+cudaError_t configure(Kernel kernel, int index, int cluster_size, int nclusters, int smem,
                       cudaStream_t stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  KernelAttributes& set = g_attributes[bf16];
+  KernelAttributes& set = g_attributes[index];
   cudaError_t err;
   if (smem > set.smem) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -754,9 +1104,18 @@ int lrs_pnp_ista_smem_bytes(int bf16, int R, int Pc, int K, int seg) {
   return make_layout(bf16, R, Pc, K, seg).total;
 }
 
+// The same for the streamed kernels, with Pr resident rows.
+int lrs_pnp_ista_stream_smem_bytes(int K, int Pr) { return make_stream_layout(K, Pr).total; }
+
+// Floats of device-memory scratch the streamed kernels take per cluster.
+long long lrs_pnp_ista_stream_scratch_floats(int P, int K, int cluster_size, int seg) {
+  return (long long)stream_scratch_floats(P, K, cluster_size, seg);
+}
+
 // How many clusters of `cluster_size` CTAs with `smem` bytes each the device
 // keeps resident at once (cudaOccupancyMaxActiveClusters); negative: minus
-// the cudaError_t.
+// the cudaError_t.  The streamed kernels run one CTA of kThreads per SM as
+// the resident ones do, so the plan takes the same count for them.
 int lrs_pnp_ista_max_clusters(int bf16, int cluster_size, int smem) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -769,6 +1128,14 @@ int lrs_pnp_ista_max_clusters(int bf16, int cluster_size, int smem) {
                : cudaOccupancyMaxActiveClusters(&n, pnp_ista_cluster_f32, &cfg);
   }
   return err == cudaSuccess ? n : -(int)err;
+}
+
+static int finish_launch(cudaError_t err) {
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear the sticky launch error; the caller raises
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 // Launches the fused loop on `stream` as nclusters clusters of cluster_size
@@ -791,11 +1158,30 @@ int lrs_pnp_ista_launch(const float* y, const float* m, const float* d,
     err = configure(pnp_ista_cluster_f32, 0, cluster_size, nclusters, smem, s, &cfg, &attr);
     if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_cluster_f32, a);
   }
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear the sticky launch error; the caller raises
-    return (int)err;
+  return finish_launch(err);
+}
+
+// The streamed kernels: the same arguments, Pr resident rows of each slice
+// and `scratch`, lrs_pnp_ista_stream_scratch_floats per cluster of device
+// memory the kernel initialises itself.
+int lrs_pnp_ista_stream_launch(const float* y, const float* m, const float* d,
+                               const float* alpha, float h_coef, float* out, float* scratch,
+                               int nB, int P, int K, int n_iter, int bf16, int cluster_size,
+                               int nclusters, int R, int Pc, int seg, int Pr, void* stream) {
+  const StreamArgs sa = {{y, m, d, alpha, h_coef, out, nB, P, K, n_iter, R, Pc, seg}, scratch, Pr};
+  const int smem = make_stream_layout(K, Pr).total;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16) {
+    err = configure(pnp_ista_stream<true>, 3, cluster_size, nclusters, smem, s, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_stream<true>, sa);
+  } else {
+    err = configure(pnp_ista_stream<false>, 2, cluster_size, nclusters, smem, s, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_stream<false>, sa);
   }
-  return (int)cudaGetLastError();
+  return finish_launch(err);
 }
 
 #ifdef ISTA_PROFILE

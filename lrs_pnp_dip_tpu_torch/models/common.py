@@ -12,6 +12,10 @@ package:
     average or max pool or a Lanczos :class:`~.downsampler.Downsampler`;
   * nearest or bilinear x2 upsampling; center-crop concatenation.
 
+Reflection padding folds its gradient back in a fixed order, and bilinear
+upsampling is a fixed-weight sum of shifted slices, so that their backward,
+and with it a DIP fit, repeats bit for bit on the card.
+
 Initialisation matches the JAX package in distribution: conv kernels
 U(+-1/sqrt(fan_in)) (``lrs_pnp_dip_tpu/models/common.py:31``), conv biases
 ZERO (flax's ``nn.Conv`` default, not torch's), BN scale 1 and bias 0; a
@@ -128,6 +132,48 @@ class MeanOnlyBatchNorm(nn.Module):
         return x - torch.mean(x, dim=axes, keepdim=True) + self.bias.reshape(shape)
 
 
+def _reflected(g: torch.Tensor, axis: int, start: int, pad: int) -> torch.Tensor:
+    """``pad`` entries of ``g`` along ``axis`` from ``start``, reversed (a
+    single entry is its own reverse: no copy)."""
+    part = g.narrow(axis, start, pad)
+    return part if pad == 1 else part.flip(axis)
+
+
+class _ReflectPad(torch.autograd.Function):
+    """Reflection padding of every spatial axis longer than the pad: the
+    forward is ``F.pad(mode="reflect")`` (a copy), and the backward folds the
+    padded gradient back in a fixed order, each axis from the last: the
+    centre, then the left pad, then the right pad added onto the entries
+    they copied.  ``F.pad``'s own reflection backward sums with atomics on
+    the card, so a DIP fit through it does not repeat."""
+
+    @staticmethod
+    def forward(ctx, x, pad):
+        ctx.pad = pad
+        return F.pad(x, (pad, pad) * (x.ndim - 2), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.pad
+        for axis in range(g.ndim - 1, 1, -1):
+            n = g.shape[axis] - 2 * p
+            out = g.narrow(axis, p, n).clone()
+            out.narrow(axis, 1, p).add_(_reflected(g, axis, 0, p))
+            out.narrow(axis, n - 1 - p, p).add_(_reflected(g, axis, n + p, p))
+            g = out
+        return g, None
+
+
+def _reflect_short(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``np.pad(mode="reflect")`` of axes no longer than the pad too (a 1x1
+    map repeats; torch's reflection refuses them), as slices and ``cat``:
+    the backward adds each entry's copies in a fixed order."""
+    for axis in range(2, x.ndim):
+        index = np_pad_index(x.shape[axis], pad, "reflect", "cpu").tolist()
+        x = torch.cat([x.narrow(axis, i, 1) for i in index], dim=axis)
+    return x
+
+
 def pad_input(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
     """Spatial padding of an NCHW (or NCDHW) tensor."""
     if pad == 0:
@@ -135,12 +181,8 @@ def pad_input(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
     widths = (pad, pad) * (x.ndim - 2)
     if mode == "reflection":
         if min(x.shape[2:]) > pad:
-            return F.pad(x, widths, mode="reflect")
-        # np.pad's reflect, which the JAX package uses, also takes axes no
-        # longer than the pad (a 1x1 map repeats); torch's refuses them
-        for axis in range(2, x.ndim):
-            x = x.index_select(axis, np_pad_index(x.shape[axis], pad, "reflect", x.device))
-        return x
+            return _ReflectPad.apply(x, pad)
+        return _reflect_short(x, pad)
     if mode == "replication":
         return F.pad(x, widths, mode="replicate")
     if mode == "zero":
@@ -264,16 +306,39 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
 
 
+def _linear_up2(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x2 linear upsampling along one axis with half-pixel centres and the
+    edge clamped: output 2i is 0.75 x[i] + 0.25 x[i-1], output 2i+1 is
+    0.75 x[i] + 0.25 x[i+1] (``align_corners=False`` at a factor of 2).  A
+    fixed-weight sum of shifted slices, so that the backward adds in a fixed
+    order, where ``F.interpolate``'s linear backward sums with atomics on the
+    card."""
+    n = x.shape[axis]
+    prev = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], dim=axis)
+    nxt = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], dim=axis)
+    even = 0.75 * x + 0.25 * prev
+    odd = 0.75 * x + 0.25 * nxt
+    return torch.stack([even, odd], dim=axis + 1).flatten(axis, axis + 1)
+
+
+def upsample_linear2x(x: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear (NCHW) or trilinear (NCDHW) upsampling, one spatial axis
+    after the other: ``jax.image.resize(method='bilinear' / 'trilinear')``,
+    half-pixel centres with the edge taps renormalised, which at a factor of
+    2 clamps the source index at the border (``tests/test_torch_zoo.py`` and
+    ``tests/test_torch_lipschitz.py`` pin the two together)."""
+    for axis in range(2, x.ndim):
+        x = _linear_up2(x, axis)
+    return x
+
+
 def upsample2x(x: torch.Tensor, mode: str = "nearest") -> torch.Tensor:
-    """x2 spatial upsampling of NCHW.  'bilinear' is
-    ``jax.image.resize(method='bilinear')``: half-pixel centres, the edge
-    taps renormalised, which at a factor of 2 is torch's
-    ``align_corners=False`` with the source index clamped at the border
-    (``tests/test_torch_zoo.py`` pins the two together)."""
+    """x2 spatial upsampling of NCHW: 'nearest' (whose backward already
+    gathers in a fixed order) or 'bilinear' (:func:`upsample_linear2x`)."""
     if mode == "nearest":
         return F.interpolate(x, scale_factor=2, mode="nearest")
     if mode == "bilinear":
-        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        return upsample_linear2x(x)
     raise ValueError(f"unknown upsample mode {mode!r}")
 
 

@@ -16,7 +16,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Conv, ZooModule, batch_norm
+from .common import Conv, ZooModule, batch_norm, upsample_linear2x
+
+
+def max_pool3d_2(y: torch.Tensor) -> torch.Tensor:
+    """``F.max_pool3d(y, 2, 2)`` of NCDHW (odd edges dropped) as the maximum
+    over each window's 8 entries in (d, h, w) order, the first of equal
+    maxima taking the gradient: the backward gathers in a fixed order, where
+    ``max_pool3d``'s has no deterministic implementation on the card."""
+    n, c, d, h, w = y.shape
+    y = y[:, :, : d // 2 * 2, : h // 2 * 2, : w // 2 * 2]
+    windows = y.reshape(n, c, d // 2, 2, h // 2, 2, w // 2, 2).permute(0, 1, 2, 4, 6, 3, 5, 7)
+    return windows.reshape(n, c, d // 2, h // 2, w // 2, 8).max(dim=-1).values
 
 
 class _Conv3Block(ZooModule):
@@ -74,11 +85,11 @@ class UNet3D(ZooModule):
         skips = []
         for level, block in enumerate(self.down):
             if level:
-                y = F.max_pool3d(y, 2, 2)
+                y = max_pool3d_2(y)
             y = block(y)
             skips.append(y)
         for block, skip in zip(self.up, reversed(skips[:3])):
-            y = F.interpolate(y, scale_factor=2, mode="trilinear", align_corners=False)
+            y = upsample_linear2x(y)
             lo = [(y.shape[ax] - skip.shape[ax]) // 2 for ax in (2, 3, 4)]
             y = y[:, :, lo[0] : lo[0] + skip.shape[2], lo[1] : lo[1] + skip.shape[3],
                   lo[2] : lo[2] + skip.shape[4]]

@@ -12,8 +12,10 @@ JAX package vmaps:
   * the 3-D transform as three small products (orthonormal DCT-II along
     rows, columns and the group);
   * hard threshold (stage 1) and empirical Wiener (stage 2) shrinkage;
-  * aggregation by ``index_add_`` over group membership, then onto the
-    pixel grid (on the card these sums run in no fixed order).
+  * aggregation over group membership, then onto the pixel grid, both in
+    the order of ``index_add_`` on the CPU (a stable sort of the member ids,
+    then passes in which no two values reach one sum), so that two calls
+    give equal bits on the card too.
 """
 
 from __future__ import annotations
@@ -100,25 +102,56 @@ def _match(patches: torch.Tensor, geo: _Geometry, cfg: Bm3dConfig, tau: float) -
     return torch.where(dist <= tau * p2, idx, self_idx)
 
 
+def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Sums of the rows of ``vals`` (N, L, F) per segment id ``seg`` (N, L)
+    in [0, n_seg): (N, n_seg, F).  Each segment's rows are added one at a
+    time in the order they stand in ``vals``, the order of ``index_add_`` on
+    the CPU, whatever the device: a stable sort of the ids puts each
+    segment's rows in a run, and pass r adds the r-th row of every run
+    longer than r (the runs' lengths read to the host once).  A pass meets
+    no segment twice, so even the card's atomics add in one order; the work
+    is linear in L."""
+    N, L, F = vals.shape
+    dev = vals.device
+    flat = (seg + n_seg * torch.arange(N, device=dev)[:, None]).reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    count = torch.bincount(flat, minlength=N * n_seg)
+    by_len = torch.argsort(count, descending=True, stable=True)  # the longest runs first
+    first = (torch.cumsum(count, 0) - count)[by_len]  # where each of them starts in ``order``
+    lengths = count[by_len].cpu().numpy()
+    longer = np.searchsorted(-lengths, -np.arange(lengths[0] if lengths.size else 0), side="left")
+    rows = vals.reshape(N * L, F)
+    out = vals.new_zeros(N * n_seg, F)
+    for r, n in enumerate(longer.tolist()):  # n runs are longer than r
+        out.index_add_(0, by_len[:n], rows.index_select(0, order.index_select(0, first[:n] + r)))
+    return out.reshape(N, n_seg, F)
+
+
 def _aggregate(filtered, weights, idx, geo: _Geometry, shape):
     """Weighted aggregation: group members summed per patch, then patches
     onto the pixel grid.  filtered (N, nP, g, p, p), weights (N, nP),
-    idx (N, nP, g); returns num, den (N, H, W)."""
+    idx (N, nP, g); returns num, den (N, H, W).
+
+    Both sums add in the order of ``index_add_`` on the CPU, whatever the
+    device, so that the card repeats its bits: the group members reach their
+    patch through :func:`_segment_sum`, and the patches reach the pixels in
+    p^2 passes, pass d adding entry d of every patch (no two patches put
+    the same entry on one pixel), d from the last entry down, which adds
+    each pixel's patches in the order of their index.  Work and memory stay
+    linear in the group members, as with one ``index_add_``."""
     N, nP, g = idx.shape
     p2 = geo.p * geo.p
-    dev = filtered.device
-    seg = (idx + nP * torch.arange(N, device=dev)[:, None, None]).reshape(-1)
-    vals = (filtered * weights[:, :, None, None, None]).reshape(N * nP * g, p2)
-    wrep = weights[:, :, None].expand(N, nP, g).reshape(-1)
-    patch_num = torch.zeros((N * nP, p2), device=dev).index_add_(0, seg, vals)
-    patch_den = torch.zeros(N * nP, device=dev).index_add_(0, seg, wrep)
-    pix = geo.pix.reshape(-1)
     H, W = shape
-    num = torch.zeros((N, H * W), device=dev).index_add_(1, pix, patch_num.reshape(N, -1))
-    den = torch.zeros((N, H * W), device=dev).index_add_(
-        1, pix, patch_den.reshape(N, nP, 1).expand(N, nP, p2).reshape(N, -1)
-    )
-    return num.reshape(N, H, W), den.reshape(N, H, W)
+    vals = (filtered * weights[:, :, None, None, None]).reshape(N, nP * g, p2)
+    wrep = weights[:, :, None].expand(N, nP, g).reshape(N, nP * g, 1)
+    patch = _segment_sum(torch.cat([vals, wrep], dim=2), idx.reshape(N, nP * g), nP)  # (N, nP, p^2 + 1)
+    entries = torch.stack([patch[:, :, :p2], patch[:, :, p2:].expand(N, nP, p2)], dim=3)  # num, den
+    entries = entries.permute(2, 0, 1, 3).contiguous()  # (p^2, N, nP, 2)
+    pix = geo.pix.reshape(nP, p2).T.contiguous()  # (p^2, nP)
+    acc = patch.new_zeros(N, H * W, 2)
+    for d in range(p2 - 1, -1, -1):
+        acc.index_add_(1, pix[d], entries[d])
+    return acc[:, :, 0].reshape(N, H, W), acc[:, :, 1].reshape(N, H, W)
 
 
 def _bm3d_batch(img: torch.Tensor, sigma: torch.Tensor, cfg: Bm3dConfig) -> torch.Tensor:

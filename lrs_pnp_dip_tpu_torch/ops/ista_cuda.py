@@ -56,6 +56,17 @@ _BF16_MAX_SLICE = 192  # 8 warps x kTilesP tiles of 8
 _BF16_MAX_K = 640  # 8 warps x kPairsK tiles of 16
 _WARPS = 8
 _HALO = 4  # the NLM's reach along K
+# The streamed kernel (csrc/ista.cu, pnp_ista_stream): stages of 32 rows of
+# D by 128 columns (product 1, with 16 rows of x) or by 64 columns (product
+# 2, with 16 rows of the residual), two stages, 16 rows per cluster.
+_STAGE_ROWS = 32
+_STAGES = 2
+_STREAM_ROWS = 16
+_STAGE_FLOATS = max(_STAGE_ROWS * (128 + 4) + _STREAM_ROWS * 128, _STAGE_ROWS * 64 + _STREAM_ROWS * _STAGE_ROWS)
+# The TPU kernel's VMEM budget and its smallest row tile
+# (lrs_pnp_dip_tpu/ops/ista_pallas.py:151-158): the range of shapes B1 takes.
+_TPU_VMEM_BUDGET = 12 * 2**20
+_TPU_MIN_TILE = 8
 # Clusters of 8 and of 16 CTAs that an H100 SXM keeps resident with one CTA
 # per SM (cudaOccupancyMaxActiveClusters, scripts/probe_clusters.cu).  The
 # wrapper asks the card it runs on; these serve a plan made without one.
@@ -64,6 +75,18 @@ H100_RESIDENT_CLUSTERS = {8: 15, 16: 7}
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def tpu_vmem_bytes(P: int, K: int) -> int:
+    """The VMEM the TPU kernel's wrapper counts for (P, K) at its smallest
+    tile of 8 rows: D twice and three tiles of Ym, M, x and g rows."""
+    return 2 * P * K * 4 + 3 * _TPU_MIN_TILE * (2 * P + 2 * K + 10) * 4
+
+
+def in_tpu_range(P: int, K: int) -> bool:
+    """Whether the TPU kernel's VMEM arithmetic fits (P, K) under its
+    default budget: the shapes kernel B1 must take."""
+    return tpu_vmem_bytes(P, K) <= _TPU_VMEM_BUDGET
 
 
 def smem_bytes(bf16: bool, rows: int, slice_rows: int, K: int, seg: int) -> int:
@@ -91,6 +114,22 @@ def smem_bytes(bf16: bool, rows: int, slice_rows: int, K: int, seg: int) -> int:
     return sum(_round_up(s, 16) for s in sizes) + 2 * _BF16_ROWS * 4
 
 
+def stream_smem_bytes(K: int, resident_rows: int) -> int:
+    """Dynamic shared memory of one CTA of the streamed kernel, as
+    ``make_stream_layout`` in csrc/ista.cu lays it out: the ring of stages
+    and the resident rows of the slice (row stride K + 4 floats)."""
+    ring = _STAGES * _STAGE_FLOATS * 4
+    resident = resident_rows * (_round_up(K, 4) + 4) * 4
+    return _round_up(ring, 16) + _round_up(resident, 16) + 2 * _STREAM_ROWS * 4
+
+
+def stream_scratch_floats(P: int, K: int, cluster_size: int, seg: int) -> int:
+    """Device-memory scratch of one cluster of the streamed kernel, in
+    floats: the carried x twice, the residual and each CTA's gradient window,
+    16 rows each (``stream_scratch_floats`` in csrc/ista.cu)."""
+    return _STREAM_ROWS * (2 * _round_up(K, 4) + _round_up(P, 4) + cluster_size * (seg + 2 * _HALO))
+
+
 @dataclass(frozen=True)
 class IstaPlan:
     """The tiling of one launch of kernel B1."""
@@ -106,6 +145,41 @@ class IstaPlan:
     slice_rows: int  # rows of D per CTA
     seg: int  # columns of x per CTA in step 3
     smem_bytes: int
+    # The streamed tiling (zero stages: the whole slice is resident).
+    resident_rows: int  # rows of the slice kept in shared memory
+    stage_rows: int  # rows of D per stage of the ring
+    stages: int  # stages of the ring
+
+    @property
+    def streamed(self) -> bool:
+        """Whether the launch takes the streamed kernel."""
+        return self.stages > 0
+
+    @property
+    def streamed_rows(self) -> int:
+        """Rows of each slice streamed through the ring in product 1."""
+        return self.slice_rows - self.resident_rows
+
+    @property
+    def scratch_floats(self) -> int:
+        """Device-memory scratch of the launch, in floats."""
+        if not self.streamed:
+            return 0
+        return self.n_clusters * stream_scratch_floats(self.P, self.K, self.cluster_size, self.seg)
+
+    @property
+    def l2_bytes_per_iteration(self) -> int:
+        """Bytes one cluster of the streamed kernel moves through L2 per
+        iteration (the note in csrc/ista.cu): the streamed rows of the
+        slices, product 2's windows of D, the pieces of x and the residual
+        written and read.  0 for the resident kernels."""
+        if not self.streamed:
+            return 0
+        C, P, K = self.cluster_size, self.P, self.K
+        pieces = -(-self.slice_rows // self.stage_rows)
+        floats = (C * self.streamed_rows * K + P * (K + 2 * _HALO * C)
+                  + _STREAM_ROWS * C * pieces * _round_up(K, 4) + _STREAM_ROWS * P * (C + 1))
+        return 4 * floats
 
     @property
     def waves(self) -> int:
@@ -138,21 +212,19 @@ def _refused(reason: str) -> ValueError:
     return ValueError(f"{reason}; {_WAY_AROUND}")
 
 
-def plan_ista(
-    nB: int, P: int, K: int, bf16: bool,
-    resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
-) -> IstaPlan:
-    """Choose the tiling for (nB, P, K, operand type): the smallest cluster
-    whose slice of D fits in shared memory, the most rows per cluster that
-    fit beside it, then as few waves of resident clusters as cover nB, with
-    the rows spread evenly over them.  Raises ValueError with the reason
-    for a shape the kernel does not take, which names ``backend="xla"`` as
-    the way around it."""
-    if nB < 1 or P < 1 or K < 6:
-        raise _refused(f"needs nB >= 1, P >= 1 and K >= 6 (nB={nB}, P={P}, K={K})")
+def _spread(nB: int, rows_max: int, resident: int):
+    """(rows per cluster, clusters): as few waves of ``resident`` clusters of
+    at most ``rows_max`` rows as cover nB, the rows spread evenly over them."""
+    waves = -(-nB // (resident * rows_max))
+    rows = -(-nB // min(nB, waves * resident))
+    return rows, -(-nB // rows)
+
+
+def _resident_plan(nB, P, K, bf16, resident, smem_limit, reasons):
+    """The tiling with each slice of D resident, or None (reasons appended)."""
     if bf16 and _round_up(K, 32) > _BF16_MAX_K:
-        raise _refused(f"K={K} is past the bf16 kernel's {_BF16_MAX_K} columns")
-    reasons = []
+        reasons.append(f"K={K} is past the bf16 kernel's {_BF16_MAX_K} columns")
+        return None
     for C in (8, 16):
         slice_rows = -(-P // C)
         seg = _round_up(-(-K // C), 4)
@@ -165,19 +237,80 @@ def plan_ista(
             continue
         fits = [
             r for r in range(_BF16_ROWS if bf16 else _F32_ROWS, 0, -1)
-            if smem_bytes(bf16, r, slice_rows, K, seg) <= _MAX_SMEM_BYTES
+            if smem_bytes(bf16, r, slice_rows, K, seg) <= smem_limit
         ]
         if not fits:
             need = smem_bytes(bf16, 1, slice_rows, K, seg)
-            reasons.append(f"cluster {C}: {need} B of shared memory (> {_MAX_SMEM_BYTES})")
+            reasons.append(f"cluster {C}: {need} B of shared memory (> {smem_limit})")
             continue
-        waves = -(-nB // (resident[C] * fits[0]))
-        rows = -(-nB // min(nB, waves * resident[C]))
+        rows, n_clusters = _spread(nB, fits[0], resident[C])
         return IstaPlan(
             nB=nB, P=P, K=K, bf16=bf16, cluster_size=C, rows=rows,
-            n_clusters=-(-nB // rows), resident=resident[C], slice_rows=slice_rows,
+            n_clusters=n_clusters, resident=resident[C], slice_rows=slice_rows,
             seg=seg, smem_bytes=smem_bytes(bf16, rows, slice_rows, K, seg),
+            resident_rows=slice_rows, stage_rows=0, stages=0,
         )
+    return None
+
+
+def _streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons):
+    """The streamed tiling, or None (reasons appended): the largest cluster
+    the card keeps resident, as many of each slice's rows resident as fit
+    beside the ring (whole stages of 32, or the whole slice)."""
+    for C in (16, 8):
+        if resident.get(C, 0) < 1:
+            reasons.append(f"streamed, cluster {C}: the card keeps no such cluster resident")
+            continue
+        slice_rows = -(-P // C)
+        seg = _round_up(-(-K // C), 4)
+        base = stream_smem_bytes(K, 0)
+        if base > smem_limit:
+            reasons.append(f"streamed: {base} B of shared memory for the ring (> {smem_limit})")
+            return None
+        fit = (smem_limit - base) // ((_round_up(K, 4) + 4) * 4)
+        resident_rows = slice_rows if fit >= slice_rows else fit // _STAGE_ROWS * _STAGE_ROWS
+        rows, n_clusters = _spread(nB, _STREAM_ROWS, resident[C])
+        return IstaPlan(
+            nB=nB, P=P, K=K, bf16=bf16, cluster_size=C, rows=rows,
+            n_clusters=n_clusters, resident=resident[C], slice_rows=slice_rows,
+            seg=seg, smem_bytes=stream_smem_bytes(K, resident_rows),
+            resident_rows=resident_rows, stage_rows=_STAGE_ROWS, stages=_STAGES,
+        )
+    return None
+
+
+def plan_ista(
+    nB: int, P: int, K: int, bf16: bool,
+    resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
+    smem_limit: int = _MAX_SMEM_BYTES,
+) -> IstaPlan:
+    """Choose the tiling for (nB, P, K, operand type).
+
+    First the kernel with each slice of D resident: the smallest cluster
+    whose slice fits the register tiles and ``smem_limit`` bytes of shared
+    memory, the most rows per cluster that fit beside it, then as few waves
+    of ``resident`` clusters as cover nB, with the rows spread evenly over
+    them.  Where that kernel does not take the shape, the streamed kernel:
+    every shape in the TPU kernel's range (:func:`in_tpu_range`).  Both run
+    one CTA of 256 threads per SM (at most 255 registers a thread), so the
+    card keeps as many of their clusters resident.  Raises ValueError with
+    the reason for a shape neither takes, which names ``backend="xla"`` as
+    the way around it."""
+    if nB < 1 or P < 1 or K < 6:
+        raise _refused(f"needs nB >= 1, P >= 1 and K >= 6 (nB={nB}, P={P}, K={K})")
+    reasons = []
+    plan = _resident_plan(nB, P, K, bf16, resident, smem_limit, reasons)
+    if plan is not None:
+        return plan
+    if not in_tpu_range(P, K):
+        reasons.append(
+            f"past the TPU kernel's range: {tpu_vmem_bytes(P, K)} B of VMEM at its smallest tile "
+            f"(> {_TPU_VMEM_BUDGET})"
+        )
+    else:
+        plan = _streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons)
+        if plan is not None:
+            return plan
     raise _refused(
         f"kernel B1 does not take P={P}, K={K} with {'bf16' if bf16 else 'f32'} operands: "
         + "; ".join(reasons)
@@ -234,8 +367,15 @@ class FusedIstaKernel:
         ptr, c_int = ctypes.c_void_p, ctypes.c_int
         lib.lrs_pnp_ista_launch.argtypes = [ptr] * 4 + [ctypes.c_float, ptr] + [c_int] * 10 + [ptr]
         lib.lrs_pnp_ista_launch.restype = c_int
+        lib.lrs_pnp_ista_stream_launch.argtypes = (
+            [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 11 + [ptr])
+        lib.lrs_pnp_ista_stream_launch.restype = c_int
         lib.lrs_pnp_ista_smem_bytes.argtypes = [c_int] * 5
         lib.lrs_pnp_ista_smem_bytes.restype = c_int
+        lib.lrs_pnp_ista_stream_smem_bytes.argtypes = [c_int] * 2
+        lib.lrs_pnp_ista_stream_smem_bytes.restype = c_int
+        lib.lrs_pnp_ista_stream_scratch_floats.argtypes = [c_int] * 4
+        lib.lrs_pnp_ista_stream_scratch_floats.restype = ctypes.c_longlong
         lib.lrs_pnp_ista_max_clusters.argtypes = [c_int] * 3
         lib.lrs_pnp_ista_max_clusters.restype = c_int
         self._lib = lib
@@ -296,16 +436,29 @@ class FusedIstaKernel:
         with torch.cuda.device(device):
             lib = self.build()
             plan = self.plan(nB, P, K, bf16)
-            laid_out = lib.lrs_pnp_ista_smem_bytes(int(bf16), plan.rows, plan.slice_rows, K, plan.seg)
+            if plan.streamed:
+                laid_out = lib.lrs_pnp_ista_stream_smem_bytes(K, plan.resident_rows)
+                scratch = lib.lrs_pnp_ista_stream_scratch_floats(P, K, plan.cluster_size, plan.seg)
+                if scratch * plan.n_clusters != plan.scratch_floats:
+                    raise RuntimeError(
+                        f"the plan counts {plan.scratch_floats} floats of scratch, the kernel "
+                        f"{scratch * plan.n_clusters}")
+            else:
+                laid_out = lib.lrs_pnp_ista_smem_bytes(int(bf16), plan.rows, plan.slice_rows, K, plan.seg)
             if laid_out != plan.smem_bytes:
                 raise RuntimeError(f"the plan counts {plan.smem_bytes} B of shared memory, the kernel {laid_out}")
             out = torch.empty((nB, K), dtype=torch.float32, device=device)
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.lrs_pnp_ista_launch(
-                y.data_ptr(), m.data_ptr(), d.data_ptr(), alpha.data_ptr(), float(h_coef),
-                out.data_ptr(), nB, P, K, int(n_iter), int(bf16),
-                plan.cluster_size, plan.n_clusters, plan.rows, plan.slice_rows, plan.seg, stream,
-            )
+            head = (y.data_ptr(), m.data_ptr(), d.data_ptr(), alpha.data_ptr(), float(h_coef), out.data_ptr())
+            tail = (nB, P, K, int(n_iter), int(bf16), plan.cluster_size, plan.n_clusters, plan.rows,
+                    plan.slice_rows, plan.seg)
+            if plan.streamed:
+                # the kernel initialises its scratch itself: no other launch
+                scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=device)
+                err = lib.lrs_pnp_ista_stream_launch(
+                    *head, scratch.data_ptr(), *tail, plan.resident_rows, stream)
+            else:
+                err = lib.lrs_pnp_ista_launch(*head, *tail, stream)
         if err != 0:
             raise RuntimeError(
                 f"pnp_ista kernel launch refused: cudaError_t {err} for {plan.n_clusters} clusters "

@@ -44,6 +44,7 @@ from torch.nn.utils import parametrize
 
 from ..models.common import BatchNorm2d, Conv2d, MeanOnlyBatchNorm
 from ..utils.comm import all_gather, all_reduce, group_rank, group_size
+from ..utils.device import deterministic_cudnn
 from .mesh import axis_group, axis_size
 
 _CHANNEL_LOCAL = (BatchNorm2d, MeanOnlyBatchNorm)  # per-channel: normalise the rank's slice
@@ -267,6 +268,7 @@ def make_tp_dip_step(
         net.reset_parameters(generator)
         return net, torch.optim.Adam(net.parameters(), lr=learning_rate)
 
+    @deterministic_cudnn()
     def step(net: ChannelParallel, opt, x, target, mask):
         out = net(x)
         loss = torch.mean((target * mask - out * mask) ** 2)

@@ -54,7 +54,7 @@ import torch
 from torch import nn
 
 from ..utils.config import DipConfig
-from ..utils.device import resolve_device
+from ..utils.device import deterministic_cudnn, resolve_device
 from .early_stop import init_early_stop, reset_early_stop, update_early_stop
 from .graphs import Captured
 
@@ -118,7 +118,10 @@ class DipFit:
     device-resident fit (a captured graph on the card, replayed ``k`` times
     per read of the stop flag).  The first call flattens the net's
     parameters into one buffer (each stays a parameter of the net, now a
-    view of it)."""
+    view of it).  Every call runs with cuDNN's deterministic algorithms
+    (:func:`~..utils.device.deterministic_cudnn`), and the nets' padding and
+    upsampling have fixed-order backwards: two fits from one init give equal
+    bits on the card, graphed or eager."""
 
     def __init__(self, model: nn.Module, cfg: DipConfig = DipConfig()):
         if cfg.return_mode not in ("last", "window_mean"):
@@ -226,6 +229,7 @@ class DipFit:
             self._flat[2].zero_()
         ft.restart()
 
+    @deterministic_cudnn()
     def __call__(
         self,
         dip_input: torch.Tensor,

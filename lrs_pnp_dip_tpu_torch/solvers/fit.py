@@ -33,7 +33,7 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..utils.device import resolve_device
+from ..utils.device import deterministic_cudnn, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +90,7 @@ def _optimizer(cfg: FitConfig, leaves):
     return opt, sched
 
 
+@deterministic_cudnn()
 def fit(
     model: nn.Module,
     generator: Optional[torch.Generator],
@@ -106,7 +107,8 @@ def fit(
     The net starts from ``init`` (a state dict) when given, else it is
     re-initialised in place from ``generator``, which also draws the input
     noise of ``reg_noise_std``; the generator lives on ``device``.  Runs on
-    ``device``: the card by default, which raises when there is none."""
+    ``device``: the card by default, which raises when there is none, with
+    cuDNN's deterministic algorithms (:func:`~..utils.device.deterministic_cudnn`)."""
     cfg = config
     dev = resolve_device(device)
     model = model.to(dev)

@@ -11,7 +11,9 @@ that call and every later one replays the graph and returns the tensors the
 capture returned, which the replay refills.  On the CPU every call runs the
 function eagerly: the plain version, which the tests hold to the JAX
 package.  A capture that fails raises; nothing falls back to eager
-execution on the card.
+execution on the card.  The warm-up and the capture run with cuDNN's
+deterministic algorithms, as every DIP fit does, so that a replay gives the
+bits of the eager run.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable
 import torch
 
 from ..ops.ista_cuda import ISTA_KERNEL
+from ..utils.device import deterministic_cudnn
 
 
 class Captured:
@@ -47,6 +50,7 @@ class Captured:
         ISTA_KERNEL.replayed(self.b1_launches, self.b1_plan)
         return self.out
 
+    @deterministic_cudnn()
     def _on_side_stream(self):
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -56,6 +60,7 @@ class Captured:
         current.wait_stream(side)
         return out
 
+    @deterministic_cudnn()
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         before = ISTA_KERNEL.captured

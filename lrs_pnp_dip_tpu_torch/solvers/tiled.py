@@ -31,7 +31,8 @@ from .scan import ScannedSolve
 class _TileEngine:
     """The stages of one (config, tile shape, net, device), their lockstep
     step, which takes any number of lanes, and a device-resident solve per
-    batch size (a final partial batch has its own)."""
+    shape of the batch's constants: its size (a final partial batch has its
+    own) and the dictionary's width (two scenes may bring two)."""
 
     def __init__(self, config: SolverConfig, tile3, net, device: torch.device):
         self.stages = OuterStages(config, tile3, net=net, device=device)
@@ -39,12 +40,12 @@ class _TileEngine:
         self._scans = {}
 
     def scanned(self, consts) -> ScannedSolve:
-        n = consts.Y.shape[0]
-        if n not in self._scans:
-            self._scans[n] = ScannedSolve(self.stages, consts, lanes=True)
+        key = tuple(tuple(t.shape) for t in consts)
+        if key not in self._scans:
+            self._scans[key] = ScannedSolve(self.stages, consts, lanes=True)
         else:
-            self._scans[n].set_consts(consts)
-        return self._scans[n]
+            self._scans[key].set_consts(consts)
+        return self._scans[key]
 
 
 @functools.lru_cache(maxsize=16)

@@ -6,6 +6,8 @@ CPU.  Without a card they raise: they never carry on quietly on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -29,3 +31,25 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Run the block with cuDNN's deterministic algorithms, chosen by its
+    heuristics (``cudnn.deterministic`` on, ``cudnn.benchmark`` off), and
+    give the caller's flags back after it.
+
+    Every DIP fit runs under it, eager, graphed (its capture included) and
+    channel-parallel, so that a fit repeats bit for bit on the card as the
+    JAX package's repeats on a TPU: some of cuDNN's algorithms sum with
+    atomics.  A scope, not a setting of :func:`resolve_device`, because the
+    flags are global to the process and the caller's own convolutions keep
+    what it chose for them.  cuDNN keys the algorithms it keeps per shape by
+    these flags, so choices made outside the scope are not reused inside."""
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags

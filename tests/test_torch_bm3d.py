@@ -183,3 +183,58 @@ def test_proxes_and_projections_match():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
     s = tprox.simplex_project(xt, 2.0)
     assert float(s.min()) >= 0 and abs(float(s.sum()) - 2.0) < 1e-5
+
+
+def _aggregate_index_add(filtered, weights, idx, geo, shape):
+    """The aggregation as it was: ``index_add_`` over group membership, then
+    onto the pixel grid."""
+    N, nP, g = idx.shape
+    p2 = geo.p * geo.p
+    seg = (idx + nP * torch.arange(N)[:, None, None]).reshape(-1)
+    vals = (filtered * weights[:, :, None, None, None]).reshape(N * nP * g, p2)
+    wrep = weights[:, :, None].expand(N, nP, g).reshape(-1)
+    patch_num = torch.zeros((N * nP, p2)).index_add_(0, seg, vals)
+    patch_den = torch.zeros(N * nP).index_add_(0, seg, wrep)
+    pix = geo.pix.reshape(-1)
+    H, W = shape
+    num = torch.zeros((N, H * W)).index_add_(1, pix, patch_num.reshape(N, -1))
+    den = torch.zeros((N, H * W)).index_add_(1, pix, patch_den.reshape(N, nP, 1).expand(N, nP, p2).reshape(N, -1))
+    return num.reshape(N, H, W), den.reshape(N, H, W)
+
+
+@pytest.mark.parametrize(
+    "H,W,cfg",
+    [(20, 17, tbm3d.Bm3dConfig()), (32, 16, tbm3d.Bm3dConfig(**COEF)), (5, 9, tbm3d.Bm3dConfig())],
+    ids=["default-ragged-grid", "coef-profile", "patch-clipped"],
+)
+def test_aggregation_matches_the_index_add_sums(H, W, cfg):
+    """The fixed-order aggregation (member sums by passes over a stable
+    sort, pixel sums by passes over the patch entries) against the
+    index_add_ sums it replaces, on random groups that repeat members (as
+    the tau cut makes them): on the CPU both add in index order, so the
+    bits are equal."""
+    rng = np.random.default_rng(H * W)
+    geo = tbm3d._Geometry(H, W, cfg, "cpu")
+    N, g, p = 3, min(cfg.group, geo.nP), geo.p
+    idx = torch.from_numpy(rng.integers(0, geo.nP, (N, geo.nP, g)))
+    idx[:, :, 0] = torch.arange(geo.nP)
+    filtered = torch.from_numpy(rng.standard_normal((N, geo.nP, g, p, p)).astype(np.float32))
+    weights = torch.from_numpy(rng.uniform(0.1, 1.0, (N, geo.nP)).astype(np.float32))
+    num, den = tbm3d._aggregate(filtered, weights, idx, geo, (H, W))
+    ref_num, ref_den = _aggregate_index_add(filtered, weights, idx, geo, (H, W))
+    assert torch.equal(num, ref_num) and torch.equal(den, ref_den)
+
+
+@pytest.mark.parametrize("N,L,F,n_seg", [(3, 200, 5, 17), (2, 4000, 65, 250), (1, 10, 3, 40)],
+                         ids=["dense", "bm3d-width", "empty-segments"])
+def test_segment_sum_adds_in_index_order(N, L, F, n_seg):
+    """``_segment_sum`` equals ``index_add_`` on the CPU bit for bit: each
+    segment's rows are added one at a time in their order, including
+    segments that no row reaches."""
+    rng = np.random.default_rng(L)
+    seg = torch.from_numpy(rng.integers(0, n_seg, (N, L)))
+    vals = torch.from_numpy(rng.standard_normal((N, L, F)).astype(np.float32))
+    got = tbm3d._segment_sum(vals, seg, n_seg)
+    flat = (seg + n_seg * torch.arange(N)[:, None]).reshape(-1)
+    ref = torch.zeros(N * n_seg, F).index_add_(0, flat, vals.reshape(N * L, F)).reshape(N, n_seg, F)
+    assert torch.equal(got, ref)

@@ -221,8 +221,8 @@ def test_kernel_at_the_auto_dictionary_tiling(cuda, K, matmul_dtype):
 
 
 def test_wrapper_raises_for_shapes_the_kernel_does_not_take(cuda):
-    Y, M, D = _problem(cuda, 4, P=1700, K=512)
-    with pytest.raises(ValueError, match="rows of D per CTA"):
+    Y, M, D = _problem(cuda, 4, P=2916, K=512)  # block 54: past the TPU kernel's range
+    with pytest.raises(ValueError, match="past the TPU kernel's range"):
         pnp_ista_blocks_fused(Y, M, D, SparseProxConfig(n_iter=2))
     before = ISTA_KERNEL.launches
     Y, M, D = _problem(cuda, 4, P=48, K=5)
@@ -356,10 +356,10 @@ def test_run_scanned_on_the_card_equals_run(cuda):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_dip_fit_replayed_equals_the_host_stepped_fit(cuda, compute_dtype):
     """The DIP iteration replayed from a graph in chunks gives the
-    host-stepped fit's bits, its iteration count and its stop.  With zero
-    padding and cuDNN's deterministic algorithms: reflection padding's
-    backward and some of cuDNN's algorithms sum with atomics on the card,
-    so two host-stepped fits of the preset's net already differ."""
+    host-stepped fit's bits, its iteration count and its stop, with the
+    presets' reflection padding and the caller's cuDNN flags as they are:
+    every fit runs with a fixed-order padding backward and cuDNN's
+    deterministic algorithms, so two host-stepped fits agree too."""
     from lrs_pnp_dip_tpu_torch.models import Skip
     from lrs_pnp_dip_tpu_torch.solvers import DipFit
     from lrs_pnp_dip_tpu_torch.utils.config import DipConfig
@@ -368,17 +368,95 @@ def test_dip_fit_replayed_equals_the_host_stepped_fit(cuda, compute_dtype):
     x, t = (torch.from_numpy(rng.random((1, 12, 12, 8), dtype=np.float32)).to(cuda) for _ in range(2))
     m = torch.from_numpy((rng.random((1, 12, 12, 1)) > 0.15).astype(np.float32)).to(cuda)
     net = Skip(num_input_channels=8, num_output_channels=8, channels_down=(8, 8), channels_up=(8, 8),
-               channels_skip=(4, 4), pad="zero").to(cuda)
+               channels_skip=(4, 4), pad="reflection").to(cuda)
     fit = DipFit(net, DipConfig(num_iter=40, buffer_size=3, patience=2, learning_rate=0.01,
                                 compute_dtype=compute_dtype))
     gen = torch.Generator(device=cuda)
-    torch.backends.cudnn.deterministic = True
-    try:
-        host = fit(x, t, m, generator=gen.manual_seed(0))
-        assert torch.equal(fit(x, t, m, generator=gen.manual_seed(0)).out, host.out)
-        for chunk in (1, 3, 8):
-            got = fit(x, t, m, generator=gen.manual_seed(0), chunk=chunk)
-            assert (got.n_iters, got.stopped) == (host.n_iters, host.stopped)
-            assert torch.equal(got.out, host.out) and torch.equal(got.loss, host.loss)
-    finally:
-        torch.backends.cudnn.deterministic = False
+    host = fit(x, t, m, generator=gen.manual_seed(0))
+    assert torch.equal(fit(x, t, m, generator=gen.manual_seed(0)).out, host.out)
+    for chunk in (1, 3, 8):
+        got = fit(x, t, m, generator=gen.manual_seed(0), chunk=chunk)
+        assert (got.n_iters, got.stopped) == (host.n_iters, host.stopped)
+        assert torch.equal(got.out, host.out) and torch.equal(got.loss, host.loss)
+    assert not torch.backends.cudnn.deterministic  # the caller's flag, given back
+
+
+@pytest.mark.parametrize(
+    "nB,P,K,matmul_dtype",
+    [(13, 1700, 40, "float32"), (9, 1700, 30, "float32"), (20, 2704, 64, "float32"), (3, 16, 6000, "float32"),
+     (5, 200, 700, "bfloat16"), (3, 16, 3000, "bfloat16"), (17, 576, 1152, "bfloat16")],
+    ids=["f32-slices-past-96", "f32-K-not-multiple-of-4", "f32-block-52", "f32-K-6000",
+         "bf16-K-past-640", "bf16-K-3000", "bf16-P576-K1152"],
+)
+def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype):
+    """Shapes the resident kernel does not take run on the streamed kernel:
+    against the plain loop at the limits of the module docstring (bf16: or
+    4 times the plain loop's own order sensitivity), two launches equal."""
+    Y, M, D = _problem(cuda, nB, P=P, K=K, seed=P + K)
+    cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
+    assert ISTA_KERNEL.plan(nB, P, K, matmul_dtype == "bfloat16").streamed
+    got = pnp_ista_blocks_fused(Y, M, D, cfg)
+    again = pnp_ista_blocks_fused(Y, M, D, cfg)
+    torch.cuda.synchronize()
+    assert ISTA_KERNEL.last_plan.streamed and torch.equal(got, again)
+    ref = pnp_ista_blocks(Y, M, D, cfg)
+    if matmul_dtype == "float32":
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    else:
+        f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=12))
+        _assert_bf16_tracks(got, ref, f32_ref, _order_sensitivity(Y, M, D, cfg, ref))
+    assert torch.all(got[1] == 0.0)
+
+
+def test_streamed_kernel_replayed_from_a_graph(cuda):
+    from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
+
+    Y, M, D = _problem(cuda, 13, P=1700, K=40)
+    cfg = SparseProxConfig(n_iter=12)
+    eager = pnp_ista_blocks_fused(Y, M, D, cfg)
+    graph = Captured(lambda: pnp_ista_blocks_fused(Y, M, D, cfg), cuda)
+    graph()
+    assert torch.equal(graph(), eager) and torch.equal(graph(), eager)
+    assert graph.b1_launches == 1 and graph.b1_plan.streamed
+
+
+def test_captures_run_under_deterministic_cudnn(cuda):
+    from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
+
+    seen = []
+    x = torch.ones(4, device=cuda)
+
+    def fn():
+        seen.append((torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark))
+        return x * 2
+
+    graph = Captured(fn, cuda)
+    graph()
+    graph()
+    assert seen == [(True, False)] * 2
+    assert not torch.backends.cudnn.deterministic
+
+
+def test_bm3d_repeats_on_the_card(cuda):
+    from lrs_pnp_dip_tpu_torch.ops import bm3d_prox
+
+    cube = torch.from_numpy(np.random.default_rng(2).random((20, 18, 3), dtype=np.float32)).to(cuda)
+    first = bm3d_prox(cube, 0.1)
+    assert torch.equal(bm3d_prox(cube, 0.1), first) and torch.isfinite(first).all()
+
+
+@pytest.mark.parametrize("net_key", ["skip", "lipschitz_unet", "ResNet"])
+def test_two_dip_fits_of_the_zoo_nets_repeat(cuda, net_key):
+    """Two eager fits and two graphed fits of a reflection-padded net from
+    one init give equal bits, and graphed equals eager."""
+    from lrs_pnp_dip_tpu_torch.models import get_net
+    from lrs_pnp_dip_tpu_torch.solvers import DipFit
+    from lrs_pnp_dip_tpu_torch.utils.config import DipConfig
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((1, 36, 36, 8), dtype=np.float32)).to(cuda)
+    net = get_net(8, net_key, pad="reflection", n_channels=8).to(cuda)
+    fit = DipFit(net, DipConfig(num_iter=12, patience=10**9, learning_rate=0.01))
+    gen = torch.Generator(device=cuda)
+    outs = [fit(x, x, torch.ones_like(x), generator=gen.manual_seed(0), chunk=c).out for c in (None, None, 4, 4)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])

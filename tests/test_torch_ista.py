@@ -26,7 +26,9 @@ from lrs_pnp_dip_tpu.ops.nlm import nlm_column_batch_fast as j_nlm
 from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
 from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, block_grid, extract_blocks, pnp_ista_blocks_fused
 from lrs_pnp_dip_tpu_torch.ops import ista as tista
-from lrs_pnp_dip_tpu_torch.ops.ista_cuda import H100_RESIDENT_CLUSTERS, plan_ista
+from lrs_pnp_dip_tpu_torch.ops.ista_cuda import (
+    H100_RESIDENT_CLUSTERS, in_tpu_range, plan_ista, stream_smem_bytes, tpu_vmem_bytes,
+)
 from lrs_pnp_dip_tpu_torch.ops.nlm import nlm_column_batch_fast as t_nlm
 from lrs_pnp_dip_tpu_torch.solvers import make_consts
 from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig, dip_preset
@@ -239,6 +241,12 @@ PLAN_SHAPES = (
     # the auto-dictionary's block 24 (P 576): the learned K, and K whose last
     # segment is empty (196) or 4 columns (200)
     + [(324, 576, 512), (324, 576, 196), (324, 576, 200), (1296, 576, 512)]
+    # the streamed kernel: blocks 40, 48 and 52 at K 512 (f32), P 1296 at
+    # K 768 to 1152, P 576 at K 1152 and 1280 (bf16 past 640 columns),
+    # shapes the resident kernel refused
+    + [(324, 1600, 512), (4, 1700, 512), (4, 48, 700), (144, 1600, 512), (144, 2304, 512),
+       (144, 2704, 512), (144, 1296, 768), (144, 1296, 1024), (144, 1296, 1152), (144, 576, 1152),
+       (144, 576, 1280), (144, 1600, 768), (13, 7, 9000)]
 )
 
 
@@ -254,8 +262,15 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
     assert [k for a, b in plan.k_segments() for k in range(a, b)] == list(range(K))
     assert all(b - a <= plan.slice_rows for a, b in plan.p_slices())
     assert plan.seg % 4 == 0 and all(a % 4 == 0 for a, b in plan.k_segments() if b > a)
-    assert plan.rows <= (16 if bf16 else 11)
+    assert plan.rows <= (16 if bf16 or plan.streamed else 11)
     assert plan.smem_bytes <= MAX_SMEM
+    assert 0 <= plan.resident_rows <= plan.slice_rows
+    if plan.streamed:
+        assert plan.resident_rows == plan.slice_rows or plan.resident_rows % plan.stage_rows == 0
+        assert plan.smem_bytes == stream_smem_bytes(K, plan.resident_rows)
+        assert plan.scratch_floats > 0 and plan.l2_bytes_per_iteration > 0
+    else:
+        assert plan.resident_rows == plan.slice_rows and plan.scratch_floats == 0
     assert plan.cluster_size in H100_RESIDENT_CLUSTERS
     assert plan.resident == H100_RESIDENT_CLUSTERS[plan.cluster_size]
     assert plan.waves == -(-plan.n_clusters // plan.resident)
@@ -295,12 +310,14 @@ def test_plan_at_the_auto_dictionary_shape():
 @pytest.mark.parametrize(
     "nB,P,K,bf16,reason",
     [
-        (324, 1600, 512, False, "P=1600, K=512 with f32 operands: cluster 8: 200 rows of D per CTA"),
         (4, 48, 5, False, "K >= 6"),
         (0, 48, 32, False, "nB >= 1"),
-        (4, 1700, 512, False, "rows of D per CTA"),
-        (4, 48, 700, True, "columns"),
-        (4, 1296, 2000, False, "shared memory"),
+        (4, 1296, 2000, False, "past the TPU kernel's range: 21369792 B of VMEM"),
+        # block 54 at K 512, the first block past the range (in bf16 the resident
+        # kernel still takes it: block 56), and P 1 past its K
+        (4, 2916, 512, False, "P=2916, K=512 with f32 operands: .*past the TPU kernel's range"),
+        (4, 3136, 512, True, "P=3136, K=512 with bf16 operands: .*past the TPU kernel's range"),
+        (4, 1, 62909, True, "past the TPU kernel's range"),
     ],
 )
 def test_plan_raises_with_the_reason(nB, P, K, bf16, reason):
@@ -311,6 +328,59 @@ def test_plan_raises_with_the_reason(nB, P, K, bf16, reason):
 def test_plan_without_resident_clusters_raises():
     with pytest.raises(ValueError, match="keeps no such cluster resident"):
         plan_ista(4, 48, 32, False, resident={8: 0, 16: 0})
+
+
+# A grid over the TPU kernel's range: blocks 1 to 52 and K from 6 to the
+# largest the range takes at each P (the TPU wrapper's VMEM arithmetic at
+# its smallest tile of 8 rows, lrs_pnp_dip_tpu/ops/ista_pallas.py:151-158).
+SWEEP_P = [1, 4, 36, 144, 256, 576, 1024, 1296, 1600, 2304, 2704]
+
+
+def _k_max(P):
+    """The largest K in the range at P."""
+    K = 6
+    step = 1 << 16
+    while step:
+        if in_tpu_range(P, K + step):
+            K += step
+        step >>= 1
+    return K
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_plan_takes_every_shape_in_the_tpu_range(bf16):
+    """Every (P, K) of the grid inside the range, at nB 1, 13 and 2304, gets
+    a tiling that fits one CTA's shared memory; the largest K at each P is in
+    the range and the next one is refused."""
+    for P in SWEEP_P:
+        k_max = _k_max(P)
+        assert not in_tpu_range(P, k_max + 1)
+        ks = sorted({6, 7, 32, 100, 512, 640, 641, 768, 1024, 1152, 2000, 4096, 16384, k_max} & set(range(6, k_max + 1)))
+        for K in ks:
+            for nB in (1, 13, 2304):
+                plan = plan_ista(nB, P, K, bf16)
+                assert plan.smem_bytes <= MAX_SMEM and plan.n_clusters * plan.rows >= nB
+        with pytest.raises(ValueError, match="past the TPU kernel's range"):
+            plan_ista(13, P, k_max + 1, bf16)
+
+
+def test_the_range_reaches_the_stated_shapes():
+    """At K 512 the range reaches block 52 (P 2704), at P 1296 K 1152, and
+    D (twice) is the bulk of the VMEM the TPU wrapper counts."""
+    assert in_tpu_range(2704, 512) and not in_tpu_range(2916, 512)
+    assert 1152 <= _k_max(1296) < 1280
+    assert tpu_vmem_bytes(1296, 2000) > 12 * 2**20
+
+
+def test_plain_loop_matches_pallas_at_block_40():
+    """The port's plain loop at P 1600 (block 40), K 512, nB 8, 3 iterations
+    against the TPU kernel in interpret mode: the shape the streamed kernel
+    takes on the card."""
+    Y, M, D = _problem(40, P=1600, K=512, nB=8, missing_block=True)
+    cfg = SparseProxConfig(n_iter=3)
+    ours = tista.pnp_ista_blocks(*_t(Y, M, D), cfg).numpy()
+    ref = np.asarray(pnp_ista_blocks_pallas(jnp.asarray(Y), jnp.asarray(M), jnp.asarray(D), _jcfg(cfg), interpret=True))
+    np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
 
 
 def _reflect(j, K):
@@ -336,6 +406,36 @@ def _nlm_segment(g_win, lo, k0, k1, K, nih):
     return num / den
 
 
+def _streamed_step(plan, x, Ym, M, D, ia, nih, rnd):
+    """One iteration of the streamed kernel on the rows of one cluster:
+    product 1 per CTA slice in stages of ``stage_rows`` rows of D (resident
+    first), each summed over column stages of 128 in order; the residual in
+    device memory; product 2 per CTA over its columns and their halo, over
+    all rows of D in stages of ``stage_rows``, in order; the NLM."""
+    K, P = plan.K, plan.P
+    resid = torch.zeros_like(Ym)
+    for pa, pb in plan.p_slices():
+        for p in range(pa, pb, plan.stage_rows):
+            rows = slice(p, min(pb, p + plan.stage_rows))
+            pred = torch.zeros((x.shape[0], rows.stop - rows.start))
+            for k in range(0, K, 128):
+                pred = pred + rnd(x[:, k:k + 128]) @ rnd(D[rows, k:k + 128]).T
+            resid[:, rows] = rnd(Ym[:, rows] - M[:, rows] * pred)
+    x_new = torch.zeros_like(x)
+    for k0, k1 in plan.k_segments():
+        if k1 == k0:
+            continue
+        lo, hi = max(0, k0 - 4), min(K, k1 + 4)
+        s = torch.zeros((x.shape[0], hi - lo))
+        for c in range(lo, hi, 64):
+            cols = slice(c, min(hi, c + 64))
+            for p in range(0, P, plan.stage_rows):
+                rows = slice(p, min(P, p + plan.stage_rows))
+                s[:, cols.start - lo:cols.stop - lo] += resid[:, rows] @ rnd(D[rows, cols])
+        x_new[:, k0:k1] = _nlm_segment(x[:, lo:hi] + s * ia[:, None], lo, k0, k1, K, nih)
+    return x_new
+
+
 def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
     """pnp_ista_blocks as kernel B1 computes it under ``plan``."""
     Ym, M, D, alpha, h = tista._prepare(blocks, masks, D, cfg, alpha)
@@ -346,6 +446,9 @@ def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
     for ra, rb in plan.row_chunks():
         x = torch.zeros((rb - ra, K))
         for _ in range(cfg.n_iter):
+            if plan.streamed:
+                x = _streamed_step(plan, x, Ym[ra:rb], M[ra:rb], D, ia[ra:rb], nih[ra:rb], rnd)
+                continue
             partial = []
             for pa, pb in plan.p_slices():  # one CTA each
                 Dc = rnd(D[pa:pb])
@@ -366,6 +469,9 @@ def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
     return out
 
 
+SMALL_SMEM, STREAM_ONLY = "small", "stream only"  # shared-memory limits, set in the test
+
+
 @pytest.mark.parametrize(
     "nB,P,K,bf16,resident",
     [
@@ -377,12 +483,32 @@ def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
         (13, 48, 32, True, {8: 1, 16: 1}),
         (5, 576, 196, False, H100_RESIDENT_CLUSTERS),  # the eighth CTA owns no column
         (5, 576, 200, True, H100_RESIDENT_CLUSTERS),  # the eighth CTA owns 4, its halo reflects
+        # the streamed kernel (shapes the resident kernel refuses), with a
+        # shared-memory limit that keeps 32 rows of each slice resident: f32 at
+        # P 1600 (slices of 100 rows: one resident stage, three streamed, the
+        # last of 4 rows), bf16 past 640 columns (slices of 38: 32 and 6)
+        (3, 1600, 40, False, SMALL_SMEM),
+        (3, 600, 700, True, SMALL_SMEM),
+        # nothing resident: K not a multiple of 4; windows of 72 columns, two
+        # stages of product 2
+        (9, 1700, 30, False, STREAM_ONLY),
+        (2, 20, 1000, False, STREAM_ONLY),
+        (3, 200, 700, True, H100_RESIDENT_CLUSTERS),  # bf16 past 640 columns: streamed
     ],
 )
 def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident):
     Y, M, D = _problem(nB + K, P=P, K=K, nB=nB, missing_block=True)
     cfg = SparseProxConfig(n_iter=8, matmul_dtype="bfloat16" if bf16 else "float32")
-    plan = plan_ista(nB, P, K, bf16, resident=resident)
+    limit = {}
+    if resident is SMALL_SMEM:
+        limit = dict(smem_limit=stream_smem_bytes(K, 32) + 100)
+        resident = H100_RESIDENT_CLUSTERS
+    elif resident is STREAM_ONLY:
+        limit = dict(smem_limit=stream_smem_bytes(K, 0))
+        resident = H100_RESIDENT_CLUSTERS
+    plan = plan_ista(nB, P, K, bf16, resident=resident, **limit)
+    if limit:
+        assert plan.streamed and plan.resident_rows == (32 if limit['smem_limit'] > stream_smem_bytes(K, 0) + 100 else 0)
     ref = tista.pnp_ista_blocks(*_t(Y, M, D), cfg)
     got = _emulate_plan(plan, *_t(Y, M, D), cfg, None)
     if bf16:  # the order of the sums flips an operand's rounding now and then
@@ -429,9 +555,12 @@ def test_sparse_prox_on_the_cpu_never_reaches_the_kernel(monkeypatch, backend):
 
 
 def test_plan_refusal_names_the_way_around():
-    """Block 40 (P 1600) in f32: the plan refuses and names backend="xla"."""
+    """Block 54 (P 2916) in f32, past the TPU kernel's range at K 512: the
+    plan refuses and names backend="xla".  (Block 40 runs on the streamed
+    kernel.)"""
+    assert plan_ista(132, 1600, 512, False).streamed
     with pytest.raises(ValueError, match='backend="xla"'):
-        plan_ista(132, 1600, 512, False)
+        plan_ista(132, 2916, 512, False)
 
 
 @pytest.mark.parametrize("alpha_mode", ["trace4", "specnorm"])

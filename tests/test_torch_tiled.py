@@ -182,3 +182,19 @@ def test_inpaint_scene_through_the_api():
     np.testing.assert_array_equal(same, cube)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         inpaint_scene(s.noisy, s.mask, config=cfg, dictionary=D, tile_shape=(16, 8))
+
+
+def test_the_kept_engine_takes_a_dictionary_of_another_width():
+    """The engine of one config and tile shape is kept across scenes; a scene
+    whose dictionary has another width gets its own device-resident solve
+    (the kept one refused the copy of its constants), and each width gives
+    the bits of an engine built for it alone."""
+    s = synthetic_sample(height=16, width=16, bands=8, missing=0.06, seed=4)
+    cfg, _ = _lrs_cfgs(4, n_iter=4)
+    tiles = dict(tile_shape=(8, 8), tile_batch=2, device="cpu")
+    dicts = [_dictionary(16, k, seed=k) for k in (24, 20)]
+    kept = [solve_tiled(s.noisy, s.mask, D, cfg, **tiles) for D in dicts + dicts[:1]]
+    for D, rec in zip(dicts, kept):
+        _tiled_engine.cache_clear()
+        np.testing.assert_array_equal(rec, solve_tiled(s.noisy, s.mask, D, cfg, **tiles))
+    np.testing.assert_array_equal(kept[2], kept[0])

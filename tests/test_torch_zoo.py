@@ -158,8 +158,9 @@ def test_skip_options_match_flax(options):
 
 def test_bilinear_and_trilinear_upsampling_are_jax_image_resize():
     """jax.image.resize's bilinear (half-pixel centres, edge taps
-    renormalised) is torch's align_corners=False at a factor of 2, edges
-    included; trilinear likewise.  Rounding only: 1e-6."""
+    renormalised) is the port's x2 upsampling (align_corners=False at a
+    factor of 2, written as fixed-weight sums of shifted slices), edges
+    included; trilinear likewise (UNet3D's).  Rounding only: 1e-6."""
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 5, 7, 3)).astype(np.float32)
     ref = np.asarray(jax.image.resize(jnp.asarray(x), (2, 10, 14, 3), method="bilinear"))
@@ -167,9 +168,7 @@ def test_bilinear_and_trilinear_upsampling_are_jax_image_resize():
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
     v = rng.standard_normal((1, 3, 4, 5, 2)).astype(np.float32)
     ref = np.asarray(jax.image.resize(jnp.asarray(v), (1, 6, 8, 10, 2), method="trilinear"))
-    got = torch.nn.functional.interpolate(
-        torch.from_numpy(v).permute(0, 4, 1, 2, 3), scale_factor=2, mode="trilinear", align_corners=False
-    ).permute(0, 2, 3, 4, 1)
+    got = tcommon.upsample_linear2x(torch.from_numpy(v).permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="unknown upsample mode"):
         tcommon.upsample2x(torch.zeros((1, 1, 2, 2)), "bicubic")
