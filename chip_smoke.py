@@ -15,14 +15,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                (80 iterations, specnorm alpha, h_scale 0.1); and two
                launches on the same inputs must give equal bits (the
                engines' shapes, nB 288 and 576, are held in phase 5); then
-               at nB 144 the shapes only the streamed kernel takes, with
+               at nB 144 the shapes only the streamed tiers take, with
                random dictionaries (wide_problem): blocks 40, 48 and 52 at K
                512 and P 1296 at K 1024, f32 and bf16, and P 576 at K 1152
                in bf16, each against its plain loop, with equal bits on
-               repeat, its plan printed;
+               repeat, its plan (tier, waves, bytes of D through L2 per
+               cluster and iteration) printed; and the column-window tier
+               once (f32, P 256, K 3000, nB 13) against its plain loop,
+               equal bits on repeat;
   3. timing  — B1 at the main-path shape, at nB 2304 and at the streamed
                shapes with CUDA events, beside its bound, its plain version
-               and the 2 n_iter torch.matmul calls;
+               and the 2 n_iter torch.matmul calls (f32 and bf16);
   4. solve   — api.inpaint(variant="dip", n_iters=2) at full width (36x36x128,
                skip-128, 144 blocks, default DIP cap and early stop) on the
                card, counting B1's launches; then one short outer step on
@@ -35,7 +38,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                inpaint(variant="lrs_pnp") (the whole preset, also against the
                same solve on the CPU); inpaint(variant="dip_1lip"),
                inpaint(variant="dip_fast") (B1 with bf16 operands, the bf16
-               DIP fit) and inpaint(variant="dip_tuned", seeds=[0, 1]) (one
+               DIP fit), the same with a random 1296x1024 unit-column
+               dictionary (B1's streamed kernel in bf16, one launch per step)
+               and inpaint(variant="dip_tuned", seeds=[0, 1]) (one
                launch per outer step at nB 288), 2 outer steps each with the
                DIP fit capped at 50 iterations; inpaint_scene(
                variant="lrs_pnp") on a 72x72x128 scene, four tiles in one
@@ -98,7 +103,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   9. scanned — the device-resident solve (CUDA graphs), at full width:
                B1 replayed from a captured graph against an eager launch
                (equal bits, f32 and bf16, one launch counted per replay),
-               and at a streamed shape (block 40, f32);
+               and on the streamed kernel (block 40 in f32, P 576 / K 1152
+               in bf16);
                the lrs_pnp preset's step through Solver.run_scanned against
                run (equal bits), each timed per step and sustained, with the
                kernels, host launches, host syncs and device-busy share of
@@ -181,6 +187,9 @@ WIDE_SHAPES = (
     (36, 1024, ("float32", "bfloat16")),
     (24, 1152, ("bfloat16",)),
 )
+# The seed of the random 1296 x 1024 dictionary of phase 5's dip_fast path on
+# B1's streamed kernel (bf16 past 640 columns).
+WIDE_DICT_SEED = 1024
 # The DIP fit's cap in the paths of phases 5, 7 and 9 (the preset's is 5000):
 # depth cut for the run's time (400 until phase 9 took the whole past 300 s
 # on a slow host, 200 until the checks of B1's streamed kernel and of the
@@ -385,14 +394,45 @@ def check_kernel(blocks, masks, D, alpha, matmul_dtype: str, bf16_match=BF16_MAT
     return err
 
 
+def window_check() -> None:
+    """The long-K tail: B1's column-window tier once, f32 at P 256 / K 3000
+    (past the streamed kernel's 1024 columns), nB 13, 20 iterations, against
+    its plain loop, and a second launch with equal bits."""
+    import numpy as np
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    rng = np.random.default_rng(3000)
+    D = rng.standard_normal((256, 3000)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    Y = rng.standard_normal((13, 256)).astype(np.float32)
+    M = (rng.random((13, 256)) > 0.12).astype(np.float32)
+    Y, M, D = (torch.from_numpy(a).cuda() for a in (Y, M, D))
+    cfg = SparseProxConfig(n_iter=20)
+    got = pnp_ista_blocks_fused(Y, M, D, cfg)
+    again = pnp_ista_blocks_fused(Y, M, D, cfg)
+    torch.cuda.synchronize()
+    plan = ISTA_KERNEL.last_plan
+    if plan.tier != "window":
+        raise AssertionError(f"P 256, K 3000 took the {plan.tier} tier, not the window tier")
+    if not torch.equal(got, again):
+        raise AssertionError(f"window tier: two launches differ in {int((got != again).sum())} values")
+    ref = pnp_ista_blocks(Y, M, D, cfg)
+    torch.testing.assert_close(got, ref, **F32_TOL)
+    log(f"  window tier, f32, nB 13, P 256, K 3000, 20 iterations: max|delta|={float((got - ref).abs().max()):.3e} "
+        f"from the plain loop, two launches give equal bits; plan: {describe_plan(plan)}")
+
+
 def describe_plan(plan) -> str:
-    text = (f"{plan.n_clusters} clusters of {plan.cluster_size} CTAs ({plan.resident} resident, "
-            f"{plan.waves} wave(s)), {plan.rows} rows per cluster, {plan.slice_rows} rows of D and "
+    text = (f"tier {plan.tier}: {plan.n_clusters} clusters of {plan.cluster_size} CTAs ({plan.resident} "
+            f"resident, {plan.waves} wave(s)), {plan.rows} rows per cluster, {plan.slice_rows} rows of D and "
             f"{plan.seg} columns of x per CTA, {plan.smem_bytes} B of shared memory")
     if plan.streamed:
-        text += (f"; streamed: {plan.resident_rows} rows of each slice resident, {plan.streamed_rows} "
+        text += (f"; {plan.resident_rows} rows of each slice resident, {plan.streamed_rows} "
                  f"through a ring of {plan.stages} stages of {plan.stage_rows} rows, "
-                 f"{plan.scratch_floats * 4} B of scratch, {plan.l2_bytes_per_iteration} B through L2 per "
+                 f"{plan.scratch_floats * 4} B of scratch, {plan.l2_bytes_per_iteration} B of D through L2 per "
                  "cluster and iteration")
     return text
 
@@ -1121,9 +1161,10 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
 
     t_phase = time.perf_counter()
     log("[scanned] kernel B1 launched from a captured graph against an eager launch, nB 144, f32 and bf16, "
-        "and at a streamed shape (block 40, K 512, f32)")
+        "and on the streamed kernel (block 40, K 512, f32; P 576, K 1152, bf16)")
     blocks, masks, D, alpha = problem(36, 36, 0, D_np)
-    for mm, inputs in (("float32", None), ("bfloat16", None), ("float32", wide_problem(40, 512))):
+    for mm, inputs in (("float32", None), ("bfloat16", None), ("float32", wide_problem(40, 512)),
+                       ("bfloat16", wide_problem(24, 1152))):
         blocks, masks, D, alpha = inputs or problem(36, 36, 0, D_np)
         cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
         eager = pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
@@ -1138,12 +1179,13 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
                                  f"{ISTA_KERNEL.launches}; expected 1 and 2")
         if not (torch.equal(replayed, eager) and torch.equal(again, eager)):
             raise AssertionError(f"{mm}: B1 replayed from a graph differs from the eager launch")
-        if graph.b1_plan.streamed != (inputs is not None):
-            raise AssertionError(f"B1 at P {graph.b1_plan.P}: streamed {graph.b1_plan.streamed}")
+        if graph.b1_plan.tier != ("resident" if inputs is None else "streamed"):
+            raise AssertionError(f"B1 at P {graph.b1_plan.P}: tier {graph.b1_plan.tier}")
         ms_graph = time_cuda(graph)
         ms_eager = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha))
-        log(f"  P {blocks.shape[1]} {mm:9s} replay equals the eager launch bit for bit; replay {ms_graph:.4f} ms, "
-            f"eager call {ms_eager:.4f} ms; launches counted per replay 1")
+        log(f"  P {blocks.shape[1]}, K {D.shape[1]} {mm:9s} (tier {graph.b1_plan.tier}) replay equals the eager "
+            f"launch bit for bit; replay {ms_graph:.4f} ms, eager call {ms_eager:.4f} ms; launches counted per "
+            "replay 1")
     blocks, masks, D, alpha = problem(36, 36, 0, D_np)
 
     log(f"[scanned] the lrs_pnp preset's step: Solver.run_scanned({SCAN_STEPS}) against run({SCAN_STEPS}), "
@@ -1445,10 +1487,12 @@ def main() -> int:
             t = time_b1(*wide, mm, peaks)
             plan = ISTA_KERNEL.plan(144, block * block, K, mm == "bfloat16")
             wide_timing[f"P{block * block}_K{K}_{mm}"] = dict(
-                t, max_abs_err=err, streamed=plan.streamed, order_sensitivity=sens)
+                t, max_abs_err=err, tier=plan.tier, waves=plan.waves,
+                l2_bytes_per_iteration=plan.l2_bytes_per_iteration, order_sensitivity=sens)
             log(f"  {mm:9s} kernel_ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) -> "
                 f"{t['bound_ms'] / t['ms']:.1%} of bound; plain_ms={t['plain_ms']:.4f}; {2 * 100} {mm} "
                 f"torch.matmul calls {t['library_ms']:.4f} ms; card {smi}")
+    window_check()
     log(f"  (streamed shapes {time.perf_counter() - t_phase:.1f} s)")
 
     # 3. timing at the main-path shape
@@ -1462,22 +1506,26 @@ def main() -> int:
         p_ms = time_cuda(lambda: pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha), reps=5)
         b_ms, by, flops, io_bytes = bound_ms(nB, P, K, n_iter, mm, peaks)
         timing[mm] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
-    x = torch.zeros((nB, K), device="cuda")
-    r = torch.zeros((nB, P), device="cuda")
+    library = {}
+    for mm, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x = torch.zeros((nB, K), device="cuda", dtype=dt)
+        r = torch.zeros((nB, P), device="cuda", dtype=dt)
+        Dm = D.to(dt)
 
-    def matmuls():
-        for _ in range(n_iter):
-            torch.matmul(x, D.T)
-            torch.matmul(r, D)
+        def matmuls():
+            for _ in range(n_iter):
+                torch.matmul(x, Dm.T)
+                torch.matmul(r, Dm)
 
-    library_ms = time_cuda(matmuls)
+        library[mm] = time_cuda(matmuls)
+    library_ms = library["float32"]
     log(f"[timing] B1 at nB={nB}, P={P}, K={K}, n_iter={n_iter}: {flops:.3e} flops, "
         f"{io_bytes} bytes in+out; card {smi}")
     for mm, t in timing.items():
         log(f"  {mm:9s} kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) -> {t['bound_ms'] / t['ms']:.1%} of bound")
-    log(f"  library_ms={library_ms:.4f}: the {2 * n_iter} torch.matmul calls of the two f32 "
-        "products alone — a partial yardstick, since no single PyTorch call computes "
+    log(f"  library_ms={library_ms:.4f} f32, {library['bfloat16']:.4f} bf16: the {2 * n_iter} torch.matmul "
+        "calls of the two products alone — a partial yardstick, since no single PyTorch call computes "
         "the fused loop with its NLM")
 
     nB_big = big[0].shape[0]
@@ -1586,6 +1634,22 @@ def main() -> int:
         log(f"  mpsnr {[round(v, 4) for v in hist['mpsnr']]}, per step {[round(v, 3) for v in hist['seconds']]} s")
     log("  ms per DIP iteration in each path's second outer step (wall less B1, over the iterations): "
         + ", ".join(f"{k} {v:.3f}" for k, v in dip_ms.items()))
+
+    log(f"[paths] inpaint(variant='dip_fast', dictionary=<1296x1024 unit columns, seed {WIDE_DICT_SEED}>, "
+        f"n_iters=2), DIP fit capped at {DIP_CAP}: B1's streamed kernel with bf16 operands")
+    rng = np.random.default_rng(WIDE_DICT_SEED)
+    wide_D = rng.standard_normal((1296, 1024)).astype(np.float32)
+    wide_D /= np.linalg.norm(wide_D, axis=0, keepdims=True)
+    (cube, hist), wall = drive("dip_fast K1024", lambda: port.inpaint(
+        sample.noisy, sample.mask, variant="dip_fast", clean=sample.clean, n_iters=2, dictionary=wide_D,
+        **capped("dip_fast")), launches=2, nB=144, bf16=True)
+    by_path["dip_fast_K1024"] = ISTA_KERNEL.launches
+    plan = ISTA_KERNEL.last_plan
+    if (plan.tier, plan.K) != ("streamed", 1024):
+        raise AssertionError(f"dip_fast with K 1024 took B1's {plan.tier} tier at K {plan.K}")
+    step_report("dip_fast, K 1024", hist, wall)
+    check_recovery("dip_fast K1024", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
+    log(f"  mpsnr {[round(v, 4) for v in hist['mpsnr']]} (input {input_mpsnr:.4f}); plan: {describe_plan(plan)}")
 
     log(f"[paths] inpaint(variant='dip_tuned', seeds=[0, 1], n_iters=2), DIP fit capped at {DIP_CAP}")
     (cube, hist), wall = drive("dip_tuned ensemble", lambda: port.inpaint(
@@ -1783,6 +1847,8 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": library_ms,
+        # the main shape with bf16 operands: kernel, plain loop, bound and 200 bf16 torch.matmul calls
+        "bfloat16": dict(timing["bfloat16"], library_ms=library["bfloat16"]),
         # B1 at the auto-dictionary's shape (nB 324, P 576, K 512), f32 and bf16
         "at_nB324_P576_K512": auto_timing,
         # B1 at nB 144 at the shapes of the streamed kernel (random dictionaries)

@@ -84,47 +84,71 @@
 // The streamed path (pnp_ista_stream, f32 and bf16).  The resident kernels
 // take a shape only while a CTA's slice of D fits its register tiles (at most
 // 96 rows in f32, K <= 640 in bf16) and shared memory beside the operand copy
-// of x and the partial gradient.  Every other shape of the TPU kernel's range
-// (its wrapper's VMEM arithmetic at its smallest tile, 2 P K 4 + 3 8 (2P + 2K
-// + 10) 4 <= 12 MiB: block 52 at K 512, K 1152 at P 1296) takes the streamed
-// kernel, which holds nothing whose size grows with K in shared memory:
+// of x and the partial gradient.  Up to K 1024 (f32) or 1280 (bf16) every
+// other shape of the TPU kernel's range (its wrapper's VMEM arithmetic at its
+// smallest tile, 2 P K 4 + 3 8 (2P + 2K + 10) 4 <= 12 MiB: block 52 at K 512,
+// K 1152 at P 1296) takes the streamed kernel, which keeps the resident
+// kernels' mould -- a cluster of C CTAs owns R <= 16 block rows, CTA c the
+// slice D[p_c, :], step 3 as above -- but holds only the first Pr rows of the
+// slice in shared memory:
 //
-//   0. CTA c keeps the first Pr rows of its slice D[p_c, :] resident (whole
-//      stages of 32 rows, or the whole slice), as many as fit beside a ring
-//      of two stages; x, the residual and each CTA's gradient window live in
-//      device memory (scratch, 16 rows a cluster; L2 holds it);
-//   1. pred[:, p_c] = x D[p_c, :]^T in stages of 32 rows by 128 columns: a
-//      resident stage is read in place, a streamed one arrives by cp.async
-//      into the ring while the previous one is computed; each 128-column
-//      piece of x arrives with it.  Lane = row of D, warp = two of the 16
-//      block rows; each sum runs over K in column order.  The residual r[:,
-//      p_c] = Ym - M * pred goes to device memory.   -- cluster.sync --
-//   2. CTA c sums g over all P for its columns k_c and their halo of 4 (no
-//      sum crosses CTAs, so no reduction through the cluster): stages of 32
-//      rows of D by 64 columns of the window, with 32 columns of r, in row
-//      order; thread = column, four block rows each.  g = x + (r D)/alpha
-//      goes to its window in device memory; the NLM writes the new x of its
-//      columns.                                         -- cluster.sync --
+//   0. a producer warp streams the rest of the slice, once per iteration, as
+//      stages of whole rows (16, or 8 in f32 past K 512) into a ring of
+//      three slots, one bulk copy (the TMA's one-dimensional form) per row,
+//      completing on the slot's "full" mbarrier; it refills a slot when the
+//      consumers have arrived on its "empty" mbarrier.  bf16 stages come
+//      from a copy of D rounded once per launch (a second kernel before the
+//      loop, into scratch the wrapper allocates), so they move half the bytes;
+//   1. the consumers (16 warps in f32, 8 in bf16) walk the stages in order,
+//      resident first.  Step j runs product 2 of stage j - 2 (r_s D_s added
+//      into the CTA's partial gradient, which stays in registers for the
+//      whole pass) and releases its slot, then the residual of stage j - 1
+//      (the warps' partial sums of product 1 added in warp order), then
+//      product 1 of stage j (x D_s^T, the warps splitting K), under one
+//      barrier of the consumers per step.  f32 runs on the CUDA cores with
+//      register tiles of 12 or 16 block rows (12 when R <= 12) by 4 stage
+//      rows and the two half-warps' sums added by a shuffle; bf16 runs both
+//      products on mma.sync, B through ldmatrix(.trans) from one copy of the
+//      rows.  Each streamed row is read from L2 once per iteration, and no
+//      row outside the CTA's slice is read;
+//   2. the partial gradient goes to shared memory in the ring's place, and
+//      step 3 (reduce_nlm_push, init_rows and write_out are the resident
+//      kernels', with all the CTA's threads) sums it through the cluster in
+//      the fixed ring order.
 //
-// Every sum runs in a fixed order without atomics, so two launches give
-// equal bits.  bf16 rounds x, r and D to bf16 where they enter a product and
-// multiplies on the CUDA cores (exact in f32), which is the bf16 plain loop's
-// arithmetic in another order.  Bound: the same 4 nB P K n_iter operations
-// (at block 40, K 512, nB 144: 4.7e10 flops, 0.70 ms in f32); besides, each
-// cluster moves through L2 per iteration, in floats, C (Pc - Pr) K of streamed
-// rows + P (K + 8 C) of product 2's windows + 16 C ceil(Pc / 32) kp of x + 16
-// P (C + 1) of residual, about 9 MB at block 40 (IstaPlan.l2_bytes_per_iteration):
-// 12.8 GB in 100 iterations of 14 clusters, some 2 ms of L2 bandwidth.
-// What bounds it is neither: its inner loops issue one shared-memory load
-// per FMA or more (product 2 loads D and four broadcasts of r per four FMAs),
-// each stage costs two barriers, and bf16 adds the rounding of every operand.
-// A simple kernel that is right; making it fast is later work.
+// Nothing goes through device memory per iteration.  Every sum runs in a
+// fixed order without atomics, so two launches give equal bits.  bf16 rounds
+// x and r once, where they are written as operands, and D once per launch.
+// Bound: the same 4 nB P K n_iter operations (at block 40, K 512, nB 144:
+// 4.7e10 flops, 0.70 ms in f32 on the CUDA cores); besides, each cluster
+// streams C (Pc - Pr) K values of D per iteration (IstaPlan.
+// l2_bytes_per_iteration).  What bounds it now (scripts/profile_b1_phases.py,
+// NVIDIA H100 80GB HBM3, 700.00 W): in f32 the products run at about a third
+// of the FMA rate with sixteen warps, and with the products' loops taken out
+// the pipeline alone (copies, barriers, sums) still took half of the time;
+// in bf16 step 3 and the cluster syncs take half of an iteration.  The
+// plan takes one wave of clusters of 8 over two of 16 (measured faster at
+// every streamed shape) and the most resident rows that fit beside the ring.
+//
+// The long-K tail (pnp_ista_window, f32 and bf16): where the operand copy of
+// x and the partial gradient do not fit beside a ring of stages (K past 1024
+// in f32 or 1280 in bf16), a kernel that holds nothing whose size grows with K
+// in shared memory: x, the residual and each CTA's gradient window live in
+// device memory (scratch, 16 rows a cluster; L2 holds it); product 1 runs in
+// stages of 32 rows by 128 columns, product 2 sums over all P for each CTA's
+// columns and their halo of 4 in stages of 32 rows by 64 columns, so no sum
+// crosses CTAs; bf16 rounds every operand where it enters a product on the
+// CUDA cores.  It moves about P (K + 8 C) floats of D through L2 per cluster
+// and iteration on top of the streamed rows, issues a shared-memory load per
+// FMA or more and two barriers per stage: a simple kernel that is right, on
+// no path of the reference size.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -247,7 +271,7 @@ __device__ __forceinline__ void store_operand4(__nv_bfloat16* x, float4 v) {
 // columns and halo in rank order, adds the carried x, runs the NLM and
 // writes the new x: in f32 into this CTA's s_xown[nxt], and as a product
 // operand into every CTA's s_x.
-template <typename OperandT>
+template <typename OperandT, int kNT = kThreads>
 __device__ __forceinline__ void reduce_nlm_push(
     cg::cluster_group& cluster, const Args& a, const Layout& L, float* s_g,
     float* s_gseg, float* s_xown, OperandT* s_x, int ld_x, const float* s_ia,
@@ -265,7 +289,7 @@ __device__ __forceinline__ void reduce_nlm_push(
   // padding that holds zeros.
   const int nquad = k1 > k0 ? (hi - lo + 3) / 4 : 0;
 
-  for (int e = tid; e < nrows * nquad; e += kThreads) {
+  for (int e = tid; e < nrows * nquad; e += kNT) {
     const int r = e / nquad, col = lo + 4 * (e - r * nquad);
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
     // Peers in ring order from this CTA's successor, so that the CTAs of a
@@ -293,7 +317,7 @@ __device__ __forceinline__ void reduce_nlm_push(
 
   const int nseg = k1 - k0;
   float* x_new = s_xown + (cur ^ 1) * R * seg;
-  for (int e = tid; e < nrows * nseg; e += kThreads) {
+  for (int e = tid; e < nrows * nseg; e += kNT) {
     const int r = e / nseg, k = k0 + (e - r * nseg);
     const float* g = s_gseg + r * ldgs + (kHalo - k0);  // g[col] for col in [lo, hi)
     const float nh = s_nih[r];
@@ -325,7 +349,7 @@ __device__ __forceinline__ void reduce_nlm_push(
   // The new x of this CTA's columns, 4 at a time, into every CTA's operand
   // copy (columns past K hold zeros on both sides).
   const int nsq = (nseg + 3) / 4;
-  for (int e = tid; e < C * nrows * nsq; e += kThreads) {
+  for (int e = tid; e < C * nrows * nsq; e += kNT) {
     const int i = e / (nrows * nsq), rem = e - i * (nrows * nsq);
     const int c = (rank + 1 + i) & (C - 1);
     const int r = rem / nsq, j = 4 * (rem - r * nsq);
@@ -336,10 +360,11 @@ __device__ __forceinline__ void reduce_nlm_push(
 }
 
 // Zeroes the carried x and derives the per-row scalars, common to both kernels.
+template <int kNT = kThreads>
 __device__ __forceinline__ void init_rows(const Args& a, float* s_xown, float* s_ia,
                                           float* s_nih, int row0, int nrows) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < 2 * a.R * a.seg; i += kThreads) s_xown[i] = 0.f;
+  for (int i = tid; i < 2 * a.R * a.seg; i += kNT) s_xown[i] = 0.f;
   if (tid < kRowsBf16) {
     // 1/alpha and -1/(9 h^2), with the clamps of the plain version
     float ia = 0.f, nih = -1.f;
@@ -354,11 +379,12 @@ __device__ __forceinline__ void init_rows(const Args& a, float* s_xown, float* s
   }
 }
 
+template <int kNT = kThreads>
 __device__ __forceinline__ void write_out(cg::cluster_group& cluster, const Args& a,
                                           const float* s_xown, int row0, int nrows, int cur) {
   const int k0 = min(a.K, (int)cluster.block_rank() * a.seg);
   const int nseg = min(a.K, k0 + a.seg) - k0;
-  for (int e = threadIdx.x; e < nrows * nseg; e += kThreads) {
+  for (int e = threadIdx.x; e < nrows * nseg; e += kNT) {
     const int r = e / nseg, k = e - r * nseg;
     a.out[(size_t)(row0 + r) * a.K + k0 + k] = s_xown[(cur * a.R + r) * a.seg + k];
   }
@@ -746,48 +772,50 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_cluster_bf16(const Args a) 
   write_out(cluster, a, s_xown, row0, nrows, cur);
 }
 
-// ----------------------------------------------------------- streamed ----
+// ------------------------------------------------------------- window ----
 //
-// The kernel for a shape whose slice of D, operand copy of x or partial
-// gradient does not fit a CTA's shared memory (see the note at the head).
+// The long-K tail: the kernel for a shape whose operand copy of x and
+// partial gradient do not fit a CTA's shared memory beside a stage of whole
+// rows (see the note at the head).  It keeps nothing whose size grows with K
+// in shared memory and sums product 2 over all P per window of columns.
 
-constexpr int kStRows = 32;    // rows of D per stage: one per lane in product 1
-constexpr int kStColsA = 128;  // columns of a product-1 stage
-constexpr int kStColsB = 64;   // columns of a product-2 stage
-constexpr int kStages = 2;     // the ring: one stage computed while the next loads
-constexpr int kRowsSt = 16;    // rows per cluster (R <= 16)
-constexpr int kLdA = kStColsA + 4;
-constexpr int kStageFloats =
-    kStRows * kLdA + kRowsSt * kStColsA > kStRows * kStColsB + kRowsSt * kStRows
-        ? kStRows * kLdA + kRowsSt * kStColsA
-        : kStRows * kStColsB + kRowsSt * kStRows;
+constexpr int kWinRows = 32;    // rows of D per stage: one per lane in product 1
+constexpr int kWinColsA = 128;  // columns of a product-1 stage
+constexpr int kWinColsB = 64;   // columns of a product-2 stage
+constexpr int kWinStages = 2;   // the ring: one stage computed while the next loads
+constexpr int kWinRowsX = 16;   // rows per cluster (R <= 16)
+constexpr int kWinLdA = kWinColsA + 4;
+constexpr int kWinStageFloats =
+    kWinRows * kWinLdA + kWinRowsX * kWinColsA > kWinRows * kWinColsB + kWinRowsX * kWinRows
+        ? kWinRows * kWinLdA + kWinRowsX * kWinColsA
+        : kWinRows * kWinColsB + kWinRowsX * kWinRows;
 
-struct StreamLayout {
+struct WindowLayout {
   int kp;   // K padded to 4
   int ldd;  // row stride of the resident rows: kp + 4 floats
   int ring, resident, vec, total;
 };
 
-__host__ __device__ inline StreamLayout make_stream_layout(int K, int Pr) {
-  StreamLayout L;
+__host__ __device__ inline WindowLayout make_window_layout(int K, int Pr) {
+  WindowLayout L;
   L.kp = round_up(K, 4);
   L.ldd = L.kp + 4;
   L.ring = 0;
-  L.resident = L.ring + round_up(kStages * kStageFloats * 4, 16);
+  L.resident = L.ring + round_up(kWinStages * kWinStageFloats * 4, 16);
   L.vec = L.resident + round_up(Pr * L.ldd * 4, 16);
-  L.total = L.vec + 2 * kRowsSt * 4;
+  L.total = L.vec + 2 * kWinRowsX * 4;
   return L;
 }
 
 // Floats of device-memory scratch per cluster: the carried x twice, the
 // residual, and each CTA's gradient window (16 rows each).
-__host__ __device__ inline size_t stream_scratch_floats(int P, int K, int C, int seg) {
-  return (size_t)kRowsSt * (2 * round_up(K, 4) + round_up(P, 4) + (size_t)C * (seg + 2 * kHalo));
+__host__ __device__ inline size_t window_scratch_floats(int P, int K, int C, int seg) {
+  return (size_t)kWinRowsX * (2 * round_up(K, 4) + round_up(P, 4) + (size_t)C * (seg + 2 * kHalo));
 }
 
-struct StreamArgs {
+struct WindowArgs {
   Args a;
-  float* scratch;  // stream_scratch_floats per cluster
+  float* scratch;  // window_scratch_floats per cluster
   int Pr;          // rows of the slice kept resident (a multiple of 32, or the whole slice)
 };
 
@@ -819,13 +847,13 @@ __device__ __forceinline__ void load_d_tile(float* dst, int ld, const float* d, 
                                             int p_end, int c, int c_end, int ncols) {
   if (K % 4 == 0) {  // rows of D are 16-byte aligned, and so are c and c_end
     const int nq = ncols / 4;
-    for (int e = threadIdx.x; e < kStRows * nq; e += kThreads) {
+    for (int e = threadIdx.x; e < kWinRows * nq; e += kThreads) {
       const int i = e / nq, col = c + 4 * (e - i * nq);
       const bool ok = p + i < p_end && col < c_end;
       cp_async16(dst + i * ld + (col - c), ok ? d + (size_t)(p + i) * K + col : d, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < kStRows * ncols; e += kThreads) {
+    for (int e = threadIdx.x; e < kWinRows * ncols; e += kThreads) {
       const int i = e / ncols, col = c + (e - i * ncols);
       const bool ok = p + i < p_end && col < c_end;
       cp_async4(dst + i * ld + (col - c), ok ? d + (size_t)(p + i) * K + col : d, ok);
@@ -834,16 +862,16 @@ __device__ __forceinline__ void load_d_tile(float* dst, int ld, const float* d, 
 }
 
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa) {
+__global__ void __launch_bounds__(kThreads) pnp_ista_window(const WindowArgs sa) {
   cg::cluster_group cluster = cg::this_cluster();
   const Args& a = sa.a;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const StreamLayout L = make_stream_layout(a.K, sa.Pr);
-  float* s_ring = reinterpret_cast<float*>(smem + L.ring);     // [kStages][kStageFloats]
+  const WindowLayout L = make_window_layout(a.K, sa.Pr);
+  float* s_ring = reinterpret_cast<float*>(smem + L.ring);     // [kWinStages][kWinStageFloats]
   float* s_dres = reinterpret_cast<float*>(smem + L.resident);  // [Pr][ldd] resident rows
   float* s_ia = reinterpret_cast<float*>(smem + L.vec);
-  float* s_nih = s_ia + kRowsSt;
+  float* s_nih = s_ia + kWinRowsX;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int C = cluster.num_blocks();
@@ -859,20 +887,20 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa)
   const int lo = max(0, k0 - kHalo), hi = k1 > k0 ? min(K, k1 + kHalo) : lo;
   const int segw = a.seg + 2 * kHalo;
 
-  float* base = sa.scratch + (size_t)cluster_id * stream_scratch_floats(P, K, C, a.seg);
+  float* base = sa.scratch + (size_t)cluster_id * window_scratch_floats(P, K, C, a.seg);
   float* g_x = base;                       // [2][16][kp] carried x
-  float* g_res = g_x + 2 * kRowsSt * kp;   // [16][pp] residual
-  float* g_win = g_res + (size_t)kRowsSt * pp + (size_t)rank * kRowsSt * segw;  // [16][segw]
+  float* g_res = g_x + 2 * kWinRowsX * kp;   // [16][pp] residual
+  float* g_win = g_res + (size_t)kWinRowsX * pp + (size_t)rank * kWinRowsX * segw;  // [16][segw]
 
   // x = 0 and the residual's padding, shared out over the cluster; the
   // resident rows of the slice; the per-row scalars.
-  const size_t nzero = (size_t)kRowsSt * (2 * kp + pp);
+  const size_t nzero = (size_t)kWinRowsX * (2 * kp + pp);
   for (size_t i = (size_t)rank * kThreads + tid; i < nzero; i += (size_t)C * kThreads) base[i] = 0.f;
   for (int i = tid; i < Pr * kp; i += kThreads) {
     const int p = i / kp, k = i - p * kp;
     s_dres[p * ldd + k] = (p < pc && k < K) ? __ldg(a.d + (size_t)(p0 + p) * K + k) : 0.f;
   }
-  if (tid < kRowsSt) {
+  if (tid < kWinRowsX) {
     float ia = 0.f, nih = -1.f;
     if (tid < nrows) {
       const float alpha = fmaxf(a.alpha[row0 + tid], 1e-12f);
@@ -888,31 +916,31 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa)
 
   // Product 1: tiles of 32 rows of the slice by 128 columns, the row tiles
   // in order and the column tiles in order within each.
-  const int n_kt = (kp + kStColsA - 1) / kStColsA;
-  const int n_tiles_a = (pc + kStRows - 1) / kStRows * n_kt;
+  const int n_kt = (kp + kWinColsA - 1) / kWinColsA;
+  const int n_tiles_a = (pc + kWinRows - 1) / kWinRows * n_kt;
   // Product 2: tiles of 32 rows of D (all P) by 64 columns of this CTA's
   // window [lo, hi), the row tiles in order within each column tile.
-  const int n_pb = (P + kStRows - 1) / kStRows;
-  const int n_tiles_b = (hi - lo + kStColsB - 1) / kStColsB * n_pb;
+  const int n_pb = (P + kWinRows - 1) / kWinRows;
+  const int n_tiles_b = (hi - lo + kWinColsB - 1) / kWinColsB * n_pb;
   const int r0 = warp, r1 = warp + kWarps;          // product 1: this thread's rows
-  const int cb = tid & (kStColsB - 1), rg = tid / kStColsB;  // product 2: column, row group
+  const int cb = tid & (kWinColsB - 1), rg = tid / kWinColsB;  // product 2: column, row group
 
   int cur = 0;
   for (int it = 0; it < a.n_iter; ++it) {
-    const float* xcur = g_x + (size_t)cur * kRowsSt * kp;
+    const float* xcur = g_x + (size_t)cur * kWinRowsX * kp;
 
     // 1. pred = x D_c^T, then r = Ym - M * pred for the slice's columns p.
     auto load_a = [&](int t) {
-      float* st = s_ring + (t & 1) * kStageFloats;
-      const int pt = t / n_kt, kb = (t - pt * n_kt) * kStColsA;
-      const int ncols = min(kStColsA, kp - kb);
-      float* st_x = st + kStRows * kLdA;
-      for (int e = tid; e < kRowsSt * (kStColsA / 4); e += kThreads) {
-        const int r = e / (kStColsA / 4), col = kb + 4 * (e - r * (kStColsA / 4));
-        cp_async16(st_x + r * kStColsA + (col - kb), col < kp ? xcur + r * kp + col : xcur, col < kp);
+      float* st = s_ring + (t & 1) * kWinStageFloats;
+      const int pt = t / n_kt, kb = (t - pt * n_kt) * kWinColsA;
+      const int ncols = min(kWinColsA, kp - kb);
+      float* st_x = st + kWinRows * kWinLdA;
+      for (int e = tid; e < kWinRowsX * (kWinColsA / 4); e += kThreads) {
+        const int r = e / (kWinColsA / 4), col = kb + 4 * (e - r * (kWinColsA / 4));
+        cp_async16(st_x + r * kWinColsA + (col - kb), col < kp ? xcur + r * kp + col : xcur, col < kp);
       }
-      if (pt * kStRows >= Pr)  // a streamed row tile
-        load_d_tile(st, kLdA, a.d, K, p0 + pt * kStRows, p0 + pc, kb, K, ncols);
+      if (pt * kWinRows >= Pr)  // a streamed row tile
+        load_d_tile(st, kWinLdA, a.d, K, p0 + pt * kWinRows, p0 + pc, kb, K, ncols);
       cp_async_commit();
     };
     float acc0 = 0.f, acc1 = 0.f;
@@ -925,17 +953,17 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa)
         cp_async_wait_all();
       }
       __syncthreads();
-      const float* st = s_ring + (t & 1) * kStageFloats;
-      const int pt = t / n_kt, kt = t - pt * n_kt, kb = kt * kStColsA;
-      const int nq = min(kStColsA, kp - kb) / 4;
-      const int p = pt * kStRows + lane;
+      const float* st = s_ring + (t & 1) * kWinStageFloats;
+      const int pt = t / n_kt, kt = t - pt * n_kt, kb = kt * kWinColsA;
+      const int nq = min(kWinColsA, kp - kb) / 4;
+      const int p = pt * kWinRows + lane;
       const float4* drow;
-      if (pt * kStRows < Pr)
+      if (pt * kWinRows < Pr)
         drow = reinterpret_cast<const float4*>(s_dres + (p < Pr ? p : 0) * ldd + kb);
       else
-        drow = reinterpret_cast<const float4*>(st + lane * kLdA);
-      const float4* x0 = reinterpret_cast<const float4*>(st + kStRows * kLdA + r0 * kStColsA);
-      const float4* x1 = reinterpret_cast<const float4*>(st + kStRows * kLdA + r1 * kStColsA);
+        drow = reinterpret_cast<const float4*>(st + lane * kWinLdA);
+      const float4* x0 = reinterpret_cast<const float4*>(st + kWinRows * kWinLdA + r0 * kWinColsA);
+      const float4* x1 = reinterpret_cast<const float4*>(st + kWinRows * kWinLdA + r1 * kWinColsA);
       if (kt == 0) acc0 = acc1 = 0.f;
 #pragma unroll 4
       for (int q = 0; q < nq; ++q) {
@@ -974,13 +1002,13 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa)
     // 2. g = x + (r D)[:, lo:hi] / alpha over all P in row order: this
     // CTA's columns and their halo, so that no partial sum crosses CTAs.
     auto load_b = [&](int t) {
-      float* st = s_ring + (t & 1) * kStageFloats;
-      const int ct = t / n_pb, pb = (t - ct * n_pb) * kStRows;
-      load_d_tile(st, kStColsB, a.d, K, pb, P, lo + ct * kStColsB, hi, kStColsB);
-      float* st_r = st + kStRows * kStColsB;
-      for (int e = tid; e < kRowsSt * (kStRows / 4); e += kThreads) {
-        const int r = e / (kStRows / 4), col = pb + 4 * (e - r * (kStRows / 4));
-        cp_async16(st_r + r * kStRows + (col - pb), col < pp ? g_res + (size_t)r * pp + col : g_res, col < pp);
+      float* st = s_ring + (t & 1) * kWinStageFloats;
+      const int ct = t / n_pb, pb = (t - ct * n_pb) * kWinRows;
+      load_d_tile(st, kWinColsB, a.d, K, pb, P, lo + ct * kWinColsB, hi, kWinColsB);
+      float* st_r = st + kWinRows * kWinColsB;
+      for (int e = tid; e < kWinRowsX * (kWinRows / 4); e += kThreads) {
+        const int r = e / (kWinRows / 4), col = pb + 4 * (e - r * (kWinRows / 4));
+        cp_async16(st_r + r * kWinRows + (col - pb), col < pp ? g_res + (size_t)r * pp + col : g_res, col < pp);
       }
       cp_async_commit();
     };
@@ -994,17 +1022,17 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa)
         cp_async_wait_all();
       }
       __syncthreads();
-      const float* st = s_ring + (t & 1) * kStageFloats;
-      const float* st_r = st + kStRows * kStColsB;
+      const float* st = s_ring + (t & 1) * kWinStageFloats;
+      const float* st_r = st + kWinRows * kWinColsB;
       const int ct = t / n_pb, pt = t - ct * n_pb;
       if (pt == 0) acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
 #pragma unroll 8
-      for (int i = 0; i < kStRows; ++i) {
-        const float d = operand<kBf16>(st[i * kStColsB + cb]);
+      for (int i = 0; i < kWinRows; ++i) {
+        const float d = operand<kBf16>(st[i * kWinColsB + cb]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] = fmaf(st_r[(rg + 4 * j) * kStRows + i], d, acc[j]);
+        for (int j = 0; j < 4; ++j) acc[j] = fmaf(st_r[(rg + 4 * j) * kWinRows + i], d, acc[j]);
       }
-      const int col = lo + ct * kStColsB + cb;
+      const int col = lo + ct * kWinColsB + cb;
       if (pt == n_pb - 1 && col < hi) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -1016,7 +1044,7 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa)
     }
 
     // 3. the NLM on this CTA's columns, into the next carried x.
-    float* x_new = g_x + (size_t)(cur ^ 1) * kRowsSt * kp;
+    float* x_new = g_x + (size_t)(cur ^ 1) * kWinRowsX * kp;
     const int nseg = k1 - k0;
     for (int e = tid; e < nrows * nseg; e += kThreads) {
       const int r = e / nseg, k = k0 + (e - r * nseg);
@@ -1046,16 +1074,533 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_stream(const StreamArgs sa)
     __threadfence();
     cluster.sync();
   }
-  const float* x = g_x + (size_t)cur * kRowsSt * kp;
+  const float* x = g_x + (size_t)cur * kWinRowsX * kp;
   for (int e = tid; e < nrows * (k1 - k0); e += kThreads) {
     const int r = e / (k1 - k0), k = k0 + (e - r * (k1 - k0));
     a.out[(size_t)(row0 + r) * K + k] = __ldcg(x + r * kp + k);
   }
 }
 
-// The kernels' slots below: 0 f32, 1 bf16 (slices of D resident), 2 f32, 3
-// bf16 (streamed).
-constexpr int kKernels = 4;
+// ----------------------------------------------------------- streamed ----
+//
+// The kernel for a shape the resident kernels refuse, up to K 1024 (f32) or
+// 1280 (bf16): one pass over the CTA's own slice per iteration, the first Pr
+// rows resident, the rest streamed through a ring of whole rows (see the
+// note at the head).
+
+constexpr int kRowsSt = 16;      // rows of x per cluster in the tiles (R <= 16; the mma's m)
+constexpr int kStageBf16 = 16;   // rows of D per stage in bf16: the mma's k in product 2
+                                 // (f32: 8 or 16, the plan's stage_rows)
+constexpr int kRing = 3;         // stages in the ring: one refilled while two are read
+constexpr int kPairsSt = 10;     // bf16 product 2: 16-wide k tiles per warp (K <= 1280)
+
+// Byte offsets in dynamic shared memory.  ops/ista_cuda.py:stream_smem_bytes
+// computes the same total.
+struct StreamLayout {
+  int kp;   // K padded: to 8 floats (f32) or 16 bf16 values
+  int ld;   // row stride of x, of the resident rows and of a stage, in elements
+  int ldg;  // row stride of the partial gradient, in floats
+  int S;    // rows of D per stage: 8 or 16 in f32, 16 in bf16
+  int x, dres, ring, part, res, xown, vec, bar, total;
+};
+
+__host__ __device__ inline StreamLayout make_stream_layout(int bf16, int R, int K, int seg, int Pr,
+                                                           int stages, int S) {
+  StreamLayout L;
+  const int esz = bf16 ? 2 : 4;
+  L.S = S;
+  L.kp = bf16 ? round_up(K, 16) : round_up(K, 8);
+  L.ld = L.kp + (bf16 ? 8 : 4);  // rows fall into different banks
+  L.ldg = L.kp + 8;
+  const int xr = bf16 || R > 12 ? kRowsSt : 12;  // rows of x in the tiles (f32: 12 when R <= 12)
+  const int bytes_x = xr * L.ld * esz;
+  const int bytes_d = round_up(Pr, L.S) * L.ld * esz;
+  // the ring; after the pass, the partial gradient in its place
+  const int bytes_ring = imax(stages * L.S * L.ld * esz, R * L.ldg * 4);
+  const int bytes_part = 2 * (bf16 ? kWarps : 2 * kWarps) * xr * L.S * 4;  // product 1 per consumer warp, two stages
+  const int bytes_res = bf16 ? 2 * kRowsSt * (L.S + 8) * 2 : 2 * L.S * kRowsSt * 4;
+  const int bytes_gseg = R * (seg + 2 * kHalo) * 4;  // step 3, in place of both
+  L.x = 0;
+  L.dres = L.x + round_up(bytes_x, 16);
+  L.ring = L.dres + round_up(bytes_d, 16);
+  L.part = L.ring + round_up(bytes_ring, 16);
+  L.res = L.part + round_up(bytes_part, 16);
+  L.xown = L.part + imax(round_up(bytes_part, 16) + round_up(bytes_res, 16), round_up(bytes_gseg, 16));
+  L.vec = L.xown + round_up(2 * R * seg * 4, 16);
+  L.bar = L.vec + 2 * kRowsSt * 4;  // two mbarriers per ring slot: full and empty
+  L.total = L.bar + 2 * kRing * 8;
+  return L;
+}
+
+struct StreamArgs {
+  Args a;
+  const void* rows;  // the source of the streamed rows: D itself (f32, K % 4 == 0) or its copy
+  int rows_ld;       // their row stride in elements: K, or kp for the copy
+  int Pr;            // rows of each slice kept resident (a multiple of S, or the whole slice)
+  int stages;        // stages of the ring (0: nothing streamed)
+};
+
+// Whether the launch first copies D for the streamed rows: bf16 streams a
+// copy rounded once per launch (half the bytes of each row), and f32 with K
+// not a multiple of 4 a copy whose rows are padded to 16 bytes, the bulk
+// copies' alignment.
+inline bool stream_copies_d(int bf16, int K) { return bf16 || K % 4 != 0; }
+
+// D into the rows' copy, padded with zeros to kp columns (bf16: rounded).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) copy_d_rows(const float* d, T* out, int P, int K, int kp) {
+  const size_t n = (size_t)P * kp;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += (size_t)gridDim.x * kThreads) {
+    const int p = (int)(i / kp), k = (int)(i - (size_t)p * kp);
+    const float v = k < K ? d[(size_t)p * K + k] : 0.f;
+    if constexpr (std::is_same<T, float>::value)
+      out[i] = v;
+    else
+      out[i] = __float2bfloat16_rn(v);
+  }
+}
+
+// Bulk copies (the TMA's one-dimensional form) completing on an mbarrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Orders this thread's earlier writes to shared memory before later bulk
+// copies into it (the copies write through the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int kNT>
+__device__ __forceinline__ void zero16(void* p, int bytes) {
+  float4* q = reinterpret_cast<float4*>(p);
+  for (int i = threadIdx.x; i < bytes / 16; i += kNT) q[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Threads of a streamed CTA: the consumers, which compute, and one producer
+// warp, which issues the bulk copies of the streamed rows (a warp that
+// issues them waits until the copy engine takes each, about the time the
+// rows take to arrive, and would hold up the consumers' barrier).  f32 runs
+// 16 consumer warps (at most 120 registers a thread), so that each
+// scheduler has four to hide the latency of the operand loads; bf16 runs 8
+// (its product 2 keeps 80 accumulators a thread).
+template <bool kBf16>
+__host__ __device__ constexpr int stream_consumers() { return kBf16 ? kThreads : 2 * kThreads; }
+template <bool kBf16>
+__host__ __device__ constexpr int stream_threads() { return stream_consumers<kBf16>() + 32; }
+
+// The consumers' barrier (named barrier 1; the producer warp is not in it).
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+template <bool kBf16, int kS, int kRT>
+__global__ void __launch_bounds__(stream_threads<kBf16>()) pnp_ista_stream(const StreamArgs sa) {
+  using T = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+  static_assert(kBf16 ? kS == kStageBf16 && kRT == kRowsSt : (kS == 8 || kS == 16) && (kRT == 12 || kRT == 16),
+                "stage rows, tile rows");
+  constexpr int kNT = stream_threads<kBf16>();     // all threads
+  constexpr int kCT = stream_consumers<kBf16>();   // the consumers: warps below kCT / 32
+  constexpr int kCW = kCT / 32;
+  constexpr int S = kS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Args& a = sa.a;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const StreamLayout L = make_stream_layout(kBf16, a.R, a.K, a.seg, sa.Pr, sa.stages, kS);
+  T* s_x = reinterpret_cast<T*>(smem + L.x);        // [kRT][ld] operand x
+  T* s_dres = reinterpret_cast<T*>(smem + L.dres);  // [Pr][ld] resident rows of the slice
+  T* s_ring = reinterpret_cast<T*>(smem + L.ring);  // [stages][S][ld] streamed rows
+  float* s_g = reinterpret_cast<float*>(smem + L.ring);     // [R][ldg] partial gradient, after the pass
+  float* s_part = reinterpret_cast<float*>(smem + L.part);  // [2][consumer warps][S kRT] product 1 per warp
+  char* s_res = smem + L.res;                               // [2] residual of a stage
+  float* s_gseg = reinterpret_cast<float*>(smem + L.part);  // [R][seg + 8] in step 3
+  float* s_xown = reinterpret_cast<float*>(smem + L.xown);  // [2][R][seg] carried x
+  float* s_ia = reinterpret_cast<float*>(smem + L.vec);
+  float* s_nih = s_ia + kRowsSt;
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(smem + L.bar);  // [kRing] a slot's rows arrived
+  uint64_t* s_empty = s_full + kRing;                             // [kRing] a slot's rows read
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = cluster.block_rank();
+  const int cluster_id = blockIdx.x / cluster.num_blocks();
+  const int row0 = cluster_id * a.R;
+  const int nrows = min(a.R, a.nB - row0);
+  const int P = a.P, K = a.K, kp = L.kp, ld = L.ld, NS = sa.stages;
+  const int p0 = min(P, rank * a.Pc);
+  const int pc = min(P, p0 + a.Pc) - p0;     // this CTA's rows of D
+  const int pres = min(pc, sa.Pr);           // of them resident
+  const int nres = (pres + S - 1) / S;       // resident stages, then streamed ones
+  const int nstr = (pc - pres + S - 1) / S;
+  const int nst = nres + nstr;
+  const int nq = kp / 4;                     // float4 columns of K
+  // Streamed rows arrive by bulk copies, a row each, which the producer warp
+  // issues (the rows of their source are 16-byte aligned).
+  const int row_bytes = sa.rows_ld == K && !kBf16 ? K * 4 : kp * (int)sizeof(T);
+
+  // The resident rows (bf16: rounded), zero past the slice and past K; x = 0.
+  const int prp = round_up(sa.Pr, S);
+  for (int i = tid; i < prp * nq; i += kNT) {
+    const int p = i / nq, k = 4 * (i - p * nq);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < pres) {
+      const float* src = a.d + (size_t)(p0 + p) * K + k;
+      if (K % 4 == 0) {
+        if (k < K) v = __ldg(reinterpret_cast<const float4*>(src));
+      } else {
+        v.x = k < K ? __ldg(src) : 0.f;
+        v.y = k + 1 < K ? __ldg(src + 1) : 0.f;
+        v.z = k + 2 < K ? __ldg(src + 2) : 0.f;
+        v.w = k + 3 < K ? __ldg(src + 3) : 0.f;
+      }
+    }
+    store_operand4(s_dres + p * ld + k, v);
+  }
+  zero16<kNT>(s_x, round_up(kRT * ld * (int)sizeof(T), 16));
+  // The ring starts at zero: a bulk copy writes K values of a row (f32) and
+  // the rows of the slice, so the rest of a slot keeps what it held, finite
+  // values that meet zeros of x or of the residual.
+  zero16<kNT>(s_ring, L.part - L.ring);
+  fence_proxy_async();
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      mbar_init(s_full + i, 1);
+      mbar_init(s_empty + i, kCW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  init_rows<kNT>(a, s_xown, s_ia, s_nih, row0, nrows);
+
+  // The rows of stage j: resident, or a slot of the ring.
+  auto stage_rows = [&](int j) -> const T* {
+    return j < nres ? s_dres + (size_t)j * S * ld : s_ring + (size_t)((j - nres) % NS) * S * ld;
+  };
+  // The residual: the last nout consumers finish one element (rr, pp) of a
+  // stage's kRT x S each (f32: the tiles' rows, 12 of them when R <= 12).
+  constexpr int kShares = kCW;  // product 1: the consumer warps split K
+  constexpr int nout = kRT * S;
+  const int tr = tid - (kCT - nout);  // in [0, nout): this thread finishes an element
+  const int rr = kBf16 ? tr >> 4 : tr % kRT;
+  const int pp = kBf16 ? tr & 15 : tr / kRT;
+
+  // f32 product 1: warp w takes share w of the float4 columns of K; lane
+  // tile of rows rg + 4i (i < kRT / 4) and stage rows pg + 4j (j < S / 4),
+  // the two half-warps (kk) taking alternate columns of the share.
+  const int kk = lane >> 4, rg = (lane >> 2) & 3, pg = lane & 3;
+  const int qpw = (nq + kShares - 1) / kShares;
+  const int qa = min(nq, warp * qpw), qb = min(nq, qa + qpw);
+  // f32 product 2: rpt rows of the partial gradient by one float4 column per
+  // thread, in registers for the whole pass (512 consumers: kRT / 4 rows up
+  // to 128 columns of float4, in stages of 16 rows; kRT / 2 up to 256, in
+  // stages of 8).
+  constexpr int kMaxRpt = kS == 16 ? kRT / 4 : kRT / 2;
+  // The f32 residual keeps kG rows to a float4 of each 16-float row (kRT 12:
+  // rows 3h .. 3h + 2 at 4h .. 4h + 2), so that product 2 loads a thread's
+  // rows 4 or 3 at a time.
+  constexpr int kG = kRT == 16 ? 4 : 3;
+  auto kG_slot = [](int r) { return r / kG * 4 + r % kG; };
+  const int groups = nq <= kCT / 4 ? 4 : 2;  // of rows, each over kCT / groups columns
+  const int rpt = kRT / groups;
+  const int qt = tid % (kCT / groups), rb = tid / (kCT / groups) * rpt;
+  // bf16: the mma fragments' row and column pair; product 1's k steps per
+  // warp; product 2's 16-wide k tiles per warp.
+  const int grp = lane >> 2, tig = lane & 3;
+  const int nks = kp / 16, ksw = (nks + kCW - 1) / kCW;
+  const int ka = min(nks, warp * ksw), kb = min(nks, ka + ksw);
+  const int npk = kp / 16, ppw = (npk + kCW - 1) / kCW;
+  const int pk0 = min(npk, warp * ppw), npw = min(ppw, npk - pk0);
+
+  float4 gacc[kMaxRpt];          // f32 product 2
+  float gmma[kPairsSt][2][4];    // bf16 product 2
+  Layout Lg;
+  Lg.ldg = L.ldg;
+  // bit i: the phase of slot i's full (consumers) or empty (producer)
+  // mbarrier to wait for next; the producer's slots filled at least once
+  uint32_t full_parity = 0, empty_parity = 0, filled = 0;
+  cluster.sync();
+
+  int cur = 0;
+  PhaseClock clock;
+  clock.begin();
+  for (int it = 0; it < a.n_iter; ++it) {
+    if (tid >= kCT) {
+      // The producer: every streamed stage of the pass in order, each into
+      // its slot once the consumers have read what the slot held.
+      for (int s = 0; s < nstr; ++s) {
+        const int slot = s % NS;
+        if ((filled >> slot) & 1u) {
+          mbar_wait(s_empty + slot, (empty_parity >> slot) & 1u);
+          empty_parity ^= 1u << slot;
+        }
+        filled |= 1u << slot;
+        T* dst = s_ring + (size_t)slot * S * ld;
+        const int pb = pres + s * S;
+        const int nvalid = min(S, pc - pb);
+        if (lane == 0) mbar_expect_tx(s_full + slot, nvalid * row_bytes);
+        __syncwarp();
+        if (lane < nvalid)
+          bulk_copy(dst + lane * ld,
+                    static_cast<const T*>(sa.rows) + (size_t)(p0 + pb + lane) * sa.rows_ld, row_bytes,
+                    s_full + slot);
+      }
+    } else {
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int j = 0; j < kPairsSt; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) gmma[j][h][i] = 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kMaxRpt; ++i) gacc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float ymv = 0.f, mv = 0.f;  // Ym and M of this thread's residual element, stage in flight
+
+      // Step j: product 2 of stage j - 2 (then its slot is released), the
+      // residual of stage j - 1, product 1 of stage j.  One barrier of the
+      // consumers per step; a stage's rows are read in steps j and j + 2, so a
+      // ring of three slots has a step to fill the one released.
+      for (int j = 0; nst > 0 && j < nst + 2; ++j) {
+        if (j >= nres && j < nst) {
+          const int slot = (j - nres) % NS;
+          mbar_wait(s_full + slot, (full_parity >> slot) & 1u);
+          full_parity ^= 1u << slot;
+        }
+        consumer_sync(kCT);
+        clock.end(3);
+
+        if (j >= 2) {
+          const T* src = stage_rows(j - 2);
+          if constexpr (kBf16) {
+            // g[16][K] += r[16][16] D[16][K] on the tensor cores, B through ldmatrix.trans
+            const __nv_bfloat16* res = reinterpret_cast<const __nv_bfloat16*>(s_res) +
+                                       (j & 1) * kRowsSt * (kStageBf16 + 8);
+            uint32_t af[4];
+            ldmatrix_x4(af, res + (lane & 15) * (kStageBf16 + 8) + 8 * (lane >> 4));
+            const T* b_ptr = src + (lane & 15) * ld + 8 * (lane >> 4);
+#pragma unroll
+            for (int jj = 0; jj < kPairsSt; ++jj) {
+              if (jj < npw) {
+                uint32_t bf[4];
+                ldmatrix_x4_trans(bf, b_ptr + (pk0 + jj) * 16);
+                mma_bf16(gmma[jj][0], af, bf[0], bf[1]);
+                mma_bf16(gmma[jj][1], af, bf[2], bf[3]);
+              }
+            }
+          } else if (qt < nq) {
+            // g[rb .. rb + rpt)[4 qt .. 4 qt + 4) += r D over the stage's rows in order
+            const float* res = reinterpret_cast<const float*>(s_res) + (j & 1) * 16 * S;  // [S][16]
+            const float4* dcol = reinterpret_cast<const float4*>(src) + qt;
+            const int ld4 = ld / 4;
+#pragma unroll 4
+            for (int p = 0; p < S; ++p) {
+              const float4 dv = dcol[p * ld4];
+              // the residual of rows rb .. rb + rpt at p, kG rows to a
+              // float4 (broadcasts)
+              float rv[kMaxRpt];
+              const float4* rp = reinterpret_cast<const float4*>(res + p * 16) + rb / kG;
+#pragma unroll
+              for (int h = 0; h < kMaxRpt / kG; ++h) {
+                if (h * kG < rpt) {
+                  const float4 v = rp[h];
+                  rv[kG * h] = v.x;
+                  rv[kG * h + 1] = v.y;
+                  rv[kG * h + 2] = v.z;
+                  if constexpr (kG == 4) rv[kG * h + 3] = v.w;
+                }
+              }
+#pragma unroll
+              for (int i = 0; i < kMaxRpt; ++i) {
+                if (i < rpt) {
+                  float4& o = gacc[i];
+                  o.x = fmaf(rv[i], dv.x, o.x);
+                  o.y = fmaf(rv[i], dv.y, o.y);
+                  o.z = fmaf(rv[i], dv.z, o.z);
+                  o.w = fmaf(rv[i], dv.w, o.w);
+                }
+              }
+            }
+          }
+          if (j - 2 >= nres) {  // the stage's slot, read by this warp for the last time
+            __syncwarp();
+            if (lane == 0) mbar_arrive(s_empty + (j - 2 - nres) % NS);
+          }
+        }
+        clock.end(2);
+
+        if (j >= 1 && j <= nst && tr >= 0) {
+          // the warps' partial sums of stage j - 1 in warp order
+          const float* part = s_part + ((j - 1) & 1) * kShares * kRT * S;
+          float pred = 0.f;
+          const int e = kBf16 ? rr * 16 + pp : pp * kRT + rr;
+#pragma unroll
+          for (int w = 0; w < kShares; ++w) pred += part[w * kRT * S + e];
+          const float res = ymv - mv * pred;
+          if constexpr (kBf16)
+            reinterpret_cast<__nv_bfloat16*>(s_res)[((j - 1) & 1) * kRowsSt * (kStageBf16 + 8) +
+                                                    rr * (kStageBf16 + 8) + pp] = __float2bfloat16_rn(res);
+          else
+            reinterpret_cast<float*>(s_res)[((j - 1) & 1) * 16 * S + pp * 16 + kG_slot(rr)] = res;
+        }
+        clock.end(1);
+
+
+        if (j < nst) {
+          ymv = mv = 0.f;
+          if (tr >= 0 && rr < nrows && j * S + pp < pc) {
+            const size_t at = (size_t)(row0 + rr) * P + p0 + j * S + pp;
+            mv = __ldg(a.m + at);
+            ymv = mv * __ldg(a.y + at);
+          }
+          const T* src = stage_rows(j);
+          float* part = s_part + (j & 1) * kShares * kRT * S + warp * kRT * S;
+          if constexpr (kBf16) {
+            // pred[16][16] of this warp's k steps on the tensor cores
+            float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+            const T* a_ptr = s_x + (lane & 15) * ld + 8 * (lane >> 4);
+            const T* b_ptr = src + (((lane >> 4) & 1) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+#pragma unroll 2
+            for (int ks = ka; ks < kb; ++ks) {
+              uint32_t af[4], bf[4];
+              ldmatrix_x4(af, a_ptr + 16 * ks);
+              ldmatrix_x4(bf, b_ptr + 16 * ks);
+              mma_bf16(acc[0], af, bf[0], bf[1]);
+              mma_bf16(acc[1], af, bf[2], bf[3]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              *reinterpret_cast<float2*>(part + grp * 16 + nt * 8 + 2 * tig) = make_float2(acc[nt][0], acc[nt][1]);
+              *reinterpret_cast<float2*>(part + (grp + 8) * 16 + nt * 8 + 2 * tig) =
+                  make_float2(acc[nt][2], acc[nt][3]);
+            }
+          } else {
+            constexpr int kP = S / 4;     // stage rows per lane
+            constexpr int kRI = kRT / 4;  // rows of x per lane
+            float acc[kRI][kP];
+#pragma unroll
+            for (int i = 0; i < kRI; ++i)
+#pragma unroll
+              for (int jp = 0; jp < kP; ++jp) acc[i][jp] = 0.f;
+            const int ld4 = ld / 4;
+            const float4* x4 = reinterpret_cast<const float4*>(s_x);
+            const float4* d0 = reinterpret_cast<const float4*>(src) + pg * ld4;
+            // one float4 column at a time: sixteen warps hide the loads' latency
+#pragma unroll 1
+            for (int q = qa + kk; q < qb; q += 2) {
+              float4 u[kP], xv[kRI];
+#pragma unroll
+              for (int jp = 0; jp < kP; ++jp) u[jp] = d0[4 * jp * ld4 + q];
+#pragma unroll
+              for (int i = 0; i < kRI; ++i) xv[i] = x4[(rg + 4 * i) * ld4 + q];
+              // k in order; neighbouring FMAs go to different accumulators
+#pragma unroll
+              for (int i = 0; i < kRI; ++i)
+#pragma unroll
+                for (int jp = 0; jp < kP; ++jp) acc[i][jp] = fmaf(xv[i].x, u[jp].x, acc[i][jp]);
+#pragma unroll
+              for (int i = 0; i < kRI; ++i)
+#pragma unroll
+                for (int jp = 0; jp < kP; ++jp) acc[i][jp] = fmaf(xv[i].y, u[jp].y, acc[i][jp]);
+#pragma unroll
+              for (int i = 0; i < kRI; ++i)
+#pragma unroll
+                for (int jp = 0; jp < kP; ++jp) acc[i][jp] = fmaf(xv[i].z, u[jp].z, acc[i][jp]);
+#pragma unroll
+              for (int i = 0; i < kRI; ++i)
+#pragma unroll
+                for (int jp = 0; jp < kP; ++jp) acc[i][jp] = fmaf(xv[i].w, u[jp].w, acc[i][jp]);
+            }
+            // the two half-warps' sums, then one per element of the tile
+#pragma unroll
+            for (int i = 0; i < kRI; ++i)
+#pragma unroll
+              for (int jp = 0; jp < kP; ++jp) acc[i][jp] += __shfl_xor_sync(0xffffffffu, acc[i][jp], 16);
+            if (kk == 0) {
+#pragma unroll
+              for (int i = 0; i < kRI; ++i)
+#pragma unroll
+                for (int jp = 0; jp < kP; ++jp) part[(pg + 4 * jp) * kRT + rg + 4 * i] = acc[i][jp];
+            }
+          }
+        }
+        clock.end(0);
+
+      }
+    }
+    // The pass is over (the producer has issued its stages, the consumers
+    // have read them): the partial gradient into the ring's place.
+    __syncthreads();
+    if (tid < kCT) {
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int jj = 0; jj < kPairsSt; ++jj) {
+          if (jj < npw) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k = (pk0 + jj) * 16 + 8 * h + 2 * tig;
+#pragma unroll
+              for (int v = 0; v < 2; ++v) {
+                const int r = grp + 8 * v;
+                if (r < a.R)
+                  *reinterpret_cast<float2*>(s_g + r * L.ldg + k) =
+                      make_float2(gmma[jj][h][2 * v], gmma[jj][h][2 * v + 1]);
+              }
+            }
+          }
+        }
+      } else if (qt < nq) {
+#pragma unroll
+        for (int i = 0; i < kMaxRpt; ++i)
+          if (i < rpt && rb + i < a.R) reinterpret_cast<float4*>(s_g + (rb + i) * L.ldg)[qt] = gacc[i];
+      }
+    }
+    fence_proxy_async();  // before the next pass's bulk copies into the ring
+    cluster.sync();
+    clock.end(7);
+
+    // 3. reduce over the cluster, NLM, new x to every CTA (bf16: rounded)
+    reduce_nlm_push<T, kNT>(cluster, a, Lg, s_g, s_gseg, s_xown, s_x, ld, s_ia, s_nih, nrows, cur, clock);
+    cur ^= 1;
+    cluster.sync();
+    clock.end(7);
+  }
+  write_out<kNT>(cluster, a, s_xown, row0, nrows, cur);
+}
+
+// The kernels' slots below: 0 f32, 1 bf16 (slices of D resident); streamed:
+// 3 bf16, f32 in stages of 8 or 16 rows with tiles of 16 block rows (2, 6)
+// or 12 (7, 8); 4 f32, 5 bf16 (column windows).
+constexpr int kKernels = 9;
 
 // The attributes already set on each kernel, so that they are set by the
 // first launch of a shape and a launch recorded into a CUDA graph after it
@@ -1068,7 +1613,8 @@ KernelAttributes g_attributes[kKernels];
 
 template <typename Kernel>
 cudaError_t configure(Kernel kernel, int index, int cluster_size, int nclusters, int smem,
-                      cudaStream_t stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+                      cudaStream_t stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                      int threads = kThreads) {
   KernelAttributes& set = g_attributes[index];
   cudaError_t err;
   if (smem > set.smem) {
@@ -1083,7 +1629,7 @@ cudaError_t configure(Kernel kernel, int index, int cluster_size, int nclusters,
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(cluster_size * nclusters);
-  cfg->blockDim = dim3(kThreads);
+  cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -1095,6 +1641,17 @@ cudaError_t configure(Kernel kernel, int index, int cluster_size, int nclusters,
   return cudaSuccess;
 }
 
+template <bool kBf16, int kS, int kRT>
+cudaError_t launch_stream(int slot, const StreamArgs& sa, int cluster_size, int nclusters, int smem,
+                          cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(pnp_ista_stream<kBf16, kS, kRT>, slot, cluster_size, nclusters, smem, stream,
+                              &cfg, &attr, stream_threads<kBf16>());
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_stream<kBf16, kS, kRT>, sa);
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1104,18 +1661,26 @@ int lrs_pnp_ista_smem_bytes(int bf16, int R, int Pc, int K, int seg) {
   return make_layout(bf16, R, Pc, K, seg).total;
 }
 
-// The same for the streamed kernels, with Pr resident rows.
-int lrs_pnp_ista_stream_smem_bytes(int K, int Pr) { return make_stream_layout(K, Pr).total; }
-
-// Floats of device-memory scratch the streamed kernels take per cluster.
-long long lrs_pnp_ista_stream_scratch_floats(int P, int K, int cluster_size, int seg) {
-  return (long long)stream_scratch_floats(P, K, cluster_size, seg);
+// The same for the streamed kernels, with Pr resident rows and a ring of
+// `stages` stages.
+int lrs_pnp_ista_stream_smem_bytes(int bf16, int R, int K, int seg, int Pr, int stages, int S) {
+  return make_stream_layout(bf16, R, K, seg, Pr, stages, S).total;
 }
 
-// How many clusters of `cluster_size` CTAs with `smem` bytes each the device
-// keeps resident at once (cudaOccupancyMaxActiveClusters); negative: minus
-// the cudaError_t.  The streamed kernels run one CTA of kThreads per SM as
-// the resident ones do, so the plan takes the same count for them.
+// Row stride, in bf16 values, of the rounded copy of D the bf16 streamed
+// kernel reads its streamed rows from (the wrapper allocates P times it).
+int lrs_pnp_ista_stream_copy_stride(int bf16, int K) {
+  return stream_copies_d(bf16, K) ? make_stream_layout(bf16, 1, K, 4, 0, 0, bf16 ? kStageBf16 : 8).kp : 0;
+}
+
+// The same for the column-window kernels.
+int lrs_pnp_ista_window_smem_bytes(int K, int Pr) { return make_window_layout(K, Pr).total; }
+
+// Floats of device-memory scratch the column-window kernels take per cluster.
+long long lrs_pnp_ista_window_scratch_floats(int P, int K, int cluster_size, int seg) {
+  return (long long)window_scratch_floats(P, K, cluster_size, seg);
+}
+
 int lrs_pnp_ista_max_clusters(int bf16, int cluster_size, int smem) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -1161,25 +1726,68 @@ int lrs_pnp_ista_launch(const float* y, const float* m, const float* d,
   return finish_launch(err);
 }
 
-// The streamed kernels: the same arguments, Pr resident rows of each slice
-// and `scratch`, lrs_pnp_ista_stream_scratch_floats per cluster of device
-// memory the kernel initialises itself.
+// The streamed kernels: the same arguments, Pr resident rows of each slice,
+// a ring of `stages` stages of S rows (f32: 8 or 16; bf16: 16) and, where
+// stream_copies_d and there are stages, `copy`: P times
+// lrs_pnp_ista_stream_copy_stride(bf16, K) values (bf16 or f32) of device
+// memory into which the launch first copies D (a second kernel on the same
+// stream).
 int lrs_pnp_ista_stream_launch(const float* y, const float* m, const float* d,
+                               const float* alpha, float h_coef, float* out, void* copy,
+                               int nB, int P, int K, int n_iter, int bf16, int cluster_size,
+                               int nclusters, int R, int Pc, int seg, int Pr, int stages, int S,
+                               void* stream) {
+  const int copies = stages > 0 && stream_copies_d(bf16, K);
+  const int kp = lrs_pnp_ista_stream_copy_stride(bf16, K);
+  const StreamArgs sa = {{y, m, d, alpha, h_coef, out, nB, P, K, n_iter, R, Pc, seg},
+                         copies ? copy : static_cast<const void*>(d), copies ? kp : K, Pr, stages};
+  if (bf16 ? S != kStageBf16 : (S != 8 && (S != 16 || round_up(K, 8) > 512))) return (int)cudaErrorInvalidValue;
+  if (R > kRowsSt) return (int)cudaErrorInvalidValue;
+  const StreamLayout L = make_stream_layout(bf16, R, K, seg, Pr, stages, S);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (copies) {
+    if (copy == nullptr) return (int)cudaErrorInvalidValue;
+    const long long n = (long long)P * kp;
+    const int blocks = (int)((n + kThreads - 1) / kThreads < 1024 ? (n + kThreads - 1) / kThreads : 1024);
+    if (bf16)
+      copy_d_rows<<<blocks, kThreads, 0, s>>>(d, static_cast<__nv_bfloat16*>(copy), P, K, kp);
+    else
+      copy_d_rows<<<blocks, kThreads, 0, s>>>(d, static_cast<float*>(copy), P, K, kp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (bf16) {
+    err = launch_stream<true, kStageBf16, kRowsSt>(3, sa, cluster_size, nclusters, L.total, s);
+  } else if (R <= 12) {  // f32 tiles of 12 rows
+    err = S == 8 ? launch_stream<false, 8, 12>(7, sa, cluster_size, nclusters, L.total, s)
+                 : launch_stream<false, 16, 12>(8, sa, cluster_size, nclusters, L.total, s);
+  } else {
+    err = S == 8 ? launch_stream<false, 8, 16>(2, sa, cluster_size, nclusters, L.total, s)
+                 : launch_stream<false, 16, 16>(6, sa, cluster_size, nclusters, L.total, s);
+  }
+  return finish_launch(err);
+}
+
+// The column-window kernels: the same arguments, Pr resident rows of each
+// slice and `scratch`, lrs_pnp_ista_window_scratch_floats per cluster of
+// device memory the kernel initialises itself.
+int lrs_pnp_ista_window_launch(const float* y, const float* m, const float* d,
                                const float* alpha, float h_coef, float* out, float* scratch,
                                int nB, int P, int K, int n_iter, int bf16, int cluster_size,
                                int nclusters, int R, int Pc, int seg, int Pr, void* stream) {
-  const StreamArgs sa = {{y, m, d, alpha, h_coef, out, nB, P, K, n_iter, R, Pc, seg}, scratch, Pr};
-  const int smem = make_stream_layout(K, Pr).total;
+  const WindowArgs sa = {{y, m, d, alpha, h_coef, out, nB, P, K, n_iter, R, Pc, seg}, scratch, Pr};
+  const int smem = make_window_layout(K, Pr).total;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {
-    err = configure(pnp_ista_stream<true>, 3, cluster_size, nclusters, smem, s, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_stream<true>, sa);
+    err = configure(pnp_ista_window<true>, 5, cluster_size, nclusters, smem, s, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_window<true>, sa);
   } else {
-    err = configure(pnp_ista_stream<false>, 2, cluster_size, nclusters, smem, s, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_stream<false>, sa);
+    err = configure(pnp_ista_window<false>, 4, cluster_size, nclusters, smem, s, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_window<false>, sa);
   }
   return finish_launch(err);
 }

@@ -3,11 +3,14 @@ Hopper (``csrc/ista.cu``), the port of the TPU kernel
 ``lrs_pnp_dip_tpu/ops/ista_pallas.py:pnp_ista_blocks_pallas``.
 
 The kernel runs as thread block clusters: a cluster of C CTAs owns R block
-rows for the whole loop, CTA c keeps the slice ``D[p_c, :]`` in shared
-memory and the columns ``k_c`` of x in step 3 (see the note in the source).
-:func:`plan_ista` chooses C, R, the slices and the shared-memory bytes from
-(nB, P, K, operand type) in plain Python, so the tiling is testable without
-a card.
+rows for the whole loop, CTA c owns the slice ``D[p_c, :]`` and the columns
+``k_c`` of x in step 3 (see the note in the source).  Three tiers take the
+shapes of the TPU kernel's range: ``"resident"`` (each slice of D in shared
+memory), ``"streamed"`` (the first rows of each slice resident, the rest
+read once per iteration through a ring of stages) and ``"window"`` (the
+long-K tail, product 2 by column windows over all P).  :func:`plan_ista`
+chooses the tier, C, R, the slices and the shared-memory bytes from (nB, P,
+K, operand type) in plain Python, so the tiling is testable without a card.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (into ``csrc/build/``, named by the
@@ -28,7 +31,7 @@ import shutil
 import subprocess
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import torch
 
@@ -56,13 +59,28 @@ _BF16_MAX_SLICE = 192  # 8 warps x kTilesP tiles of 8
 _BF16_MAX_K = 640  # 8 warps x kPairsK tiles of 16
 _WARPS = 8
 _HALO = 4  # the NLM's reach along K
-# The streamed kernel (csrc/ista.cu, pnp_ista_stream): stages of 32 rows of
-# D by 128 columns (product 1, with 16 rows of x) or by 64 columns (product
-# 2, with 16 rows of the residual), two stages, 16 rows per cluster.
-_STAGE_ROWS = 32
-_STAGES = 2
+# The streamed kernel (csrc/ista.cu, pnp_ista_stream): at most 16 rows of x
+# per cluster in its tiles, stages of whole rows (8 or 16 in f32, 16 in bf16),
+# a ring of at most 3 stages; the f32 partial gradient is one float4 column
+# per thread (K <= 1024), the bf16 one 10 tiles of 16 columns per warp (K <=
+# 1280).
 _STREAM_ROWS = 16
-_STAGE_FLOATS = max(_STAGE_ROWS * (128 + 4) + _STREAM_ROWS * 128, _STAGE_ROWS * 64 + _STREAM_ROWS * _STAGE_ROWS)
+# Stage heights the plan tries, in order: f32 takes 16 rows up to K 512 where
+# a ring of them fits (at block 40 it ran 14% faster than 8 on an H100, beside
+# fewer resident rows: scripts/profile_b1_phases.py --stage-rows), else 8.
+_STAGE_ROWS = {False: (16, 8), True: (16,)}
+# Stages of the ring (kRing): a slot is released before the step's other work
+# and refilled while it runs.
+_RING = 3
+_STREAM_MAX_K = {False: 1024, True: 1280}
+# The column-window kernel (pnp_ista_window): stages of 32 rows of D by 128
+# columns (product 1, with 16 rows of x) or by 64 columns (product 2, with 16
+# rows of the residual), two stages, 16 rows per cluster.
+_WIN_STAGE_ROWS = 32
+_WIN_STAGES = 2
+_WIN_ROWS = 16
+_WIN_STAGE_FLOATS = max(_WIN_STAGE_ROWS * (128 + 4) + _WIN_ROWS * 128,
+                        _WIN_STAGE_ROWS * 64 + _WIN_ROWS * _WIN_STAGE_ROWS)
 # The TPU kernel's VMEM budget and its smallest row tile
 # (lrs_pnp_dip_tpu/ops/ista_pallas.py:151-158): the range of shapes B1 takes.
 _TPU_VMEM_BUDGET = 12 * 2**20
@@ -114,20 +132,70 @@ def smem_bytes(bf16: bool, rows: int, slice_rows: int, K: int, seg: int) -> int:
     return sum(_round_up(s, 16) for s in sizes) + 2 * _BF16_ROWS * 4
 
 
-def stream_smem_bytes(K: int, resident_rows: int) -> int:
+def _stream_kp(bf16: bool, K: int) -> int:
+    """K padded as the streamed kernel pads it: to 16 bf16 values or 8 floats."""
+    return _round_up(K, 16 if bf16 else 8)
+
+
+def stream_smem_bytes(bf16: bool, rows: int, K: int, seg: int, resident_rows: int, stages: int,
+                      stage_rows: Optional[int] = None) -> int:
     """Dynamic shared memory of one CTA of the streamed kernel, as
-    ``make_stream_layout`` in csrc/ista.cu lays it out: the ring of stages
+    ``make_stream_layout`` in csrc/ista.cu lays it out: the operand copy of
+    x (16 rows; f32 12 where rows <= 12, the tiles' rows), the resident rows
+    (whole stages), the ring of stages or, after
+    the pass, the partial gradient in its place, product 1's partial sums
+    and the residual of two stages (or step 3's gradient segment in their
+    place), the carried x of the CTA's columns and two mbarriers per slot."""
+    esz = 2 if bf16 else 4
+    S = stage_rows or _STAGE_ROWS[bf16][-1]
+    kp = _stream_kp(bf16, K)
+    ld = kp + (8 if bf16 else 4)
+    ldg = kp + 8
+    xr = _STREAM_ROWS if bf16 or rows > 12 else 12  # rows of x in the tiles
+    x = xr * ld * esz
+    resident = _round_up(resident_rows, S) * ld * esz
+    ring = max(stages * S * ld * esz, rows * ldg * 4)
+    part = 2 * (_WARPS if bf16 else 2 * _WARPS) * xr * S * 4  # one sum per warp (f32: 16 warps)
+    res = 2 * _STREAM_ROWS * (S + 8) * 2 if bf16 else 2 * S * _STREAM_ROWS * 4
+    small = max(_round_up(part, 16) + _round_up(res, 16), _round_up(rows * (seg + 2 * _HALO) * 4, 16))
+    xown = 2 * rows * seg * 4
+    bars = 2 * _RING * 8  # two mbarriers per ring slot
+    return (_round_up(x, 16) + _round_up(resident, 16) + _round_up(ring, 16) + small
+            + _round_up(xown, 16) + 2 * _BF16_ROWS * 4 + bars)
+
+
+def stream_copies_d(bf16: bool, K: int) -> bool:
+    """Whether the streamed kernel's launch first copies D for the rows it
+    streams (``stream_copies_d`` in csrc/ista.cu): bf16 rounds it once, f32
+    with K not a multiple of 4 pads its rows to 16 bytes, the bulk copies'
+    alignment."""
+    return bf16 or K % 4 != 0
+
+
+def stream_scratch_floats(P: int, K: int, bf16: bool, stages: int) -> int:
+    """Device-memory scratch of a launch of the streamed kernel, in floats:
+    with rows to stream and ``stream_copies_d``, that copy (P rows of
+    ``lrs_pnp_ista_stream_copy_stride`` values, bf16 two to a float);
+    nothing else."""
+    if not stages or not stream_copies_d(bf16, K):
+        return 0
+    return P * _stream_kp(bf16, K) // (2 if bf16 else 1)
+
+
+def window_smem_bytes(K: int, resident_rows: int) -> int:
+    """Dynamic shared memory of one CTA of the column-window kernel, as
+    ``make_window_layout`` in csrc/ista.cu lays it out: the ring of stages
     and the resident rows of the slice (row stride K + 4 floats)."""
-    ring = _STAGES * _STAGE_FLOATS * 4
+    ring = _WIN_STAGES * _WIN_STAGE_FLOATS * 4
     resident = resident_rows * (_round_up(K, 4) + 4) * 4
-    return _round_up(ring, 16) + _round_up(resident, 16) + 2 * _STREAM_ROWS * 4
+    return _round_up(ring, 16) + _round_up(resident, 16) + 2 * _WIN_ROWS * 4
 
 
-def stream_scratch_floats(P: int, K: int, cluster_size: int, seg: int) -> int:
-    """Device-memory scratch of one cluster of the streamed kernel, in
+def window_scratch_floats(P: int, K: int, cluster_size: int, seg: int) -> int:
+    """Device-memory scratch of one cluster of the column-window kernel, in
     floats: the carried x twice, the residual and each CTA's gradient window,
-    16 rows each (``stream_scratch_floats`` in csrc/ista.cu)."""
-    return _STREAM_ROWS * (2 * _round_up(K, 4) + _round_up(P, 4) + cluster_size * (seg + 2 * _HALO))
+    16 rows each (``window_scratch_floats`` in csrc/ista.cu)."""
+    return _WIN_ROWS * (2 * _round_up(K, 4) + _round_up(P, 4) + cluster_size * (seg + 2 * _HALO))
 
 
 @dataclass(frozen=True)
@@ -145,41 +213,52 @@ class IstaPlan:
     slice_rows: int  # rows of D per CTA
     seg: int  # columns of x per CTA in step 3
     smem_bytes: int
-    # The streamed tiling (zero stages: the whole slice is resident).
-    resident_rows: int  # rows of the slice kept in shared memory
+    # The streamed tilings (the whole slice resident: zero stages).
+    resident_rows: int  # rows of each slice kept in shared memory
     stage_rows: int  # rows of D per stage of the ring
     stages: int  # stages of the ring
+    tier: str = "resident"  # "resident", "streamed" (the ring) or "window" (column windows)
 
     @property
     def streamed(self) -> bool:
-        """Whether the launch takes the streamed kernel."""
-        return self.stages > 0
+        """Whether the launch takes one of the kernels that may stream D
+        (the streamed or the column-window tier)."""
+        return self.tier != "resident"
 
     @property
     def streamed_rows(self) -> int:
-        """Rows of each slice streamed through the ring in product 1."""
+        """Rows of a whole slice read through the ring in each iteration."""
         return self.slice_rows - self.resident_rows
 
     @property
     def scratch_floats(self) -> int:
         """Device-memory scratch of the launch, in floats."""
-        if not self.streamed:
-            return 0
-        return self.n_clusters * stream_scratch_floats(self.P, self.K, self.cluster_size, self.seg)
+        if self.tier == "streamed":
+            return stream_scratch_floats(self.P, self.K, self.bf16, self.stages)
+        if self.tier == "window":
+            return self.n_clusters * window_scratch_floats(self.P, self.K, self.cluster_size, self.seg)
+        return 0
 
     @property
     def l2_bytes_per_iteration(self) -> int:
-        """Bytes one cluster of the streamed kernel moves through L2 per
-        iteration (the note in csrc/ista.cu): the streamed rows of the
-        slices, product 2's windows of D, the pieces of x and the residual
-        written and read.  0 for the resident kernels."""
-        if not self.streamed:
-            return 0
+        """Bytes of D one cluster reads through L2 per iteration beyond its
+        resident rows (the note in csrc/ista.cu).  Streamed tier: each CTA's
+        streamed rows once, each K floats of D, or kp values of its copy
+        (``stream_copies_d``).  Window tier: the streamed rows of the slices, product 2's
+        windows of D, the pieces of x and the residual written and read.  0
+        for the resident kernels."""
         C, P, K = self.cluster_size, self.P, self.K
-        pieces = -(-self.slice_rows // self.stage_rows)
-        floats = (C * self.streamed_rows * K + P * (K + 2 * _HALO * C)
-                  + _STREAM_ROWS * C * pieces * _round_up(K, 4) + _STREAM_ROWS * P * (C + 1))
-        return 4 * floats
+        if self.tier == "streamed":
+            rows = sum(max(0, b - a - self.resident_rows) for a, b in self.p_slices())
+            if stream_copies_d(self.bf16, K):
+                return rows * _stream_kp(self.bf16, K) * (2 if self.bf16 else 4)
+            return rows * 4 * K
+        if self.tier == "window":
+            pieces = -(-self.slice_rows // self.stage_rows)
+            floats = (C * self.streamed_rows * K + P * (K + 2 * _HALO * C)
+                      + _WIN_ROWS * C * pieces * _round_up(K, 4) + _WIN_ROWS * P * (C + 1))
+            return 4 * floats
+        return 0
 
     @property
     def waves(self) -> int:
@@ -254,35 +333,94 @@ def _resident_plan(nB, P, K, bf16, resident, smem_limit, reasons):
 
 
 def _streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons):
-    """The streamed tiling, or None (reasons appended): the largest cluster
-    the card keeps resident, as many of each slice's rows resident as fit
-    beside the ring (whole stages of 32, or the whole slice)."""
-    for C in (16, 8):
+    """The streamed tiling, or None (reasons appended).  For each cluster
+    size the card keeps resident: the rows spread over as few waves as
+    cover nB; the first stage height of ``_STAGE_ROWS`` whose ring fits;
+    then the whole slice resident if it fits, else the most whole stages of
+    it beside a ring of up to 3 stages.
+    Of these the tiling with the fewest waves, then the fewest bytes of D
+    that each CTA streams per iteration, then the smaller cluster: on an
+    H100 one wave of clusters of 8 beat two waves of 16 at every streamed
+    shape of ``chip_smoke.WIDE_SHAPES``, P 576 / K 1152 in bf16 too, where
+    the clusters of 16 hold the whole slice and stream nothing
+    (scripts/profile_b1_phases.py --cluster)."""
+    if _stream_kp(bf16, K) > _STREAM_MAX_K[bf16]:
+        reasons.append(f"streamed: K={K} is past its {_STREAM_MAX_K[bf16]} columns "
+                       f"({'bf16' if bf16 else 'f32'} partial gradient in registers)")
+        return None
+    best = None
+    for C in (8, 16):
         if resident.get(C, 0) < 1:
             reasons.append(f"streamed, cluster {C}: the card keeps no such cluster resident")
             continue
         slice_rows = -(-P // C)
         seg = _round_up(-(-K // C), 4)
-        base = stream_smem_bytes(K, 0)
+        rows, n_clusters = _spread(nB, _STREAM_ROWS, resident[C])
+        # f32 stages of 16 rows keep 4 rows of the partial gradient a thread: K <= 512
+        heights = [h for h in _STAGE_ROWS[bf16] if bf16 or h == 8 or _stream_kp(bf16, K) <= 512]
+        S = next((h for h in heights if stream_smem_bytes(
+            bf16, rows, K, seg, 0, min(_RING, -(-slice_rows // h)), h) <= smem_limit), heights[-1])
+        choice = None
+        if stream_smem_bytes(bf16, rows, K, seg, slice_rows, 0, S) <= smem_limit:
+            choice = (slice_rows, 0)
+        else:
+            for resident_rows in range((slice_rows - 1) // S * S, -1, -S):
+                stages = min(_RING, -(-(slice_rows - resident_rows) // S))
+                if stream_smem_bytes(bf16, rows, K, seg, resident_rows, stages, S) <= smem_limit:
+                    choice = (resident_rows, stages)
+                    break
+        if choice is None:
+            need = stream_smem_bytes(bf16, rows, K, seg, 0, min(_RING, -(-slice_rows // S)), S)
+            reasons.append(f"streamed, cluster {C}: {need} B of shared memory (> {smem_limit})")
+            continue
+        plan = IstaPlan(
+            nB=nB, P=P, K=K, bf16=bf16, cluster_size=C, rows=rows,
+            n_clusters=n_clusters, resident=resident[C], slice_rows=slice_rows,
+            seg=seg, smem_bytes=stream_smem_bytes(bf16, rows, K, seg, *choice, S),
+            resident_rows=choice[0], stage_rows=S, stages=choice[1], tier="streamed",
+        )
+        key = (plan.waves, plan.l2_bytes_per_iteration // C, C)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return best[1] if best else None
+
+
+def _window_plan(nB, P, K, bf16, resident, smem_limit, reasons):
+    """The column-window tiling (the long-K tail), or None (reasons
+    appended): the largest cluster the card keeps resident, as many of each
+    slice's rows resident as fit beside the ring (whole stages of 32, or the
+    whole slice)."""
+    for C in (16, 8):
+        if resident.get(C, 0) < 1:
+            reasons.append(f"window, cluster {C}: the card keeps no such cluster resident")
+            continue
+        slice_rows = -(-P // C)
+        seg = _round_up(-(-K // C), 4)
+        base = window_smem_bytes(K, 0)
         if base > smem_limit:
-            reasons.append(f"streamed: {base} B of shared memory for the ring (> {smem_limit})")
+            reasons.append(f"window: {base} B of shared memory for the ring (> {smem_limit})")
             return None
         fit = (smem_limit - base) // ((_round_up(K, 4) + 4) * 4)
-        resident_rows = slice_rows if fit >= slice_rows else fit // _STAGE_ROWS * _STAGE_ROWS
-        rows, n_clusters = _spread(nB, _STREAM_ROWS, resident[C])
+        resident_rows = slice_rows if fit >= slice_rows else fit // _WIN_STAGE_ROWS * _WIN_STAGE_ROWS
+        rows, n_clusters = _spread(nB, _WIN_ROWS, resident[C])
         return IstaPlan(
             nB=nB, P=P, K=K, bf16=bf16, cluster_size=C, rows=rows,
             n_clusters=n_clusters, resident=resident[C], slice_rows=slice_rows,
-            seg=seg, smem_bytes=stream_smem_bytes(K, resident_rows),
-            resident_rows=resident_rows, stage_rows=_STAGE_ROWS, stages=_STAGES,
+            seg=seg, smem_bytes=window_smem_bytes(K, resident_rows),
+            resident_rows=resident_rows, stage_rows=_WIN_STAGE_ROWS, stages=_WIN_STAGES, tier="window",
         )
     return None
+
+
+TIERS = ("resident", "streamed", "window")
+_TIER_PLANS = {"resident": _resident_plan, "streamed": _streamed_plan, "window": _window_plan}
 
 
 def plan_ista(
     nB: int, P: int, K: int, bf16: bool,
     resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
     smem_limit: int = _MAX_SMEM_BYTES,
+    tiers: Sequence[str] = TIERS,
 ) -> IstaPlan:
     """Choose the tiling for (nB, P, K, operand type).
 
@@ -290,25 +428,25 @@ def plan_ista(
     whose slice fits the register tiles and ``smem_limit`` bytes of shared
     memory, the most rows per cluster that fit beside it, then as few waves
     of ``resident`` clusters as cover nB, with the rows spread evenly over
-    them.  Where that kernel does not take the shape, the streamed kernel:
-    every shape in the TPU kernel's range (:func:`in_tpu_range`).  Both run
-    one CTA of 256 threads per SM (at most 255 registers a thread), so the
-    card keeps as many of their clusters resident.  Raises ValueError with
-    the reason for a shape neither takes, which names ``backend="xla"`` as
-    the way around it."""
+    them.  Where that kernel does not take the shape, the streamed kernel
+    (:func:`_streamed_plan`), and past its columns the column-window kernel:
+    between them every shape in the TPU kernel's range (:func:`in_tpu_range`).
+    All run one CTA of 256 threads per SM (at most 255 registers a thread),
+    so the card keeps as many of their clusters resident.  ``tiers`` names
+    the tiers to try, in this order (the tests force one with it).  Raises
+    ValueError with the reason for a shape none takes, which names
+    ``backend="xla"`` as the way around it."""
     if nB < 1 or P < 1 or K < 6:
         raise _refused(f"needs nB >= 1, P >= 1 and K >= 6 (nB={nB}, P={P}, K={K})")
     reasons = []
-    plan = _resident_plan(nB, P, K, bf16, resident, smem_limit, reasons)
-    if plan is not None:
-        return plan
-    if not in_tpu_range(P, K):
-        reasons.append(
-            f"past the TPU kernel's range: {tpu_vmem_bytes(P, K)} B of VMEM at its smallest tile "
-            f"(> {_TPU_VMEM_BUDGET})"
-        )
-    else:
-        plan = _streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons)
+    for tier in tiers:
+        if tier != "resident" and not in_tpu_range(P, K):
+            reasons.append(
+                f"past the TPU kernel's range: {tpu_vmem_bytes(P, K)} B of VMEM at its smallest tile "
+                f"(> {_TPU_VMEM_BUDGET})"
+            )
+            break
+        plan = _TIER_PLANS[tier](nB, P, K, bf16, resident, smem_limit, reasons)
         if plan is not None:
             return plan
     raise _refused(
@@ -368,14 +506,21 @@ class FusedIstaKernel:
         lib.lrs_pnp_ista_launch.argtypes = [ptr] * 4 + [ctypes.c_float, ptr] + [c_int] * 10 + [ptr]
         lib.lrs_pnp_ista_launch.restype = c_int
         lib.lrs_pnp_ista_stream_launch.argtypes = (
-            [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 11 + [ptr])
+            [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 13 + [ptr])
         lib.lrs_pnp_ista_stream_launch.restype = c_int
+        lib.lrs_pnp_ista_window_launch.argtypes = (
+            [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 11 + [ptr])
+        lib.lrs_pnp_ista_window_launch.restype = c_int
         lib.lrs_pnp_ista_smem_bytes.argtypes = [c_int] * 5
         lib.lrs_pnp_ista_smem_bytes.restype = c_int
-        lib.lrs_pnp_ista_stream_smem_bytes.argtypes = [c_int] * 2
+        lib.lrs_pnp_ista_stream_smem_bytes.argtypes = [c_int] * 7
         lib.lrs_pnp_ista_stream_smem_bytes.restype = c_int
-        lib.lrs_pnp_ista_stream_scratch_floats.argtypes = [c_int] * 4
-        lib.lrs_pnp_ista_stream_scratch_floats.restype = ctypes.c_longlong
+        lib.lrs_pnp_ista_stream_copy_stride.argtypes = [c_int] * 2
+        lib.lrs_pnp_ista_stream_copy_stride.restype = c_int
+        lib.lrs_pnp_ista_window_smem_bytes.argtypes = [c_int] * 2
+        lib.lrs_pnp_ista_window_smem_bytes.restype = c_int
+        lib.lrs_pnp_ista_window_scratch_floats.argtypes = [c_int] * 4
+        lib.lrs_pnp_ista_window_scratch_floats.restype = ctypes.c_longlong
         lib.lrs_pnp_ista_max_clusters.argtypes = [c_int] * 3
         lib.lrs_pnp_ista_max_clusters.restype = c_int
         self._lib = lib
@@ -436,15 +581,21 @@ class FusedIstaKernel:
         with torch.cuda.device(device):
             lib = self.build()
             plan = self.plan(nB, P, K, bf16)
-            if plan.streamed:
-                laid_out = lib.lrs_pnp_ista_stream_smem_bytes(K, plan.resident_rows)
-                scratch = lib.lrs_pnp_ista_stream_scratch_floats(P, K, plan.cluster_size, plan.seg)
-                if scratch * plan.n_clusters != plan.scratch_floats:
-                    raise RuntimeError(
-                        f"the plan counts {plan.scratch_floats} floats of scratch, the kernel "
-                        f"{scratch * plan.n_clusters}")
+            if plan.tier == "streamed":
+                laid_out = lib.lrs_pnp_ista_stream_smem_bytes(
+                    int(bf16), plan.rows, K, plan.seg, plan.resident_rows, plan.stages, plan.stage_rows)
+                stride = lib.lrs_pnp_ista_stream_copy_stride(int(bf16), K)
+                scratch = P * stride // (2 if bf16 else 1) if plan.stages else 0
+            elif plan.tier == "window":
+                laid_out = lib.lrs_pnp_ista_window_smem_bytes(K, plan.resident_rows)
+                scratch = plan.n_clusters * lib.lrs_pnp_ista_window_scratch_floats(
+                    P, K, plan.cluster_size, plan.seg)
             else:
                 laid_out = lib.lrs_pnp_ista_smem_bytes(int(bf16), plan.rows, plan.slice_rows, K, plan.seg)
+                scratch = 0
+            if scratch != plan.scratch_floats:
+                raise RuntimeError(
+                    f"the plan counts {plan.scratch_floats} floats of scratch, the kernel {scratch}")
             if laid_out != plan.smem_bytes:
                 raise RuntimeError(f"the plan counts {plan.smem_bytes} B of shared memory, the kernel {laid_out}")
             out = torch.empty((nB, K), dtype=torch.float32, device=device)
@@ -452,10 +603,20 @@ class FusedIstaKernel:
             head = (y.data_ptr(), m.data_ptr(), d.data_ptr(), alpha.data_ptr(), float(h_coef), out.data_ptr())
             tail = (nB, P, K, int(n_iter), int(bf16), plan.cluster_size, plan.n_clusters, plan.rows,
                     plan.slice_rows, plan.seg)
-            if plan.streamed:
+            if plan.tier == "streamed":
+                # the launch copies D for its streamed rows into this scratch
+                # first (stream_copies_d); allocated inside a capture, it stays the graph's
+                copy = None
+                if plan.scratch_floats:
+                    copy = (torch.empty(2 * plan.scratch_floats, dtype=torch.bfloat16, device=device) if bf16
+                            else torch.empty(plan.scratch_floats, dtype=torch.float32, device=device))
+                err = lib.lrs_pnp_ista_stream_launch(
+                    *head, None if copy is None else copy.data_ptr(), *tail, plan.resident_rows,
+                    plan.stages, plan.stage_rows, stream)
+            elif plan.tier == "window":
                 # the kernel initialises its scratch itself: no other launch
                 scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=device)
-                err = lib.lrs_pnp_ista_stream_launch(
+                err = lib.lrs_pnp_ista_window_launch(
                     *head, scratch.data_ptr(), *tail, plan.resident_rows, stream)
             else:
                 err = lib.lrs_pnp_ista_launch(*head, *tail, stream)

@@ -24,6 +24,7 @@ import torch
 
 from lrs_pnp_dip_tpu_torch.data import synthetic_sample
 from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused, svt_gram
+from lrs_pnp_dip_tpu_torch.ops.ista_cuda import plan_ista
 from lrs_pnp_dip_tpu_torch.solvers import BatchedSolver, Solver
 from lrs_pnp_dip_tpu_torch.utils.config import SolverConfig, SparseProxConfig
 
@@ -382,23 +383,45 @@ def test_dip_fit_replayed_equals_the_host_stepped_fit(cuda, compute_dtype):
 
 
 @pytest.mark.parametrize(
-    "nB,P,K,matmul_dtype",
-    [(13, 1700, 40, "float32"), (9, 1700, 30, "float32"), (20, 2704, 64, "float32"), (3, 16, 6000, "float32"),
-     (5, 200, 700, "bfloat16"), (3, 16, 3000, "bfloat16"), (17, 576, 1152, "bfloat16")],
+    "nB,P,K,matmul_dtype,tier",
+    [(13, 1700, 40, "float32", "streamed"), (9, 1700, 30, "float32", "streamed"),
+     (20, 2704, 64, "float32", "streamed"), (3, 16, 6000, "float32", "window"),
+     (5, 200, 700, "bfloat16", "streamed"), (3, 16, 3000, "bfloat16", "window"),
+     (17, 576, 1152, "bfloat16", "streamed"), (21, 2704, 512, "float32", "streamed"),
+     (7, 1296, 1000, "float32", "streamed"), (9, 1296, 1030, "bfloat16", "streamed"),
+     (4, 1024, 1200, "float32", "window"), (3, 7, 196, "bfloat16", "streamed"),
+     (240, 2704, 64, "float32", "streamed"), (240, 1296, 1000, "float32", "streamed"),
+     (5, 1296, 1022, "float32", "streamed")],
     ids=["f32-slices-past-96", "f32-K-not-multiple-of-4", "f32-block-52", "f32-K-6000",
-         "bf16-K-past-640", "bf16-K-3000", "bf16-P576-K1152"],
+         "bf16-K-past-640", "bf16-K-3000", "bf16-P576-K1152", "f32-block-52-K512",
+         "f32-K1000-nothing-resident", "bf16-K1030-partly-resident", "f32-K1200", "bf16-K196-forced",
+         "f32-16-rows-stages-of-16", "f32-16-rows-stages-of-8", "f32-K1022-rows-copied"],
 )
-def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype):
-    """Shapes the resident kernel does not take run on the streamed kernel:
-    against the plain loop at the limits of the module docstring (bf16: or
-    4 times the plain loop's own order sensitivity), two launches equal."""
+def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype, tier):
+    """Shapes the resident kernel does not take run on the streamed kernel,
+    or past its columns on the column-window kernel: against the plain loop
+    at the limits of the module docstring (bf16: or 4 times the plain loop's
+    own order sensitivity), two launches equal.  The case at K 196 forces
+    the streamed tier on a shape the resident kernel takes (P 7: the last CTA
+    owns no row of D and no column of x); the cases at nB 240 run tiles of 16
+    block rows; K 1022 streams rows copied from D with their padding."""
     Y, M, D = _problem(cuda, nB, P=P, K=K, seed=P + K)
     cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
-    assert ISTA_KERNEL.plan(nB, P, K, matmul_dtype == "bfloat16").streamed
-    got = pnp_ista_blocks_fused(Y, M, D, cfg)
-    again = pnp_ista_blocks_fused(Y, M, D, cfg)
-    torch.cuda.synchronize()
-    assert ISTA_KERNEL.last_plan.streamed and torch.equal(got, again)
+    bf16 = matmul_dtype == "bfloat16"
+    saved = dict(ISTA_KERNEL._plans)
+    if K == 196:
+        forced = plan_ista(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), tiers=("streamed",))
+        assert forced.tier == "streamed" and forced.p_slices()[-1][0] == P
+        ISTA_KERNEL._plans[(nB, P, K, bf16)] = forced
+    try:
+        assert ISTA_KERNEL.plan(nB, P, K, bf16).tier == tier
+        got = pnp_ista_blocks_fused(Y, M, D, cfg)
+        again = pnp_ista_blocks_fused(Y, M, D, cfg)
+        torch.cuda.synchronize()
+        assert ISTA_KERNEL.last_plan.tier == tier and torch.equal(got, again)
+    finally:
+        ISTA_KERNEL._plans.clear()
+        ISTA_KERNEL._plans.update(saved)
     ref = pnp_ista_blocks(Y, M, D, cfg)
     if matmul_dtype == "float32":
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
@@ -411,13 +434,15 @@ def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype):
 def test_streamed_kernel_replayed_from_a_graph(cuda):
     from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
 
-    Y, M, D = _problem(cuda, 13, P=1700, K=40)
-    cfg = SparseProxConfig(n_iter=12)
-    eager = pnp_ista_blocks_fused(Y, M, D, cfg)
-    graph = Captured(lambda: pnp_ista_blocks_fused(Y, M, D, cfg), cuda)
-    graph()
-    assert torch.equal(graph(), eager) and torch.equal(graph(), eager)
-    assert graph.b1_launches == 1 and graph.b1_plan.streamed
+    for nB, P, K, mm, tier in ((13, 1700, 40, "float32", "streamed"), (9, 1296, 1030, "bfloat16", "streamed"),
+                               (3, 16, 3000, "bfloat16", "window")):
+        Y, M, D = _problem(cuda, nB, P=P, K=K)
+        cfg = SparseProxConfig(n_iter=12, matmul_dtype=mm)
+        eager = pnp_ista_blocks_fused(Y, M, D, cfg)
+        graph = Captured(lambda: pnp_ista_blocks_fused(Y, M, D, cfg), cuda)
+        graph()
+        assert torch.equal(graph(), eager) and torch.equal(graph(), eager)
+        assert graph.b1_launches == 1 and graph.b1_plan.tier == tier
 
 
 def test_captures_run_under_deterministic_cudnn(cuda):

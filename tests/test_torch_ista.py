@@ -10,10 +10,12 @@ that this limit rejects a loop that skips the rounding of any operand.
 Kernel B1's tiling (``ops/ista_cuda.py:plan_ista``) is plain Python and is
 tested here without a card: its row chunks, slices of D and column segments
 cover everything once, its shared memory fits one CTA, and a PyTorch loop
-that follows the plan step by step (partial products per slice, summed in
-the kernel's ring order, the NLM on each segment with its halo of 4 and the
-reflect edge) equals the plain loop at rtol 1e-5 / atol 1e-6: only the order
-of the f32 sums differs."""
+that follows the plan step by step (partial products per slice -- in the
+streamed tier stage by stage, product 2 of each stage added into the
+slice's partial gradient -- summed in the kernel's ring order, the NLM on
+each segment with its halo of 4 and the reflect edge; in the column-window
+tier product 2 per window over all rows) equals the plain loop at rtol 1e-5
+/ atol 1e-6: only the order of the f32 sums differs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,7 @@ from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
 from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, block_grid, extract_blocks, pnp_ista_blocks_fused
 from lrs_pnp_dip_tpu_torch.ops import ista as tista
 from lrs_pnp_dip_tpu_torch.ops.ista_cuda import (
-    H100_RESIDENT_CLUSTERS, in_tpu_range, plan_ista, stream_smem_bytes, tpu_vmem_bytes,
+    H100_RESIDENT_CLUSTERS, in_tpu_range, plan_ista, stream_smem_bytes, tpu_vmem_bytes, window_smem_bytes,
 )
 from lrs_pnp_dip_tpu_torch.ops.nlm import nlm_column_batch_fast as t_nlm
 from lrs_pnp_dip_tpu_torch.solvers import make_consts
@@ -243,10 +245,14 @@ PLAN_SHAPES = (
     + [(324, 576, 512), (324, 576, 196), (324, 576, 200), (1296, 576, 512)]
     # the streamed kernel: blocks 40, 48 and 52 at K 512 (f32), P 1296 at
     # K 768 to 1152, P 576 at K 1152 and 1280 (bf16 past 640 columns),
-    # shapes the resident kernel refused
+    # shapes the resident kernel refused; the column-window kernel past 1024
+    # columns (f32) or 1280 (bf16)
     + [(324, 1600, 512), (4, 1700, 512), (4, 48, 700), (144, 1600, 512), (144, 2304, 512),
        (144, 2704, 512), (144, 1296, 768), (144, 1296, 1024), (144, 1296, 1152), (144, 576, 1152),
        (144, 576, 1280), (144, 1600, 768), (13, 7, 9000)]
+    # nothing resident (f32, K 1000), short slices at P 7 and K 196, block 40
+    # at the shapes of inpaint(block_size=40), K 1288 (bf16 past 1280)
+    + [(7, 1296, 1000), (3, 7, 196), (132, 1600, 512), (9, 1296, 1030), (5, 576, 1288)]
 )
 
 
@@ -265,11 +271,33 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
     assert plan.rows <= (16 if bf16 or plan.streamed else 11)
     assert plan.smem_bytes <= MAX_SMEM
     assert 0 <= plan.resident_rows <= plan.slice_rows
-    if plan.streamed:
+    if plan.tier == "streamed":
         assert plan.resident_rows == plan.slice_rows or plan.resident_rows % plan.stage_rows == 0
-        assert plan.smem_bytes == stream_smem_bytes(K, plan.resident_rows)
+        assert plan.smem_bytes == stream_smem_bytes(
+            bf16, plan.rows, K, plan.seg, plan.resident_rows, plan.stages, plan.stage_rows)
+        assert plan.stage_rows in ((16,) if bf16 else (8, 16)) and 0 <= plan.stages <= 4
+        # a ring only for rows to stream, of as many stages as there are, up to 3
+        streamed_stages = -(-plan.streamed_rows // plan.stage_rows)
+        assert plan.stages == min(3, streamed_stages)
+        assert K <= (1280 if bf16 else 1024)
+        # with rows to stream, D copied once per launch: bf16 rounded, rows
+        # padded to 16 values; f32 with K not a multiple of 4, padded to 8
+        if not plan.stages:
+            assert plan.scratch_floats == 0
+        elif bf16:
+            assert plan.scratch_floats == P * (-(-K // 16) * 16) // 2
+        else:
+            assert plan.scratch_floats == (P * (-(-K // 8) * 8) if K % 4 else 0)
+        assert (plan.l2_bytes_per_iteration > 0) == (plan.stages > 0)
+    elif plan.tier == "window":
+        assert plan.resident_rows == plan.slice_rows or plan.resident_rows % plan.stage_rows == 0
+        assert plan.smem_bytes == window_smem_bytes(K, plan.resident_rows)
         assert plan.scratch_floats > 0 and plan.l2_bytes_per_iteration > 0
+        if K <= (1280 if bf16 else 1024):  # the streamed kernel's shared memory refused it
+            with pytest.raises(ValueError, match="streamed"):
+                plan_ista(nB, P, K, bf16, tiers=("streamed",))
     else:
+        assert plan.tier == "resident"
         assert plan.resident_rows == plan.slice_rows and plan.scratch_floats == 0
     assert plan.cluster_size in H100_RESIDENT_CLUSTERS
     assert plan.resident == H100_RESIDENT_CLUSTERS[plan.cluster_size]
@@ -406,8 +434,55 @@ def _nlm_segment(g_win, lo, k0, k1, K, nih):
     return num / den
 
 
+def _reduce_and_denoise(plan, x, partial, ia, nih):
+    """Step 3 on the rows of one cluster: each CTA sums the partial
+    gradients of its columns and their halo in the ring order from its
+    successor, adds the carried x and runs the NLM on its segment."""
+    C, K = plan.cluster_size, plan.K
+    x_new = torch.zeros_like(x)
+    for rank, (k0, k1) in enumerate(plan.k_segments()):
+        if k1 == k0:
+            continue
+        lo, hi = max(0, k0 - 4), min(K, k1 + 4)
+        s = torch.zeros((x.shape[0], hi - lo))
+        for i in range(C):  # ring order from the CTA's successor
+            s = s + partial[(rank + 1 + i) % C][:, lo:hi]
+        x_new[:, k0:k1] = _nlm_segment(x[:, lo:hi] + s * ia[:, None], lo, k0, k1, K, nih)
+    return x_new
+
+
+def _resident_step(plan, x, Ym, M, D, ia, nih, rnd):
+    """One iteration of the resident kernels on the rows of one cluster:
+    both products per CTA slice, then step 3."""
+    partial = []
+    for pa, pb in plan.p_slices():  # one CTA each
+        Dc = rnd(D[pa:pb])
+        resid = Ym[:, pa:pb] - M[:, pa:pb] * (rnd(x) @ Dc.T)
+        partial.append(rnd(resid) @ Dc)
+    return _reduce_and_denoise(plan, x, partial, ia, nih)
+
+
 def _streamed_step(plan, x, Ym, M, D, ia, nih, rnd):
-    """One iteration of the streamed kernel on the rows of one cluster:
+    """One iteration of the streamed kernel on the rows of one cluster: per
+    CTA slice, stage by stage in row order (the resident stages, then the
+    streamed ones, ``stage_rows`` rows each), product 1 of the stage, its
+    residual, and its product 2 added into the CTA's partial gradient; then
+    step 3."""
+    S = plan.stage_rows
+    partial = []
+    for pa, pb in plan.p_slices():
+        g = torch.zeros_like(x)
+        for p in range(pa, pb, S):
+            rows = slice(p, min(pb, p + S))
+            Ds = rnd(D[rows])
+            resid = rnd(Ym[:, rows] - M[:, rows] * (rnd(x) @ Ds.T))
+            g = g + resid @ Ds
+        partial.append(g)
+    return _reduce_and_denoise(plan, x, partial, ia, nih)
+
+
+def _window_step(plan, x, Ym, M, D, ia, nih, rnd):
+    """One iteration of the column-window kernel on the rows of one cluster:
     product 1 per CTA slice in stages of ``stage_rows`` rows of D (resident
     first), each summed over column stages of 128 in order; the residual in
     device memory; product 2 per CTA over its columns and their halo, over
@@ -436,79 +511,79 @@ def _streamed_step(plan, x, Ym, M, D, ia, nih, rnd):
     return x_new
 
 
+_STEPS = {"resident": _resident_step, "streamed": _streamed_step, "window": _window_step}
+
+
 def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
     """pnp_ista_blocks as kernel B1 computes it under ``plan``."""
     Ym, M, D, alpha, h = tista._prepare(blocks, masks, D, cfg, alpha)
     rnd = (lambda t: t.to(torch.bfloat16).float()) if plan.bf16 else (lambda t: t)
     ia, nih = 1.0 / alpha, -1.0 / torch.clamp(h * h * 9.0, min=1e-30)
-    C, K = plan.cluster_size, plan.K
-    out = torch.zeros((plan.nB, K))
+    out = torch.zeros((plan.nB, plan.K))
+    step = _STEPS[plan.tier]
     for ra, rb in plan.row_chunks():
-        x = torch.zeros((rb - ra, K))
+        x = torch.zeros((rb - ra, plan.K))
         for _ in range(cfg.n_iter):
-            if plan.streamed:
-                x = _streamed_step(plan, x, Ym[ra:rb], M[ra:rb], D, ia[ra:rb], nih[ra:rb], rnd)
-                continue
-            partial = []
-            for pa, pb in plan.p_slices():  # one CTA each
-                Dc = rnd(D[pa:pb])
-                resid = Ym[ra:rb, pa:pb] - M[ra:rb, pa:pb] * (rnd(x) @ Dc.T)
-                partial.append(rnd(resid) @ Dc)
-            x_new = torch.zeros_like(x)
-            for rank, (k0, k1) in enumerate(plan.k_segments()):
-                if k1 == k0:
-                    continue
-                lo, hi = max(0, k0 - 4), min(K, k1 + 4)
-                s = torch.zeros((rb - ra, hi - lo))
-                for i in range(C):  # ring order from the CTA's successor
-                    s = s + partial[(rank + 1 + i) % C][:, lo:hi]
-                g_win = x[:, lo:hi] + s * ia[ra:rb, None]
-                x_new[:, k0:k1] = _nlm_segment(g_win, lo, k0, k1, K, nih[ra:rb])
-            x = x_new
+            x = step(plan, x, Ym[ra:rb], M[ra:rb], D, ia[ra:rb], nih[ra:rb], rnd)
         out[ra:rb] = x
     return out
 
 
-SMALL_SMEM, STREAM_ONLY = "small", "stream only"  # shared-memory limits, set in the test
+def _forced_plan(nB, P, K, bf16, tier, resident_rows):
+    """The plan of ``tier`` with ``resident_rows`` rows of each slice resident
+    (clusters of 8): the shared-memory limit set so that just these fit."""
+    clusters = {8: 15, 16: 0}
+    if tier == "window":
+        return plan_ista(nB, P, K, bf16, resident=clusters, smem_limit=window_smem_bytes(K, resident_rows),
+                         tiers=("window",))
+    first = plan_ista(nB, P, K, bf16, resident=clusters, tiers=("streamed",))
+    S = first.stage_rows
+    stages = min(3, -(-(first.slice_rows - resident_rows) // S))
+    limit = stream_smem_bytes(bf16, first.rows, K, first.seg, resident_rows, stages, S)
+    return plan_ista(nB, P, K, bf16, resident=clusters, smem_limit=limit, tiers=("streamed",))
 
 
 @pytest.mark.parametrize(
-    "nB,P,K,bf16,resident",
+    "nB,P,K,bf16,resident,forced",
     [
-        (5, 48, 32, False, H100_RESIDENT_CLUSTERS),
-        (13, 48, 32, False, {8: 1, 16: 1}),  # 7 rows per cluster, two clusters
-        (7, 50, 6, False, H100_RESIDENT_CLUSTERS),  # the narrowest K: segments of 4 and 2 columns
-        (9, 36, 30, False, {8: 2, 16: 1}),  # K not a multiple of 4
-        (6, 100, 300, False, H100_RESIDENT_CLUSTERS),  # a short last segment
-        (13, 48, 32, True, {8: 1, 16: 1}),
-        (5, 576, 196, False, H100_RESIDENT_CLUSTERS),  # the eighth CTA owns no column
-        (5, 576, 200, True, H100_RESIDENT_CLUSTERS),  # the eighth CTA owns 4, its halo reflects
-        # the streamed kernel (shapes the resident kernel refuses), with a
-        # shared-memory limit that keeps 32 rows of each slice resident: f32 at
-        # P 1600 (slices of 100 rows: one resident stage, three streamed, the
-        # last of 4 rows), bf16 past 640 columns (slices of 38: 32 and 6)
-        (3, 1600, 40, False, SMALL_SMEM),
-        (3, 600, 700, True, SMALL_SMEM),
-        # nothing resident: K not a multiple of 4; windows of 72 columns, two
-        # stages of product 2
-        (9, 1700, 30, False, STREAM_ONLY),
-        (2, 20, 1000, False, STREAM_ONLY),
-        (3, 200, 700, True, H100_RESIDENT_CLUSTERS),  # bf16 past 640 columns: streamed
+        (5, 48, 32, False, H100_RESIDENT_CLUSTERS, None),
+        (13, 48, 32, False, {8: 1, 16: 1}, None),  # 7 rows per cluster, two clusters
+        (7, 50, 6, False, H100_RESIDENT_CLUSTERS, None),  # the narrowest K: segments of 4 and 2 columns
+        (9, 36, 30, False, {8: 2, 16: 1}, None),  # K not a multiple of 4
+        (6, 100, 300, False, H100_RESIDENT_CLUSTERS, None),  # a short last segment
+        (13, 48, 32, True, {8: 1, 16: 1}, None),
+        (5, 576, 196, False, H100_RESIDENT_CLUSTERS, None),  # the eighth CTA owns no column
+        (5, 576, 200, True, H100_RESIDENT_CLUSTERS, None),  # the eighth CTA owns 4, its halo reflects
+        # the streamed kernel (shapes the resident kernel refuses, or forced
+        # with a shared-memory limit that keeps the given rows of each slice
+        # resident): f32 at P 1600 (slices of 200 rows: 32 resident, 168
+        # through a ring of 4 stages of 16, the last of 8 rows), bf16 past 640
+        # columns (slices of 150: 16 resident, 134 in 9 stages of 16 through a
+        # ring of 4, the last of 6), nothing resident with K not a multiple of 4, a bf16
+        # slice wholly resident past 640 columns, P 7 (the last CTA owns no
+        # row) at K 196 (and no column)
+        (3, 1600, 40, False, H100_RESIDENT_CLUSTERS, ("streamed", 32)),
+        (3, 1200, 700, True, H100_RESIDENT_CLUSTERS, ("streamed", 16)),
+        (9, 1700, 30, False, H100_RESIDENT_CLUSTERS, ("streamed", 0)),
+        (3, 200, 700, True, H100_RESIDENT_CLUSTERS, None),
+        (3, 7, 196, True, H100_RESIDENT_CLUSTERS, ("streamed", 1)),
+        (4, 600, 1024, False, H100_RESIDENT_CLUSTERS, ("streamed", 0)),
+        # the column-window kernel: nothing resident, windows of 72 columns,
+        # two stages of product 2; past 1024 columns in f32
+        (2, 20, 1000, False, H100_RESIDENT_CLUSTERS, ("window", 0)),
+        (2, 20, 1100, False, H100_RESIDENT_CLUSTERS, None),
     ],
 )
-def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident):
+def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident, forced):
     Y, M, D = _problem(nB + K, P=P, K=K, nB=nB, missing_block=True)
     cfg = SparseProxConfig(n_iter=8, matmul_dtype="bfloat16" if bf16 else "float32")
-    limit = {}
-    if resident is SMALL_SMEM:
-        limit = dict(smem_limit=stream_smem_bytes(K, 32) + 100)
-        resident = H100_RESIDENT_CLUSTERS
-    elif resident is STREAM_ONLY:
-        limit = dict(smem_limit=stream_smem_bytes(K, 0))
-        resident = H100_RESIDENT_CLUSTERS
-    plan = plan_ista(nB, P, K, bf16, resident=resident, **limit)
-    if limit:
-        assert plan.streamed and plan.resident_rows == (32 if limit['smem_limit'] > stream_smem_bytes(K, 0) + 100 else 0)
+    if forced:
+        plan = _forced_plan(nB, P, K, bf16, *forced)
+        assert (plan.tier, plan.resident_rows) == forced
+    else:
+        plan = plan_ista(nB, P, K, bf16, resident=resident)
+    if plan.tier == "streamed" and forced:
+        assert plan.stages == min(3, -(-plan.streamed_rows // plan.stage_rows)) > 0 or P == 7
     ref = tista.pnp_ista_blocks(*_t(Y, M, D), cfg)
     got = _emulate_plan(plan, *_t(Y, M, D), cfg, None)
     if bf16:  # the order of the sums flips an operand's rounding now and then
@@ -516,6 +591,36 @@ def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident):
     else:
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
     assert torch.all(got[1] == 0.0)  # a fully missing block never moves
+
+
+def test_plan_tiers_at_the_streamed_shapes():
+    """Which tier and tiling each shape of chip_smoke.WIDE_SHAPES gets on an
+    H100 (nB 144), and the bytes of D its clusters stream per iteration:
+    one wave of clusters of 8 everywhere (on the card it beat two waves of
+    clusters of 16, even at P 576 / K 1152 in bf16, where those hold the
+    whole slice); f32 at K 512 in stages of 16 rows with two of them
+    resident, at K 1024 in stages of 8 with one resident; a ring of three
+    stages; K past the streamed kernel's columns takes the window tier."""
+    got = {}
+    for P, K, bf16 in ((1600, 512, False), (2304, 512, False), (2704, 512, False), (1296, 1024, False),
+                       (1296, 1024, True), (576, 1152, True)):
+        plan = plan_ista(144, P, K, bf16)
+        got[(P, K, bf16)] = (plan.tier, plan.cluster_size, plan.waves, plan.resident_rows, plan.stage_rows,
+                             plan.stages)
+    assert got == {
+        (1600, 512, False): ("streamed", 8, 1, 32, 16, 3),
+        (2304, 512, False): ("streamed", 8, 1, 32, 16, 3),
+        (2704, 512, False): ("streamed", 8, 1, 32, 16, 3),
+        (1296, 1024, False): ("streamed", 8, 1, 8, 8, 3),
+        (1296, 1024, True): ("streamed", 8, 1, 32, 16, 3),
+        (576, 1152, True): ("streamed", 8, 1, 16, 16, 3),
+    }
+    # block 40: 8 CTAs stream the 168 rows of 512 floats past their 32 resident ones once per iteration
+    assert plan_ista(144, 1600, 512, False).l2_bytes_per_iteration == 8 * 168 * 512 * 4
+    # bf16 rows come from the rounded copy: 1152 values of 2 bytes
+    assert plan_ista(144, 576, 1152, True).l2_bytes_per_iteration == 8 * (72 - 16) * 1152 * 2
+    assert plan_ista(13, 1296, 1152, False).tier == "window"
+    assert plan_ista(13, 7, 9000, True).tier == "window"
 
 
 class _OnCard:
