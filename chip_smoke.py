@@ -22,7 +22,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                repeat, its plan (tier, waves, bytes of D through L2 per
                cluster and iteration) printed; and the column-window tier
                once (f32, P 256, K 3000, nB 13) against its plain loop,
-               equal bits on repeat;
+               equal bits on repeat; and the f32 streamed kernel's tiles of
+               16 block rows at nB 240 (block 40, K 512; P 1296, K 1024),
+               against the plain loop and timed beside 12 rows per cluster
+               in two waves (wide_tiles_of_16);
   3. timing  — B1 at the main-path shape, at nB 2304 and at the streamed
                shapes with CUDA events, beside its bound, its plain version
                and the 2 n_iter torch.matmul calls (f32 and bf16);
@@ -423,6 +426,52 @@ def window_check() -> None:
     torch.testing.assert_close(got, ref, **F32_TOL)
     log(f"  window tier, f32, nB 13, P 256, K 3000, 20 iterations: max|delta|={float((got - ref).abs().max()):.3e} "
         f"from the plain loop, two launches give equal bits; plan: {describe_plan(plan)}")
+
+
+def wide_tiles_of_16(peaks: dict, smi: str) -> dict:
+    """The f32 streamed kernel with tiles of 16 block rows (more than 12 rows
+    per cluster): at nB 240 the plan runs 16 rows per cluster in one wave of
+    15 clusters of 8, at block 40 / K 512 (stages of 16 rows) and at P 1296
+    / K 1024 (stages of 8).  Each is held to its plain loop with equal bits
+    on repeat and timed beside the same inputs on 12 rows per cluster in
+    two waves (tiles of 12), the tiling the plan would take if it did not
+    count waves first."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, _streamed_plan
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    out = {}
+    for block, K in ((40, 512), (36, 1024)):
+        wide = wide_problem(block, K, nB=240)
+        P = block * block
+        plan = ISTA_KERNEL.plan(240, P, K, False)
+        if (plan.tier, plan.rows, plan.waves) != ("streamed", 16, 1):
+            raise AssertionError(f"nB 240, P {P}, K {K}: {describe_plan(plan)}, not 16 rows in one wave")
+        err = check_kernel(*wide, "float32")
+        check_same_bits(*wide, "float32")
+        t = time_b1(*wide, "float32", peaks)
+        twelve = _streamed_plan(240, P, K, False, {8: 10, 16: 0}, _MAX_SMEM_BYTES, [])
+        if twelve is None or twelve.rows != 12:
+            raise AssertionError(f"nB 240, P {P}, K {K}: no tiling of 12 rows per cluster")
+        cfg = SparseProxConfig(n_iter=100)
+        saved = dict(ISTA_KERNEL._plans)
+        ISTA_KERNEL._plans[(240, P, K, False)] = twelve
+        try:
+            got = pnp_ista_blocks_fused(*wide[:3], cfg, alpha=wide[3])
+            t12 = time_cuda(lambda: pnp_ista_blocks_fused(*wide[:3], cfg, alpha=wide[3]), reps=5)
+        finally:
+            ISTA_KERNEL._plans.clear()
+            ISTA_KERNEL._plans.update(saved)
+        torch.testing.assert_close(got, pnp_ista_blocks(*wide[:3], cfg, alpha=wide[3]), **F32_TOL)
+        out[f"P{P}_K{K}_float32_nB240"] = dict(
+            t, max_abs_err=err, tier=plan.tier, waves=plan.waves, rows=plan.rows,
+            l2_bytes_per_iteration=plan.l2_bytes_per_iteration, rows12_two_waves_ms=t12)
+        log(f"  nB 240, P {P}, K {K}, f32: 16 rows per cluster in one wave {t['ms']:.4f} ms, 12 rows in "
+            f"{-(-twelve.n_clusters // plan.resident)} waves {t12:.4f} ms; bound_ms={t['bound_ms']:.4f}; "
+            f"plain_ms={t['plain_ms']:.4f}; 200 torch.matmul calls {t['library_ms']:.4f} ms; card {smi}")
+    return out
 
 
 def describe_plan(plan) -> str:
@@ -1493,6 +1542,7 @@ def main() -> int:
                 f"{t['bound_ms'] / t['ms']:.1%} of bound; plain_ms={t['plain_ms']:.4f}; {2 * 100} {mm} "
                 f"torch.matmul calls {t['library_ms']:.4f} ms; card {smi}")
     window_check()
+    wide_timing.update(wide_tiles_of_16(peaks, smi))
     log(f"  (streamed shapes {time.perf_counter() - t_phase:.1f} s)")
 
     # 3. timing at the main-path shape

@@ -114,7 +114,9 @@
 //   2. the partial gradient goes to shared memory in the ring's place, and
 //      step 3 (reduce_nlm_push, init_rows and write_out are the resident
 //      kernels', with all the CTA's threads) sums it through the cluster in
-//      the fixed ring order.
+//      the fixed ring order.  Then its place is zeroed again: a short last
+//      stage copies only its valid rows, and the rest of its slot must
+//      hold zeros or rows of D, not gradient bits read as bf16 (NaN).
 //
 // Nothing goes through device memory per iteration.  Every sum runs in a
 // fixed order without atomics, so two launches give equal bits.  bf16 rounds
@@ -1286,9 +1288,12 @@ __global__ void __launch_bounds__(stream_threads<kBf16>()) pnp_ista_stream(const
     store_operand4(s_dres + p * ld + k, v);
   }
   zero16<kNT>(s_x, round_up(kRT * ld * (int)sizeof(T), 16));
-  // The ring starts at zero: a bulk copy writes K values of a row (f32) and
-  // the rows of the slice, so the rest of a slot keeps what it held, finite
-  // values that meet zeros of x or of the residual.
+  // The ring starts at zero, and the partial gradient's place in it is
+  // zeroed again after each step 3: a bulk copy writes K values of a row
+  // (f32) and only the rows of the slice, so the rest of a slot keeps what
+  // it held.  That must be zero or rows of D, never a partial gradient's
+  // bits: read as bf16, some of them are Inf or NaN, and product 1 meets
+  // them (0 * NaN is NaN, which product 2 spreads over every column).
   zero16<kNT>(s_ring, L.part - L.ring);
   fence_proxy_async();
   if (tid == 0) {
@@ -1592,6 +1597,11 @@ __global__ void __launch_bounds__(stream_threads<kBf16>()) pnp_ista_stream(const
     reduce_nlm_push<T, kNT>(cluster, a, Lg, s_g, s_gseg, s_xown, s_x, ld, s_ia, s_nih, nrows, cur, clock);
     cur ^= 1;
     cluster.sync();
+    if (NS > 0 && it + 1 < a.n_iter) {  // the peers have read s_g: zero it before the next pass's copies
+      zero16<kNT>(s_g, a.R * L.ldg * 4);
+      fence_proxy_async();
+      __syncthreads();
+    }
     clock.end(7);
   }
   write_out<kNT>(cluster, a, s_xown, row0, nrows, cur);

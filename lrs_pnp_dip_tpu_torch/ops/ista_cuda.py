@@ -31,7 +31,7 @@ import shutil
 import subprocess
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional
 
 import torch
 
@@ -412,15 +412,10 @@ def _window_plan(nB, P, K, bf16, resident, smem_limit, reasons):
     return None
 
 
-TIERS = ("resident", "streamed", "window")
-_TIER_PLANS = {"resident": _resident_plan, "streamed": _streamed_plan, "window": _window_plan}
-
-
 def plan_ista(
     nB: int, P: int, K: int, bf16: bool,
     resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
     smem_limit: int = _MAX_SMEM_BYTES,
-    tiers: Sequence[str] = TIERS,
 ) -> IstaPlan:
     """Choose the tiling for (nB, P, K, operand type).
 
@@ -432,23 +427,23 @@ def plan_ista(
     (:func:`_streamed_plan`), and past its columns the column-window kernel:
     between them every shape in the TPU kernel's range (:func:`in_tpu_range`).
     All run one CTA of 256 threads per SM (at most 255 registers a thread),
-    so the card keeps as many of their clusters resident.  ``tiers`` names
-    the tiers to try, in this order (the tests force one with it).  Raises
+    so the card keeps as many of their clusters resident.  Raises
     ValueError with the reason for a shape none takes, which names
     ``backend="xla"`` as the way around it."""
     if nB < 1 or P < 1 or K < 6:
         raise _refused(f"needs nB >= 1, P >= 1 and K >= 6 (nB={nB}, P={P}, K={K})")
     reasons = []
-    for tier in tiers:
-        if tier != "resident" and not in_tpu_range(P, K):
-            reasons.append(
-                f"past the TPU kernel's range: {tpu_vmem_bytes(P, K)} B of VMEM at its smallest tile "
-                f"(> {_TPU_VMEM_BUDGET})"
-            )
-            break
-        plan = _TIER_PLANS[tier](nB, P, K, bf16, resident, smem_limit, reasons)
-        if plan is not None:
-            return plan
+    plan = _resident_plan(nB, P, K, bf16, resident, smem_limit, reasons)
+    if plan is None and not in_tpu_range(P, K):
+        reasons.append(
+            f"past the TPU kernel's range: {tpu_vmem_bytes(P, K)} B of VMEM at its smallest tile "
+            f"(> {_TPU_VMEM_BUDGET})"
+        )
+    elif plan is None:
+        plan = (_streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons)
+                or _window_plan(nB, P, K, bf16, resident, smem_limit, reasons))
+    if plan is not None:
+        return plan
     raise _refused(
         f"kernel B1 does not take P={P}, K={K} with {'bf16' if bf16 else 'f32'} operands: "
         + "; ".join(reasons)

@@ -23,8 +23,10 @@ import pytest
 import torch
 
 from lrs_pnp_dip_tpu_torch.data import synthetic_sample
-from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused, svt_gram
-from lrs_pnp_dip_tpu_torch.ops.ista_cuda import plan_ista
+from lrs_pnp_dip_tpu_torch.ops import (
+    ISTA_KERNEL, compute_alpha, pnp_ista_blocks, pnp_ista_blocks_fused, svt_gram,
+)
+from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, _streamed_plan
 from lrs_pnp_dip_tpu_torch.solvers import BatchedSolver, Solver
 from lrs_pnp_dip_tpu_torch.utils.config import SolverConfig, SparseProxConfig
 
@@ -93,13 +95,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         pnp_ista_blocks_fused(Y, M[:, :40].contiguous(), D, cfg)
 
 
-def _order_sensitivity(Y, M, D, cfg, ref):
+def _order_sensitivity(Y, M, D, cfg, ref, alpha=None):
     """max |delta| of the bf16 plain loop against itself with the rows of D
     permuted: what a change in the order of the sums alone does."""
     worst = 0.0
     for seed in range(2):
         perm = torch.randperm(D.shape[0], generator=torch.Generator().manual_seed(seed)).to(D.device)
-        moved = pnp_ista_blocks(Y[:, perm].contiguous(), M[:, perm].contiguous(), D[perm].contiguous(), cfg)
+        moved = pnp_ista_blocks(Y[:, perm].contiguous(), M[:, perm].contiguous(), D[perm].contiguous(), cfg,
+                                alpha=alpha)
         worst = max(worst, float((moved - ref).abs().max()))
     return worst
 
@@ -410,7 +413,7 @@ def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype, tier):
     bf16 = matmul_dtype == "bfloat16"
     saved = dict(ISTA_KERNEL._plans)
     if K == 196:
-        forced = plan_ista(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), tiers=("streamed",))
+        forced = _streamed_plan(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES, [])
         assert forced.tier == "streamed" and forced.p_slices()[-1][0] == P
         ISTA_KERNEL._plans[(nB, P, K, bf16)] = forced
     try:
@@ -429,6 +432,83 @@ def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype, tier):
         f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=12))
         _assert_bf16_tracks(got, ref, f32_ref, _order_sensitivity(Y, M, D, cfg, ref))
     assert torch.all(got[1] == 0.0)
+
+
+def _zero_padded_slices(Y, M, D, plan, rows):
+    """The problem with each CTA's slice of D (``plan.p_slices()``) padded
+    with zero rows of D, Y and M to ``rows`` rows: the same sums, each
+    streamed stage whole."""
+    C = plan.cluster_size
+    Yp, Mp = (torch.zeros((t.shape[0], C * rows), device=t.device) for t in (Y, M))
+    Dp = torch.zeros((C * rows, D.shape[1]), device=D.device)
+    for c, (pa, pb) in enumerate(plan.p_slices()):
+        Yp[:, c * rows:c * rows + pb - pa] = Y[:, pa:pb]
+        Mp[:, c * rows:c * rows + pb - pa] = M[:, pa:pb]
+        Dp[c * rows:c * rows + pb - pa] = D[pa:pb]
+    return Yp, Mp, Dp
+
+
+def _tensor_core_sensitivity(Y, M, D, cfg, ref, alpha=None):
+    """max |delta| of the bf16 plain loop against itself with its products
+    on the tensor cores (TF32 takes the bf16-valued operands exactly and
+    accumulates in f32 as the kernel's mma.sync does), in cuBLAS's order."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        moved = pnp_ista_blocks(Y, M, D, cfg, alpha=alpha)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return float((moved - ref).abs().max())
+
+
+@pytest.mark.parametrize(
+    "P,K,matmul_dtype",
+    [(400, 1024, "bfloat16"), (529, 1024, "bfloat16"), (1296, 1004, "float32")],
+    ids=["bf16-one-short-stage", "bf16-short-second-stage", "f32-K1004-columns-past-K"],
+)
+def test_streamed_kernel_short_stage_in_a_fresh_slot(cuda, P, K, matmul_dtype):
+    """At nB 144 and K 1024 in bf16 (10 rows per cluster, 48 of each slice
+    resident) P 400 streams one stage of 2 rows per CTA and P 529 two, the
+    second of 3 rows: each short stage is the first of its pass in its slot,
+    whose other rows held the partial gradient in the step 3 before (read as
+    bf16, such bits were Inf or NaN).  At K 1004 in f32 the bulk copies
+    write 1004 of each row's 1008 columns.  12 iterations, two launches
+    equal; equal bits to the same problem with each slice padded by zero
+    rows to whole stages (the same sums); against the plain loop, f32 at the
+    limits of the module docstring, bf16 finite, within 0.02 of the f32
+    plain loop and within 1e-5 max|ref| or 4 times the bf16 plain loop's own
+    movement, whichever is larger: with the rows of D permuted
+    (_order_sensitivity) or with its products on the tensor cores.  At P 400
+    max|ref| is 0.015, and one residual whose bf16 rounding flips moves an
+    output by about 1e-5 of it; the f32 kernel must still fail the limit."""
+    nB = 144
+    bf16 = matmul_dtype == "bfloat16"
+    plan = ISTA_KERNEL.plan(nB, P, K, bf16)
+    assert (plan.tier, plan.cluster_size, plan.rows) == ("streamed", 8, 10) and plan.stages > 0
+    Y, M, D = _problem(cuda, nB, P=P, K=K, seed=P + K)
+    cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
+    alpha = compute_alpha(D, M, cfg)  # one alpha for both layouts: its sum over P runs in cuBLAS's order
+    got = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+    again = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+    rows = plan.resident_rows + -(-plan.streamed_rows // plan.stage_rows) * plan.stage_rows
+    padded = _zero_padded_slices(Y, M, D, plan, rows)
+    whole = ISTA_KERNEL.plan(nB, plan.cluster_size * rows, K, bf16)
+    assert (whole.cluster_size, whole.rows, whole.resident_rows, whole.stage_rows, whole.stages) == (
+        plan.cluster_size, plan.rows, plan.resident_rows, plan.stage_rows, plan.stages)
+    assert whole.streamed_rows % whole.stage_rows == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert torch.equal(pnp_ista_blocks_fused(*padded, cfg, alpha=alpha), got)
+    ref = pnp_ista_blocks(Y, M, D, cfg, alpha=alpha)
+    assert torch.all(got[1] == 0.0)
+    if not bf16:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+        return
+    floor = max(_order_sensitivity(Y, M, D, cfg, ref, alpha), _tensor_core_sensitivity(Y, M, D, cfg, ref, alpha))
+    f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha)
+    _assert_bf16_tracks(got, ref, f32_ref, floor)
+    f32_gap = float((pnp_ista_blocks_fused(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha) - ref).abs().max())
+    assert f32_gap >= max(1e-5 * float(ref.abs().max()), 4.0 * floor)
 
 
 def test_streamed_kernel_replayed_from_a_graph(cuda):

@@ -29,7 +29,8 @@ from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
 from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, block_grid, extract_blocks, pnp_ista_blocks_fused
 from lrs_pnp_dip_tpu_torch.ops import ista as tista
 from lrs_pnp_dip_tpu_torch.ops.ista_cuda import (
-    H100_RESIDENT_CLUSTERS, in_tpu_range, plan_ista, stream_smem_bytes, tpu_vmem_bytes, window_smem_bytes,
+    H100_RESIDENT_CLUSTERS, _streamed_plan, _window_plan, in_tpu_range, plan_ista, stream_smem_bytes,
+    tpu_vmem_bytes, window_smem_bytes,
 )
 from lrs_pnp_dip_tpu_torch.ops.nlm import nlm_column_batch_fast as t_nlm
 from lrs_pnp_dip_tpu_torch.solvers import make_consts
@@ -275,7 +276,7 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
         assert plan.resident_rows == plan.slice_rows or plan.resident_rows % plan.stage_rows == 0
         assert plan.smem_bytes == stream_smem_bytes(
             bf16, plan.rows, K, plan.seg, plan.resident_rows, plan.stages, plan.stage_rows)
-        assert plan.stage_rows in ((16,) if bf16 else (8, 16)) and 0 <= plan.stages <= 4
+        assert plan.stage_rows in ((16,) if bf16 else (8, 16)) and 0 <= plan.stages <= 3
         # a ring only for rows to stream, of as many stages as there are, up to 3
         streamed_stages = -(-plan.streamed_rows // plan.stage_rows)
         assert plan.stages == min(3, streamed_stages)
@@ -294,8 +295,9 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
         assert plan.smem_bytes == window_smem_bytes(K, plan.resident_rows)
         assert plan.scratch_floats > 0 and plan.l2_bytes_per_iteration > 0
         if K <= (1280 if bf16 else 1024):  # the streamed kernel's shared memory refused it
-            with pytest.raises(ValueError, match="streamed"):
-                plan_ista(nB, P, K, bf16, tiers=("streamed",))
+            reasons = []
+            assert _streamed_plan(nB, P, K, bf16, H100_RESIDENT_CLUSTERS, MAX_SMEM, reasons) is None
+            assert reasons and all(r.startswith("streamed") for r in reasons)
     else:
         assert plan.tier == "resident"
         assert plan.resident_rows == plan.slice_rows and plan.scratch_floats == 0
@@ -534,13 +536,15 @@ def _forced_plan(nB, P, K, bf16, tier, resident_rows):
     (clusters of 8): the shared-memory limit set so that just these fit."""
     clusters = {8: 15, 16: 0}
     if tier == "window":
-        return plan_ista(nB, P, K, bf16, resident=clusters, smem_limit=window_smem_bytes(K, resident_rows),
-                         tiers=("window",))
-    first = plan_ista(nB, P, K, bf16, resident=clusters, tiers=("streamed",))
-    S = first.stage_rows
-    stages = min(3, -(-(first.slice_rows - resident_rows) // S))
-    limit = stream_smem_bytes(bf16, first.rows, K, first.seg, resident_rows, stages, S)
-    return plan_ista(nB, P, K, bf16, resident=clusters, smem_limit=limit, tiers=("streamed",))
+        plan = _window_plan(nB, P, K, bf16, clusters, window_smem_bytes(K, resident_rows), [])
+    else:
+        first = _streamed_plan(nB, P, K, bf16, clusters, MAX_SMEM, [])
+        S = first.stage_rows
+        stages = min(3, -(-(first.slice_rows - resident_rows) // S))
+        limit = stream_smem_bytes(bf16, first.rows, K, first.seg, resident_rows, stages, S)
+        plan = _streamed_plan(nB, P, K, bf16, clusters, limit, [])
+    assert plan is not None
+    return plan
 
 
 @pytest.mark.parametrize(
@@ -557,9 +561,9 @@ def _forced_plan(nB, P, K, bf16, tier, resident_rows):
         # the streamed kernel (shapes the resident kernel refuses, or forced
         # with a shared-memory limit that keeps the given rows of each slice
         # resident): f32 at P 1600 (slices of 200 rows: 32 resident, 168
-        # through a ring of 4 stages of 16, the last of 8 rows), bf16 past 640
+        # through a ring of 3 stages of 16, the last of 8 rows), bf16 past 640
         # columns (slices of 150: 16 resident, 134 in 9 stages of 16 through a
-        # ring of 4, the last of 6), nothing resident with K not a multiple of 4, a bf16
+        # ring of 3, the last of 6), nothing resident with K not a multiple of 4, a bf16
         # slice wholly resident past 640 columns, P 7 (the last CTA owns no
         # row) at K 196 (and no column)
         (3, 1600, 40, False, H100_RESIDENT_CLUSTERS, ("streamed", 32)),
@@ -621,6 +625,41 @@ def test_plan_tiers_at_the_streamed_shapes():
     assert plan_ista(144, 576, 1152, True).l2_bytes_per_iteration == 8 * (72 - 16) * 1152 * 2
     assert plan_ista(13, 1296, 1152, False).tier == "window"
     assert plan_ista(13, 7, 9000, True).tier == "window"
+
+
+def _short_stages_in_fresh_slots(plan):
+    """(CTA, slot, valid rows) of each short stage that is the first of its
+    pass in its slot while rows of the slot past it lay under the partial
+    gradient in the step 3 before: the rows that no bulk copy writes in
+    the pass (csrc/ista.cu, make_stream_layout: the ring, then the partial
+    gradient in its place)."""
+    S = plan.stage_rows
+    esz = 2 if plan.bf16 else 4
+    kp = -(-plan.K // (16 if plan.bf16 else 8)) * (16 if plan.bf16 else 8)
+    slot_bytes, row_bytes = S * (kp + (8 if plan.bf16 else 4)) * esz, (kp + (8 if plan.bf16 else 4)) * esz
+    g_bytes = plan.rows * (kp + 8) * 4
+    found = []
+    for c, (pa, pb) in enumerate(plan.p_slices()):
+        streamed = max(0, pb - pa - plan.resident_rows)
+        for s in range(min(plan.stages, -(-streamed // S))):
+            valid = min(S, streamed - s * S)
+            if valid < S and s * slot_bytes + valid * row_bytes < g_bytes:
+                found.append((c, s, valid))
+    return found
+
+
+@pytest.mark.parametrize("P,expected", [(400, (0, 2)), (529, (1, 3))], ids=["one-stage", "second-stage"])
+def test_card_cases_stream_a_short_stage_into_a_fresh_slot(P, expected):
+    """tests/test_torch_cuda.py's cases bf16-one-short-stage and
+    bf16-short-second-stage (nB 144, K 1024, bf16: 10 rows per cluster)
+    reach the rows of a ring slot that only the partial gradient wrote
+    before: P 400 streams one stage of 2 rows per CTA into slot 0, P 529
+    two stages, the second of 3 rows into slot 1 (which the partial
+    gradient's 10 rows reach past slot 0)."""
+    plan = plan_ista(144, P, 1024, True)
+    assert (plan.tier, plan.rows, plan.cluster_size, plan.resident_rows) == ("streamed", 10, 8, 48)
+    found = _short_stages_in_fresh_slots(plan)
+    assert (0, *expected) in found and all((slot, valid) == expected for c, slot, valid in found if c < 7)
 
 
 class _OnCard:
