@@ -20,12 +20,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                512 and P 1296 at K 1024, f32 and bf16, and P 576 at K 1152
                in bf16, each against its plain loop, with equal bits on
                repeat, its plan (tier, waves, bytes of D through L2 per
-               cluster and iteration) printed; and the column-window tier
-               once (f32, P 256, K 3000, nB 13) against its plain loop,
-               equal bits on repeat; and the f32 streamed kernel's tiles of
-               16 block rows at nB 240 (block 40, K 512; P 1296, K 1024),
-               against the plain loop and timed beside 12 rows per cluster
-               in two waves (wide_tiles_of_16);
+               cluster and iteration) printed, bf16 held to the larger of
+               1e-5 and 4 times the bf16 plain loop's floor (rows of D
+               permuted, or its products on the tensor cores); the f32
+               streamed kernel's tiles of 16 block rows at nB 240 (block 40,
+               K 512; P 1296, K 1024), against the plain loop and timed
+               beside 12 rows per cluster in two waves (wide_tiles_of_16);
+               then the column kernel at nB 144 (LONG_K_SHAPES: P 1296 / K
+               1152 f32, P 576 / K 2048 and P 256 / K 3000 f32 and bf16) the
+               same way, timed beside its bound, plain loop and yardstick,
+               and once at P 256 / K 3000, nB 13 (long_k_check);
   3. timing  — B1 at the main-path shape, at nB 2304 and at the streamed
                shapes with CUDA events, beside its bound, its plain version
                and the 2 n_iter torch.matmul calls (f32 and bf16);
@@ -42,8 +46,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                same solve on the CPU); inpaint(variant="dip_1lip"),
                inpaint(variant="dip_fast") (B1 with bf16 operands, the bf16
                DIP fit), the same with a random 1296x1024 unit-column
-               dictionary (B1's streamed kernel in bf16, one launch per step)
-               and inpaint(variant="dip_tuned", seeds=[0, 1]) (one
+               dictionary (B1's streamed kernel in bf16, one launch per step),
+               inpaint(variant="lrs_pnp") with a random 1296x1152
+               dictionary (the whole preset on B1's column kernel in f32,
+               one launch per step) and
+               inpaint(variant="dip_tuned", seeds=[0, 1]) (one
                launch per outer step at nB 288), 2 outer steps each with the
                DIP fit capped at 50 iterations; inpaint_scene(
                variant="lrs_pnp") on a 72x72x128 scene, four tiles in one
@@ -106,8 +113,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   9. scanned — the device-resident solve (CUDA graphs), at full width:
                B1 replayed from a captured graph against an eager launch
                (equal bits, f32 and bf16, one launch counted per replay),
-               and on the streamed kernel (block 40 in f32, P 576 / K 1152
-               in bf16);
+               on the streamed kernel (block 40 in f32, P 576 / K 1152 in
+               bf16) and on the column kernel (P 1296 / K 1152 in f32, P 576
+               / K 2048 in bf16);
                the lrs_pnp preset's step through Solver.run_scanned against
                run (equal bits), each timed per step and sustained, with the
                kernels, host launches, host syncs and device-busy share of
@@ -166,12 +174,15 @@ BF16_MATCH = 1e-5
 # the CPU: tests/test_torch_ista.py), so no kernel can meet 1e-5 there.  The
 # limit is some 8 times that sensitivity; an f32 product still fails it.
 BF16_MATCH_SHARP = 1e-4
-# At the streamed shapes with random dictionaries the coefficients are
-# smaller (max |ref| 0.03 to 0.09) and the bf16 plain loop moves by 6e-6 to
-# 9e-6 of max |ref| with only the order of its sums changed, near 1e-5, so
-# phase 2 measures that sensitivity on the card and holds the kernel to
-# the larger of BF16_MATCH and this many times it, the rule of
-# tests/test_torch_cuda.py (_assert_bf16_tracks); an f32 product still fails.
+# At the streamed and long-K shapes with random dictionaries the
+# coefficients are smaller (max |ref| 0.005 to 0.09) and the bf16 plain loop
+# moves by up to about 1e-5 of max |ref| when only the order of its sums
+# changes, so phase 2 measures that floor on the card -- the larger of the
+# plain loop with the rows of D permuted (order_sensitivity) and with its
+# products on the tensor cores (tensor_core_sensitivity: mma.sync's
+# accumulation) -- and holds the kernel to the larger of BF16_MATCH and this
+# many times it, the rule of tests/test_torch_cuda.py (_assert_bf16_tracks);
+# an f32 kernel still fails that limit.
 BF16_ORDER_FACTOR = 4
 # bf16 kernel against the f32 plain loop, as tests/test_ista_pallas.py.
 BF16_DRIFT = 0.02
@@ -182,17 +193,31 @@ BF16_DRIFT = 0.02
 SOLVE_MATCH = 1e-4
 # Shapes that take B1's streamed kernel at nB 144 (wide_problem): (block, K,
 # operand types).  Blocks 40, 48 and 52 at K 512, P 1296 at K 1024 (f32
-# slices past shared memory), P 576 at K 1152 (bf16 past 640 columns).
+# slices past shared memory), P 576 at K 1152 (bf16 past 640 columns; in
+# f32 the resident kernel takes it, 2 rows per cluster in 11 waves).
 WIDE_SHAPES = (
     (40, 512, ("float32", "bfloat16")),
     (48, 512, ("float32", "bfloat16")),
     (52, 512, ("float32", "bfloat16")),
     (36, 1024, ("float32", "bfloat16")),
-    (24, 1152, ("bfloat16",)),
+    (24, 1152, ("float32", "bfloat16")),
+)
+# Shapes past the streamed tier's columns (K > 1024 in f32, > 1280 in bf16)
+# that take B1's column tier at nB 144 (wide_problem): (block, K, operand
+# types).  P 1296 at K 1152 (the reference block size past 1024 atoms), P
+# 576 at K 2048 (the auto-dictionary's block, an overcomplete dictionary) and
+# P 256 at K 3000.
+LONG_K_SHAPES = (
+    (36, 1152, ("float32",)),
+    (24, 2048, ("float32", "bfloat16")),
+    (16, 3000, ("float32", "bfloat16")),
 )
 # The seed of the random 1296 x 1024 dictionary of phase 5's dip_fast path on
 # B1's streamed kernel (bf16 past 640 columns).
 WIDE_DICT_SEED = 1024
+# The seed of the random 1296 x 1152 dictionary of phase 5's lrs_pnp path on
+# B1's column kernel (f32 past 1024 columns).
+LONG_DICT_SEED = 1152
 # The DIP fit's cap in the paths of phases 5, 7 and 9 (the preset's is 5000):
 # depth cut for the run's time (400 until phase 9 took the whole past 300 s
 # on a slow host, 200 until the checks of B1's streamed kernel and of the
@@ -397,14 +422,13 @@ def check_kernel(blocks, masks, D, alpha, matmul_dtype: str, bf16_match=BF16_MAT
     return err
 
 
-def window_check() -> None:
-    """The long-K tail: B1's column-window tier once, f32 at P 256 / K 3000
-    (past the streamed kernel's 1024 columns), nB 13, 20 iterations, against
-    its plain loop, and a second launch with equal bits."""
+def long_k_problem():
+    """nB 13, P 256, K 3000: random blocks and masks, a random unit-column
+    dictionary (seed 3000) and trace4 alpha, on the card."""
     import numpy as np
     import torch
 
-    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.ops import compute_alpha
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
     rng = np.random.default_rng(3000)
@@ -413,19 +437,65 @@ def window_check() -> None:
     Y = rng.standard_normal((13, 256)).astype(np.float32)
     M = (rng.random((13, 256)) > 0.12).astype(np.float32)
     Y, M, D = (torch.from_numpy(a).cuda() for a in (Y, M, D))
+    return Y, M, D, compute_alpha(D, M, SparseProxConfig(alpha_mode="trace4"))
+
+
+def long_k_check(peaks: dict) -> dict:
+    """The long-K tail at a short shape: B1's column tier once, f32 at P 256
+    / K 3000 (past the streamed kernel's 1024 columns), nB 13, 20
+    iterations (all of D[:, k_c] resident in clusters of 16), against its
+    plain loop, a second launch with equal bits; timed (time_b1)."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    Y, M, D, alpha = long_k_problem()
     cfg = SparseProxConfig(n_iter=20)
-    got = pnp_ista_blocks_fused(Y, M, D, cfg)
-    again = pnp_ista_blocks_fused(Y, M, D, cfg)
+    got = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+    again = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
     torch.cuda.synchronize()
     plan = ISTA_KERNEL.last_plan
-    if plan.tier != "window":
-        raise AssertionError(f"P 256, K 3000 took the {plan.tier} tier, not the window tier")
+    if plan.tier != "column":
+        raise AssertionError(f"P 256, K 3000 took the {plan.tier} tier, not the column tier")
     if not torch.equal(got, again):
-        raise AssertionError(f"window tier: two launches differ in {int((got != again).sum())} values")
-    ref = pnp_ista_blocks(Y, M, D, cfg)
+        raise AssertionError(f"column tier: two launches differ in {int((got != again).sum())} values")
+    ref = pnp_ista_blocks(Y, M, D, cfg, alpha=alpha)
     torch.testing.assert_close(got, ref, **F32_TOL)
-    log(f"  window tier, f32, nB 13, P 256, K 3000, 20 iterations: max|delta|={float((got - ref).abs().max()):.3e} "
-        f"from the plain loop, two launches give equal bits; plan: {describe_plan(plan)}")
+    t = time_b1(Y, M, D, alpha, "float32", peaks, n_iter=20)
+    log(f"  column tier, f32, nB 13, P 256, K 3000, 20 iterations: max|delta|={float((got - ref).abs().max()):.3e} "
+        f"from the plain loop, two launches give equal bits; kernel_ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+        f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f}; plan: {describe_plan(plan)}")
+    return dict(t, max_abs_err=float((got - ref).abs().max()), tier=plan.tier, waves=plan.waves,
+                l2_bytes_per_iteration=plan.l2_bytes_per_iteration)
+
+
+def long_k_shapes(peaks: dict, smi: str) -> dict:
+    """B1's column tier at chip_smoke.LONG_K_SHAPES (nB 144, 100 iterations,
+    trace4 alpha, random unit-column dictionaries): each against its plain
+    loop (bf16 at the limit of bf16_limit), equal bits on repeat, timed
+    beside its bound, its plain loop and the 200 torch.matmul calls."""
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL
+
+    out = {}
+    for block, K, types in LONG_K_SHAPES:
+        wide = wide_problem(block, K)
+        limit, order, tc = bf16_limit(*wide, f"block {block} (P {block * block}), K {K}")
+        for mm in types:
+            err = check_kernel(*wide, mm, bf16_match=limit)
+            check_same_bits(*wide, mm)
+            t = time_b1(*wide, mm, peaks)
+            plan = ISTA_KERNEL.plan(144, block * block, K, mm == "bfloat16")
+            if plan.tier != "column":
+                raise AssertionError(f"P {block * block}, K {K}, {mm}: tier {plan.tier}, not the column tier")
+            out[f"P{block * block}_K{K}_{mm}"] = dict(
+                t, max_abs_err=err, tier=plan.tier, waves=plan.waves,
+                l2_bytes_per_iteration=plan.l2_bytes_per_iteration, order_sensitivity=order,
+                tensor_core_sensitivity=tc, bf16_limit=limit)
+            log(f"  {mm:9s} kernel_ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) -> "
+                f"{t['bound_ms'] / t['ms']:.1%} of bound; plain_ms={t['plain_ms']:.4f}; {2 * 100} {mm} "
+                f"torch.matmul calls {t['library_ms']:.4f} ms; card {smi}")
+    return out
 
 
 def wide_tiles_of_16(peaks: dict, smi: str) -> dict:
@@ -478,10 +548,14 @@ def describe_plan(plan) -> str:
     text = (f"tier {plan.tier}: {plan.n_clusters} clusters of {plan.cluster_size} CTAs ({plan.resident} "
             f"resident, {plan.waves} wave(s)), {plan.rows} rows per cluster, {plan.slice_rows} rows of D and "
             f"{plan.seg} columns of x per CTA, {plan.smem_bytes} B of shared memory")
-    if plan.streamed:
+    if plan.tier == "streamed":
         text += (f"; {plan.resident_rows} rows of each slice resident, {plan.streamed_rows} "
-                 f"through a ring of {plan.stages} stages of {plan.stage_rows} rows, "
-                 f"{plan.scratch_floats * 4} B of scratch, {plan.l2_bytes_per_iteration} B of D through L2 per "
+                 f"through a ring of {plan.stages} stages of {plan.stage_rows} rows")
+    elif plan.tier == "column":
+        text += (f"; {plan.resident_rows} of the {plan.P} rows of each CTA's columns resident, "
+                 f"{plan.streamed_rows} read from L2 in each product")
+    if plan.streamed:
+        text += (f", {plan.scratch_floats * 4} B of scratch, {plan.l2_bytes_per_iteration} B of D through L2 per "
                  "cluster and iteration")
     return text
 
@@ -510,7 +584,7 @@ def check_same_bits(blocks, masks, D, alpha, matmul_dtype: str) -> None:
 def order_sensitivity(blocks, masks, D, alpha, seeds=(0, 1)) -> float:
     """How far the bf16 plain loop moves, in max |delta| over max |ref|, when
     only the order of its sums changes (the rows of D permuted), on the
-    card: the floor under any limit that holds a kernel to it."""
+    card: one half of the floor under the bf16 limit (bf16_limit)."""
     import torch
 
     from lrs_pnp_dip_tpu_torch.ops import pnp_ista_blocks
@@ -524,6 +598,39 @@ def order_sensitivity(blocks, masks, D, alpha, seeds=(0, 1)) -> float:
         got = pnp_ista_blocks(blocks[:, perm], masks[:, perm], D[perm], cfg, alpha=alpha)
         worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
     return worst
+
+
+def tensor_core_sensitivity(blocks, masks, D, alpha) -> float:
+    """How far the bf16 plain loop moves, in max |delta| over max |ref|, when
+    its products run on the tensor cores (TF32 takes the bf16-valued
+    operands exactly and accumulates in f32, as the kernel's mma.sync does)
+    in cuBLAS's order: the other half of the floor under the bf16 limit."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import pnp_ista_blocks
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    cfg = SparseProxConfig(n_iter=100, matmul_dtype="bfloat16")
+    ref = pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        moved = pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return float((moved - ref).abs().max() / ref.abs().max())
+
+
+def bf16_limit(blocks, masks, D, alpha, label: str) -> tuple:
+    """The bf16 limit at a random-dictionary shape (BF16_ORDER_FACTOR) and
+    its two floors; logs them beside the limit the order floor alone gives."""
+    order = order_sensitivity(blocks, masks, D, alpha)
+    tc = tensor_core_sensitivity(blocks, masks, D, alpha)
+    limit = max(BF16_MATCH, BF16_ORDER_FACTOR * max(order, tc))
+    log(f"  {label}: the bf16 plain loop moves {order:.3e} of max|ref| with the rows of D permuted, {tc:.3e} "
+        f"with its products on the tensor cores; bf16 limit {limit:.3e} (the permuted rows alone: "
+        f"{max(BF16_MATCH, BF16_ORDER_FACTOR * order):.3e})")
+    return limit, order, tc
 
 
 def time_b1(blocks, masks, D, alpha, matmul_dtype: str, peaks: dict, n_iter: int = 100) -> dict:
@@ -1210,10 +1317,14 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
 
     t_phase = time.perf_counter()
     log("[scanned] kernel B1 launched from a captured graph against an eager launch, nB 144, f32 and bf16, "
-        "and on the streamed kernel (block 40, K 512, f32; P 576, K 1152, bf16)")
+        "on the streamed kernel (block 40, K 512, f32; P 576, K 1152, bf16) and on the column kernel "
+        "(P 1296, K 1152, f32; P 576, K 2048, bf16)")
     blocks, masks, D, alpha = problem(36, 36, 0, D_np)
-    for mm, inputs in (("float32", None), ("bfloat16", None), ("float32", wide_problem(40, 512)),
-                       ("bfloat16", wide_problem(24, 1152))):
+    for mm, inputs, tier in (("float32", None, "resident"), ("bfloat16", None, "resident"),
+                             ("float32", wide_problem(40, 512), "streamed"),
+                             ("bfloat16", wide_problem(24, 1152), "streamed"),
+                             ("float32", wide_problem(36, 1152), "column"),
+                             ("bfloat16", wide_problem(24, 2048), "column")):
         blocks, masks, D, alpha = inputs or problem(36, 36, 0, D_np)
         cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
         eager = pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
@@ -1228,7 +1339,7 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
                                  f"{ISTA_KERNEL.launches}; expected 1 and 2")
         if not (torch.equal(replayed, eager) and torch.equal(again, eager)):
             raise AssertionError(f"{mm}: B1 replayed from a graph differs from the eager launch")
-        if graph.b1_plan.tier != ("resident" if inputs is None else "streamed"):
+        if graph.b1_plan.tier != tier:
             raise AssertionError(f"B1 at P {graph.b1_plan.P}: tier {graph.b1_plan.tier}")
         ms_graph = time_cuda(graph)
         ms_eager = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha))
@@ -1526,10 +1637,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     for block, K, types in WIDE_SHAPES:
         wide = wide_problem(block, K)
-        sens = order_sensitivity(*wide)
-        bf16_match = max(BF16_MATCH, BF16_ORDER_FACTOR * sens)
-        log(f"  block {block} (P {block * block}), K {K}: the bf16 plain loop moves {sens:.3e} of max|ref| with "
-            f"the order of its sums; bf16 limit {bf16_match:.3e}")
+        bf16_match, sens, tc = bf16_limit(*wide, f"block {block} (P {block * block}), K {K}")
         for mm in types:
             err = check_kernel(*wide, mm, bf16_match=bf16_match)
             check_same_bits(*wide, mm)
@@ -1537,13 +1645,19 @@ def main() -> int:
             plan = ISTA_KERNEL.plan(144, block * block, K, mm == "bfloat16")
             wide_timing[f"P{block * block}_K{K}_{mm}"] = dict(
                 t, max_abs_err=err, tier=plan.tier, waves=plan.waves,
-                l2_bytes_per_iteration=plan.l2_bytes_per_iteration, order_sensitivity=sens)
+                l2_bytes_per_iteration=plan.l2_bytes_per_iteration, order_sensitivity=sens,
+                tensor_core_sensitivity=tc, bf16_limit=bf16_match)
             log(f"  {mm:9s} kernel_ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) -> "
                 f"{t['bound_ms'] / t['ms']:.1%} of bound; plain_ms={t['plain_ms']:.4f}; {2 * 100} {mm} "
                 f"torch.matmul calls {t['library_ms']:.4f} ms; card {smi}")
-    window_check()
     wide_timing.update(wide_tiles_of_16(peaks, smi))
     log(f"  (streamed shapes {time.perf_counter() - t_phase:.1f} s)")
+    log("[check] the column kernel at nB 144 past the streamed kernel's columns: random unit-column "
+        "dictionaries, blocks of a 72x72x128 synthetic cube, 100 iterations, trace4 alpha")
+    t_phase = time.perf_counter()
+    long_k_timing = long_k_shapes(peaks, smi)
+    long_k_timing["P256_K3000_float32_nB13_20it"] = long_k_check(peaks)
+    log(f"  (long-K shapes {time.perf_counter() - t_phase:.1f} s)")
 
     # 3. timing at the main-path shape
     blocks, masks, D, alpha = main
@@ -1700,6 +1814,23 @@ def main() -> int:
     step_report("dip_fast, K 1024", hist, wall)
     check_recovery("dip_fast K1024", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
     log(f"  mpsnr {[round(v, 4) for v in hist['mpsnr']]} (input {input_mpsnr:.4f}); plan: {describe_plan(plan)}")
+
+    log(f"[paths] inpaint(variant='lrs_pnp', dictionary=<1296x1152 unit columns, seed {LONG_DICT_SEED}>): the "
+        "whole preset on B1's column kernel (f32 past 1024 columns)")
+    rng = np.random.default_rng(LONG_DICT_SEED)
+    long_D = rng.standard_normal((1296, 1152)).astype(np.float32)
+    long_D /= np.linalg.norm(long_D, axis=0, keepdims=True)
+    (cube, hist), wall = drive("lrs_pnp K1152", lambda: port.inpaint(
+        sample.noisy, sample.mask, variant="lrs_pnp", clean=sample.clean, dictionary=long_D, device="cuda"),
+        launches=2, nB=144)
+    by_path["lrs_pnp_K1152"] = ISTA_KERNEL.launches
+    plan = ISTA_KERNEL.last_plan
+    if (plan.tier, plan.K) != ("column", 1152):
+        raise AssertionError(f"lrs_pnp with K 1152 took B1's {plan.tier} tier at K {plan.K}")
+    step_report("lrs_pnp, K 1152", hist, wall)
+    check_recovery("lrs_pnp K1152", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
+    log(f"  mpsnr {[round(v, 4) for v in hist['mpsnr']]} (input {input_mpsnr:.4f}), per step "
+        f"{[round(v * 1e3, 2) for v in hist['seconds']]} ms; plan: {describe_plan(plan)}")
 
     log(f"[paths] inpaint(variant='dip_tuned', seeds=[0, 1], n_iters=2), DIP fit capped at {DIP_CAP}")
     (cube, hist), wall = drive("dip_tuned ensemble", lambda: port.inpaint(
@@ -1903,6 +2034,8 @@ def main() -> int:
         "at_nB324_P576_K512": auto_timing,
         # B1 at nB 144 at the shapes of the streamed kernel (random dictionaries)
         "at_streamed_shapes": wide_timing,
+        # B1 at nB 144 at the shapes of the column kernel (random dictionaries)
+        "at_long_k_shapes": long_k_timing,
         # B1 at nB 72, one rank's share of the main shape under {patch: 2}
         "at_nB72_per_rank": shard_timing,
         # the yardstick at the engines' and the ranks' shapes (nB 72, 288, 576, 2304)

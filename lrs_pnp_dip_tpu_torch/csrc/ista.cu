@@ -132,18 +132,47 @@
 // plan takes one wave of clusters of 8 over two of 16 (measured faster at
 // every streamed shape) and the most resident rows that fit beside the ring.
 //
-// The long-K tail (pnp_ista_window, f32 and bf16): where the operand copy of
-// x and the partial gradient do not fit beside a ring of stages (K past 1024
-// in f32 or 1280 in bf16), a kernel that holds nothing whose size grows with K
-// in shared memory: x, the residual and each CTA's gradient window live in
-// device memory (scratch, 16 rows a cluster; L2 holds it); product 1 runs in
-// stages of 32 rows by 128 columns, product 2 sums over all P for each CTA's
-// columns and their halo of 4 in stages of 32 rows by 64 columns, so no sum
-// crosses CTAs; bf16 rounds every operand where it enters a product on the
-// CUDA cores.  It moves about P (K + 8 C) floats of D through L2 per cluster
-// and iteration on top of the streamed rows, issues a shared-memory load per
-// FMA or more and two barriers per stage: a simple kernel that is right, on
-// no path of the reference size.
+// The long-K tail (pnp_ista_column_f32 / _bf16): past the streamed kernel's
+// columns (K > 1024 in f32, > 1280 in bf16) the per-CTA copy of x and the
+// partial gradient, both of all K, no longer fit.  The column kernels
+// exchange the roles of P and K: a cluster of C CTAs owns R block rows, and
+// CTA c owns the columns k_c = [c seg, (c + 1) seg) of x and of D for all P
+// rows, so nothing it keeps grows with K beyond K / C.  The first Pr rows of
+// D[:, k_c] stay in shared memory; the rest are read from L2 straight into
+// the registers of each product (f32: D itself, or a copy with rows padded
+// to 16 bytes; bf16: D rounded once per launch and its transpose, so that
+// both products' B fragments are 32-bit loads).  Each iteration:
+//
+//   1. the partial pred_c = x[:, k_c] D[:, k_c]^T over all P into an R x P
+//      buffer (f32: a group of 8 lanes per row of D, float4 columns split
+//      over the lanes and their sums added by a butterfly, all rows of x a
+//      thread; bf16: mma.sync with D's rows as the "col" B operand, the
+//      chain cut every 8 k steps into a rounded f32 sum);  -- cluster.sync --
+//   2. CTA c sums the C partials of its Pc rows of the residual through
+//      distributed shared memory in the fixed ring order from its
+//      successor, forms r = Ym - M pred (bf16: rounded once) and writes it
+//      into every CTA's buffer in place of the partial;      -- cluster.sync --
+//   3. g[:, k_c] = x + (r D[:, k_c]) / alpha over all P: no sum crosses CTAs
+//      (f32: a float4 column by all rows of x a thread over a run of rows of
+//      D, the runs' sums added in order; bf16: mma.sync with B through
+//      ldmatrix.trans or from the transpose, split over two halves of the
+//      warps by 16-row steps where the CTA has at most 16 column tiles);
+//                                                         -- cluster.sync --
+//   4. the halo of 4 columns either side from the neighbours' g, the NLM on
+//      the CTA's columns, the new x in place.
+//
+// Only R x P values cross distributed shared memory each way per
+// iteration, and nothing goes through device memory.  Every sum runs in a
+// fixed order without atomics, so two launches give equal bits.  Bound:
+// the same 4 nB P K n_iter operations; besides, each CTA reads its rows of
+// D[:, k_c] past Pr from L2 twice per iteration (IstaPlan.
+// l2_bytes_per_iteration).  What bounds it now (scripts/profile_b1_phases.py
+// --shapes long, NVIDIA H100 80GB HBM3, 700.00 W): in f32 the two products
+// take 70 to 87% of an iteration, product 1 the larger share (its lanes'
+// butterfly and x's broadcasts per row of D), with D crossing L2 at some 20
+// GB/s per SM; in bf16 the products take half and the NLM and the three
+// cluster syncs the rest.  The plan takes one wave of clusters of 8 where it
+// can (R 10 at nB 144) and the most resident rows that fit.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -774,315 +803,6 @@ __global__ void __launch_bounds__(kThreads) pnp_ista_cluster_bf16(const Args a) 
   write_out(cluster, a, s_xown, row0, nrows, cur);
 }
 
-// ------------------------------------------------------------- window ----
-//
-// The long-K tail: the kernel for a shape whose operand copy of x and
-// partial gradient do not fit a CTA's shared memory beside a stage of whole
-// rows (see the note at the head).  It keeps nothing whose size grows with K
-// in shared memory and sums product 2 over all P per window of columns.
-
-constexpr int kWinRows = 32;    // rows of D per stage: one per lane in product 1
-constexpr int kWinColsA = 128;  // columns of a product-1 stage
-constexpr int kWinColsB = 64;   // columns of a product-2 stage
-constexpr int kWinStages = 2;   // the ring: one stage computed while the next loads
-constexpr int kWinRowsX = 16;   // rows per cluster (R <= 16)
-constexpr int kWinLdA = kWinColsA + 4;
-constexpr int kWinStageFloats =
-    kWinRows * kWinLdA + kWinRowsX * kWinColsA > kWinRows * kWinColsB + kWinRowsX * kWinRows
-        ? kWinRows * kWinLdA + kWinRowsX * kWinColsA
-        : kWinRows * kWinColsB + kWinRowsX * kWinRows;
-
-struct WindowLayout {
-  int kp;   // K padded to 4
-  int ldd;  // row stride of the resident rows: kp + 4 floats
-  int ring, resident, vec, total;
-};
-
-__host__ __device__ inline WindowLayout make_window_layout(int K, int Pr) {
-  WindowLayout L;
-  L.kp = round_up(K, 4);
-  L.ldd = L.kp + 4;
-  L.ring = 0;
-  L.resident = L.ring + round_up(kWinStages * kWinStageFloats * 4, 16);
-  L.vec = L.resident + round_up(Pr * L.ldd * 4, 16);
-  L.total = L.vec + 2 * kWinRowsX * 4;
-  return L;
-}
-
-// Floats of device-memory scratch per cluster: the carried x twice, the
-// residual, and each CTA's gradient window (16 rows each).
-__host__ __device__ inline size_t window_scratch_floats(int P, int K, int C, int seg) {
-  return (size_t)kWinRowsX * (2 * round_up(K, 4) + round_up(P, 4) + (size_t)C * (seg + 2 * kHalo));
-}
-
-struct WindowArgs {
-  Args a;
-  float* scratch;  // window_scratch_floats per cluster
-  int Pr;          // rows of the slice kept resident (a multiple of 32, or the whole slice)
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  // 16 bytes through L2 only (peers write x and the residual); zeros when !valid
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// A product operand: f32 as it is, or rounded to bf16 (held in f32).
-template <bool kBf16>
-__device__ __forceinline__ float operand(float v) {
-  if (kBf16) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
-
-// Rows [p, p + 32) x columns [c, c + ncols) of D into a stage with row
-// stride ld, zeros outside rows < p_end and columns < c_end.
-__device__ __forceinline__ void load_d_tile(float* dst, int ld, const float* d, int K, int p,
-                                            int p_end, int c, int c_end, int ncols) {
-  if (K % 4 == 0) {  // rows of D are 16-byte aligned, and so are c and c_end
-    const int nq = ncols / 4;
-    for (int e = threadIdx.x; e < kWinRows * nq; e += kThreads) {
-      const int i = e / nq, col = c + 4 * (e - i * nq);
-      const bool ok = p + i < p_end && col < c_end;
-      cp_async16(dst + i * ld + (col - c), ok ? d + (size_t)(p + i) * K + col : d, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kWinRows * ncols; e += kThreads) {
-      const int i = e / ncols, col = c + (e - i * ncols);
-      const bool ok = p + i < p_end && col < c_end;
-      cp_async4(dst + i * ld + (col - c), ok ? d + (size_t)(p + i) * K + col : d, ok);
-    }
-  }
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads) pnp_ista_window(const WindowArgs sa) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const Args& a = sa.a;
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const WindowLayout L = make_window_layout(a.K, sa.Pr);
-  float* s_ring = reinterpret_cast<float*>(smem + L.ring);     // [kWinStages][kWinStageFloats]
-  float* s_dres = reinterpret_cast<float*>(smem + L.resident);  // [Pr][ldd] resident rows
-  float* s_ia = reinterpret_cast<float*>(smem + L.vec);
-  float* s_nih = s_ia + kWinRowsX;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int C = cluster.num_blocks();
-  const int rank = cluster.block_rank();
-  const int cluster_id = blockIdx.x / C;
-  const int row0 = cluster_id * a.R;
-  const int nrows = min(a.R, a.nB - row0);
-  const int P = a.P, K = a.K, kp = L.kp, ldd = L.ldd, Pr = sa.Pr;
-  const int pp = round_up(P, 4);
-  const int p0 = min(P, rank * a.Pc);
-  const int pc = min(P, p0 + a.Pc) - p0;  // this CTA's rows of D in product 1
-  const int k0 = min(K, rank * a.seg), k1 = min(K, k0 + a.seg);  // its columns in step 3
-  const int lo = max(0, k0 - kHalo), hi = k1 > k0 ? min(K, k1 + kHalo) : lo;
-  const int segw = a.seg + 2 * kHalo;
-
-  float* base = sa.scratch + (size_t)cluster_id * window_scratch_floats(P, K, C, a.seg);
-  float* g_x = base;                       // [2][16][kp] carried x
-  float* g_res = g_x + 2 * kWinRowsX * kp;   // [16][pp] residual
-  float* g_win = g_res + (size_t)kWinRowsX * pp + (size_t)rank * kWinRowsX * segw;  // [16][segw]
-
-  // x = 0 and the residual's padding, shared out over the cluster; the
-  // resident rows of the slice; the per-row scalars.
-  const size_t nzero = (size_t)kWinRowsX * (2 * kp + pp);
-  for (size_t i = (size_t)rank * kThreads + tid; i < nzero; i += (size_t)C * kThreads) base[i] = 0.f;
-  for (int i = tid; i < Pr * kp; i += kThreads) {
-    const int p = i / kp, k = i - p * kp;
-    s_dres[p * ldd + k] = (p < pc && k < K) ? __ldg(a.d + (size_t)(p0 + p) * K + k) : 0.f;
-  }
-  if (tid < kWinRowsX) {
-    float ia = 0.f, nih = -1.f;
-    if (tid < nrows) {
-      const float alpha = fmaxf(a.alpha[row0 + tid], 1e-12f);
-      const float h = a.h_coef / (2.0f * alpha);
-      ia = 1.0f / alpha;
-      nih = -1.0f / fmaxf(h * h * 9.0f, 1e-30f);
-    }
-    s_ia[tid] = ia;
-    s_nih[tid] = nih;
-  }
-  __threadfence();
-  cluster.sync();
-
-  // Product 1: tiles of 32 rows of the slice by 128 columns, the row tiles
-  // in order and the column tiles in order within each.
-  const int n_kt = (kp + kWinColsA - 1) / kWinColsA;
-  const int n_tiles_a = (pc + kWinRows - 1) / kWinRows * n_kt;
-  // Product 2: tiles of 32 rows of D (all P) by 64 columns of this CTA's
-  // window [lo, hi), the row tiles in order within each column tile.
-  const int n_pb = (P + kWinRows - 1) / kWinRows;
-  const int n_tiles_b = (hi - lo + kWinColsB - 1) / kWinColsB * n_pb;
-  const int r0 = warp, r1 = warp + kWarps;          // product 1: this thread's rows
-  const int cb = tid & (kWinColsB - 1), rg = tid / kWinColsB;  // product 2: column, row group
-
-  int cur = 0;
-  for (int it = 0; it < a.n_iter; ++it) {
-    const float* xcur = g_x + (size_t)cur * kWinRowsX * kp;
-
-    // 1. pred = x D_c^T, then r = Ym - M * pred for the slice's columns p.
-    auto load_a = [&](int t) {
-      float* st = s_ring + (t & 1) * kWinStageFloats;
-      const int pt = t / n_kt, kb = (t - pt * n_kt) * kWinColsA;
-      const int ncols = min(kWinColsA, kp - kb);
-      float* st_x = st + kWinRows * kWinLdA;
-      for (int e = tid; e < kWinRowsX * (kWinColsA / 4); e += kThreads) {
-        const int r = e / (kWinColsA / 4), col = kb + 4 * (e - r * (kWinColsA / 4));
-        cp_async16(st_x + r * kWinColsA + (col - kb), col < kp ? xcur + r * kp + col : xcur, col < kp);
-      }
-      if (pt * kWinRows >= Pr)  // a streamed row tile
-        load_d_tile(st, kWinLdA, a.d, K, p0 + pt * kWinRows, p0 + pc, kb, K, ncols);
-      cp_async_commit();
-    };
-    float acc0 = 0.f, acc1 = 0.f;
-    if (n_tiles_a > 0) load_a(0);
-    for (int t = 0; t < n_tiles_a; ++t) {
-      if (t + 1 < n_tiles_a) {
-        load_a(t + 1);
-        cp_async_wait_one();
-      } else {
-        cp_async_wait_all();
-      }
-      __syncthreads();
-      const float* st = s_ring + (t & 1) * kWinStageFloats;
-      const int pt = t / n_kt, kt = t - pt * n_kt, kb = kt * kWinColsA;
-      const int nq = min(kWinColsA, kp - kb) / 4;
-      const int p = pt * kWinRows + lane;
-      const float4* drow;
-      if (pt * kWinRows < Pr)
-        drow = reinterpret_cast<const float4*>(s_dres + (p < Pr ? p : 0) * ldd + kb);
-      else
-        drow = reinterpret_cast<const float4*>(st + lane * kWinLdA);
-      const float4* x0 = reinterpret_cast<const float4*>(st + kWinRows * kWinLdA + r0 * kWinColsA);
-      const float4* x1 = reinterpret_cast<const float4*>(st + kWinRows * kWinLdA + r1 * kWinColsA);
-      if (kt == 0) acc0 = acc1 = 0.f;
-#pragma unroll 4
-      for (int q = 0; q < nq; ++q) {
-        const float4 d = drow[q], u = x0[q], v = x1[q];
-        const float d4[4] = {operand<kBf16>(d.x), operand<kBf16>(d.y), operand<kBf16>(d.z),
-                             operand<kBf16>(d.w)};
-        const float u4[4] = {u.x, u.y, u.z, u.w}, v4[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc0 = fmaf(operand<kBf16>(u4[i]), d4[i], acc0);
-          acc1 = fmaf(operand<kBf16>(v4[i]), d4[i], acc1);
-        }
-      }
-      if (kt == n_kt - 1 && p < pc) {
-        const float accs[2] = {acc0, acc1};
-        const int rows[2] = {r0, r1};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int r = rows[j];
-          if (r < a.R) {
-            float res = 0.f;
-            if (r < nrows) {
-              const size_t at = (size_t)(row0 + r) * P + p0 + p;
-              const float mv = __ldg(a.m + at);
-              res = mv * __ldg(a.y + at) - mv * accs[j];
-            }
-            g_res[(size_t)r * pp + p0 + p] = operand<kBf16>(res);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    __threadfence();
-    cluster.sync();
-
-    // 2. g = x + (r D)[:, lo:hi] / alpha over all P in row order: this
-    // CTA's columns and their halo, so that no partial sum crosses CTAs.
-    auto load_b = [&](int t) {
-      float* st = s_ring + (t & 1) * kWinStageFloats;
-      const int ct = t / n_pb, pb = (t - ct * n_pb) * kWinRows;
-      load_d_tile(st, kWinColsB, a.d, K, pb, P, lo + ct * kWinColsB, hi, kWinColsB);
-      float* st_r = st + kWinRows * kWinColsB;
-      for (int e = tid; e < kWinRowsX * (kWinRows / 4); e += kThreads) {
-        const int r = e / (kWinRows / 4), col = pb + 4 * (e - r * (kWinRows / 4));
-        cp_async16(st_r + r * kWinRows + (col - pb), col < pp ? g_res + (size_t)r * pp + col : g_res, col < pp);
-      }
-      cp_async_commit();
-    };
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    if (n_tiles_b > 0) load_b(0);
-    for (int t = 0; t < n_tiles_b; ++t) {
-      if (t + 1 < n_tiles_b) {
-        load_b(t + 1);
-        cp_async_wait_one();
-      } else {
-        cp_async_wait_all();
-      }
-      __syncthreads();
-      const float* st = s_ring + (t & 1) * kWinStageFloats;
-      const float* st_r = st + kWinRows * kWinColsB;
-      const int ct = t / n_pb, pt = t - ct * n_pb;
-      if (pt == 0) acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-#pragma unroll 8
-      for (int i = 0; i < kWinRows; ++i) {
-        const float d = operand<kBf16>(st[i * kWinColsB + cb]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] = fmaf(st_r[(rg + 4 * j) * kWinRows + i], d, acc[j]);
-      }
-      const int col = lo + ct * kWinColsB + cb;
-      if (pt == n_pb - 1 && col < hi) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = rg + 4 * j;
-          if (r < nrows) g_win[r * segw + (col - lo)] = __ldcg(xcur + r * kp + col) + acc[j] * s_ia[r];
-        }
-      }
-      __syncthreads();
-    }
-
-    // 3. the NLM on this CTA's columns, into the next carried x.
-    float* x_new = g_x + (size_t)(cur ^ 1) * kWinRowsX * kp;
-    const int nseg = k1 - k0;
-    for (int e = tid; e < nrows * nseg; e += kThreads) {
-      const int r = e / nseg, k = k0 + (e - r * nseg);
-      const float* g = g_win + r * segw - lo;  // g[col] for col in [lo, hi)
-      const float nh = s_nih[r];
-      float v[9];
-#pragma unroll
-      for (int j = -4; j <= 4; ++j) v[4 + j] = g[reflect_index(k + j, K)];
-      float num = 8.f * v[4];
-      float den = 8.f;
-#pragma unroll
-      for (int delta = 1; delta <= 3; ++delta) {
-        float p = v[3] - v[3 + delta], q = v[4] - v[4 + delta], s = v[5] - v[5 + delta];
-        const float wf = 7.f * expf(3.f * (p * p + q * q + s * s) * nh);
-        num += wf * v[4 + delta];
-        den += wf;
-        p = v[3 - delta] - v[3];
-        q = v[4 - delta] - v[4];
-        s = v[5 - delta] - v[5];
-        const float wb = 7.f * expf(3.f * (p * p + q * q + s * s) * nh);
-        num += wb * v[4 - delta];
-        den += wb;
-      }
-      x_new[r * kp + k] = num / den;
-    }
-    cur ^= 1;
-    __threadfence();
-    cluster.sync();
-  }
-  const float* x = g_x + (size_t)cur * kWinRowsX * kp;
-  for (int e = tid; e < nrows * (k1 - k0); e += kThreads) {
-    const int r = e / (k1 - k0), k = k0 + (e - r * (k1 - k0));
-    a.out[(size_t)(row0 + r) * K + k] = __ldcg(x + r * kp + k);
-  }
-}
-
 // ----------------------------------------------------------- streamed ----
 //
 // The kernel for a shape the resident kernels refuse, up to K 1024 (f32) or
@@ -1607,10 +1327,752 @@ __global__ void __launch_bounds__(stream_threads<kBf16>()) pnp_ista_stream(const
   write_out<kNT>(cluster, a, s_xown, row0, nrows, cur);
 }
 
+// ------------------------------------------------------------- column ----
+//
+// The long-K tail (see the note at the head): CTA c of a cluster owns the
+// columns [k0, k0 + seg) of x and of D for all P rows, and the rows
+// [c Pc, (c + 1) Pc) of the residual in the reduction between the products.
+
+constexpr int kColThreadsF32 = 2 * kThreads;  // f32: 16 warps
+constexpr int kColPairs = 4;                  // bf16 product 2: 16-wide column tiles sharing an A fragment
+constexpr int kColChunk = 8;                  // bf16 product 1: k steps per mma chain (see there)
+
+// Byte offsets in dynamic shared memory.  ops/ista_cuda.py:column_smem_bytes
+// computes the same total.
+struct ColumnLayout {
+  int ldw;     // row stride of the resident rows (bf16: and of the operand x), in elements
+  int pp;      // P padded to 16: the bf16 residual's columns, the transposed copy's row stride
+  int nqt;     // f32 product 2: threads per group of rows of D, a float4 column each
+  int groups;  // f32 product 2: groups of rows of D, their sums added in order after the pass
+  int d, x, xown, buf, res, g, vec, total;
+};
+
+// RT: rows of the f32 register tiles (4, 8 or 12; bf16: the mma's 16).
+__host__ __device__ inline ColumnLayout make_column_layout(int bf16, int R, int RT, int P, int seg, int Pr) {
+  ColumnLayout L;
+  L.pp = round_up(P, 16);
+  int bytes_d, bytes_x, bytes_xown, bytes_buf, bytes_res;
+  if (bf16) {
+    L.ldw = seg + 8;  // rows fall into different banks for ldmatrix
+    L.nqt = 0;
+    L.groups = 1;
+    bytes_d = round_up(Pr, 16) * L.ldw * 2;
+    bytes_x = kRowsBf16 * L.ldw * 2;
+    bytes_xown = R * seg * 4;                 // the carried x in f32
+    bytes_buf = R * imax(L.pp, seg) * 4;      // partial pred [R][pp]; product 2's odd half [R][seg]
+    bytes_res = kRowsBf16 * (L.pp + 8) * 2;   // the residual [16][pp + 8]
+  } else {
+    L.ldw = seg + 4;  // seg is a multiple of 8: consecutive rows fall into different banks
+    L.nqt = seg / 4 < kColThreadsF32 ? seg / 4 : kColThreadsF32;
+    L.groups = kColThreadsF32 / L.nqt;
+    bytes_d = Pr * L.ldw * 4;
+    bytes_x = RT * seg * 4;                   // the carried x is the operand
+    bytes_xown = 0;
+    // partial pred, then the residual, [P][RT]; after product 2 the groups'
+    // partial gradients [groups][R][seg] in their place
+    bytes_buf = imax(P * RT, L.groups > 1 ? L.groups * R * seg : 0) * 4;
+    bytes_res = 0;
+  }
+  L.d = 0;
+  L.x = L.d + round_up(bytes_d, 16);
+  L.xown = L.x + round_up(bytes_x, 16);
+  L.buf = L.xown + round_up(bytes_xown, 16);
+  L.res = L.buf + round_up(bytes_buf, 16);
+  L.g = L.res + round_up(bytes_res, 16);
+  L.vec = L.g + round_up(R * (seg + 2 * kHalo) * 4, 16);
+  L.total = L.vec + 2 * kRowsBf16 * 4;
+  return L;
+}
+
+inline int column_tile_rows(int bf16, int R) { return bf16 ? kRowsBf16 : round_up(R, 4); }
+
+struct ColumnArgs {
+  Args a;
+  const void* rows;           // D's rows (f32: D itself when K % 4 == 0, else its padded
+                              // copy; bf16: the rounded copy), row stride rows_ld
+  int rows_ld;
+  const __nv_bfloat16* cols;  // bf16: the rounded transposed copy [round_up(K, 16)][pp]
+  int Pr;                     // rows of D[:, k_c] kept in shared memory (bf16: a multiple of 16, or P)
+};
+
+// Whether a launch of the column kernels first copies D: f32 pads rows
+// whose K is not a multiple of 4 to 16 bytes; bf16 rounds D and its
+// transpose for the rows it does not keep.
+inline bool column_copies_d(int bf16, int K, int P, int Pr) { return bf16 ? Pr < P : K % 4 != 0; }
+
+// D^T rounded to bf16, [kp][pp], zero past K and P.
+__global__ void __launch_bounds__(kThreads) copy_dt_rows(const float* d, __nv_bfloat16* out, int P, int K,
+                                                         int kp, int pp) {
+  const size_t n = (size_t)kp * pp;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += (size_t)gridDim.x * kThreads) {
+    const int k = (int)(i / pp), p = (int)(i - (size_t)k * pp);
+    out[i] = __float2bfloat16_rn(k < K && p < P ? d[(size_t)p * K + k] : 0.f);
+  }
+}
+
+// The NLM at column k of a row whose gradient step g is known at the
+// columns that reflect_index(k - 4 .. k + 4, K) names.
+__device__ __forceinline__ float nlm_point(const float* g, int k, int K, float nh) {
+  float v[9];  // v[4 + j] = padded g at offset j from k
+  if (k >= kHalo && k + kHalo < K) {  // inside: no reflection
+#pragma unroll
+    for (int j = -4; j <= 4; ++j) v[4 + j] = g[k + j];
+  } else {
+#pragma unroll
+    for (int j = -4; j <= 4; ++j) v[4 + j] = g[reflect_index(k + j, K)];
+  }
+  float num = 8.f * v[4];
+  float den = 8.f;
+#pragma unroll
+  for (int delta = 1; delta <= 3; ++delta) {
+    float p = v[3] - v[3 + delta], q = v[4] - v[4 + delta], s = v[5] - v[5 + delta];
+    const float wf = 7.f * expf(3.f * (p * p + q * q + s * s) * nh);
+    num += wf * v[4 + delta];
+    den += wf;
+    p = v[3 - delta] - v[3];
+    q = v[4 - delta] - v[4];
+    s = v[5 - delta] - v[5];
+    const float wb = 7.f * expf(3.f * (p * p + q * q + s * s) * nh);
+    num += wb * v[4 - delta];
+    den += wb;
+  }
+  return num / den;
+}
+
+// 1/alpha and -1/(9 h^2) of the cluster's rows, with the clamps of the plain version.
+__device__ __forceinline__ void row_scalars(const Args& a, float* s_ia, float* s_nih, int row0, int nrows) {
+  const int tid = threadIdx.x;
+  if (tid < kRowsBf16) {
+    float ia = 0.f, nih = -1.f;
+    if (tid < nrows) {
+      const float alpha = fmaxf(a.alpha[row0 + tid], 1e-12f);
+      const float h = a.h_coef / (2.0f * alpha);
+      ia = 1.0f / alpha;
+      nih = -1.0f / fmaxf(h * h * 9.0f, 1e-30f);
+    }
+    s_ia[tid] = ia;
+    s_nih[tid] = nih;
+  }
+}
+
+// The halo of the CTA's gradient step (4 columns either side, where they
+// exist) from its neighbours' s_g, then the NLM on its columns; x_new(r, j,
+// value) stores the new x.  Between the third cluster sync of an iteration
+// and the next product 1.
+template <int kNT, typename Store>
+__device__ __forceinline__ void column_halo_nlm(cg::cluster_group& cluster, float* s_g, const float* s_nih,
+                                                int K, int seg, int k0, int nk, int nrows, Store x_new) {
+  const int tid = threadIdx.x, rank = cluster.block_rank(), ldg = seg + 2 * kHalo;
+  if (nk > 0) {
+    for (int e = tid; e < nrows * 2 * kHalo; e += kNT) {
+      const int r = e / (2 * kHalo), j = e - r * 2 * kHalo;
+      if (j < kHalo) {  // column k0 - 4 + j, the left neighbour's column seg - 4 + j
+        if (k0 > 0) s_g[r * ldg + j] = cluster.map_shared_rank(s_g, rank - 1)[r * ldg + seg + j];
+      } else if (k0 + nk + j - kHalo < K) {  // column k0 + nk + j - 4, the right neighbour's j - 4
+        s_g[r * ldg + nk + j] = cluster.map_shared_rank(s_g, rank + 1)[r * ldg + j];
+      }
+    }
+  }
+  __syncthreads();
+  // two points a thread at a time, both computed before either is stored
+  for (int e = tid; e < nrows * nk; e += 2 * kNT) {
+    const int e2 = e + kNT < nrows * nk ? e + kNT : e;
+    const int r = e / nk, j = e - r * nk, r2 = e2 / nk, j2 = e2 - r2 * nk;
+    const float v = nlm_point(s_g + r * ldg + kHalo - k0, k0 + j, K, s_nih[r]);
+    const float v2 = nlm_point(s_g + r2 * ldg + kHalo - k0, k0 + j2, K, s_nih[r2]);
+    x_new(r, j, v);
+    x_new(r2, j2, v2);
+  }
+  __syncthreads();
+}
+
+template <int kRT>
+__global__ void __launch_bounds__(kColThreadsF32, 1) pnp_ista_column_f32(const ColumnArgs ca) {
+  static_assert(kRT == 4 || kRT == 8 || kRT == 12, "tile rows");
+  constexpr int kNT = kColThreadsF32;
+  constexpr int kV = kRT / 4;  // float4 groups of rows
+  cg::cluster_group cluster = cg::this_cluster();
+  const Args& a = ca.a;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const int P = a.P, K = a.K, R = a.R, seg = a.seg;
+  const ColumnLayout L = make_column_layout(0, R, kRT, P, seg, ca.Pr);
+  float* s_d = reinterpret_cast<float*>(smem + L.d);      // [Pr][ldw] resident rows of D[:, k_c]
+  float* s_x = reinterpret_cast<float*>(smem + L.x);      // [kRT][seg] x of the CTA's columns
+  float* s_buf = reinterpret_cast<float*>(smem + L.buf);  // [P][kRT] partial pred, then the residual
+  float* s_part = s_buf;                                  // [groups][R][seg] after product 2
+  float* s_g = reinterpret_cast<float*>(smem + L.g);      // [R][seg + 8] gradient step with its halo
+  float* s_ia = reinterpret_cast<float*>(smem + L.vec);
+  float* s_nih = s_ia + kRowsBf16;
+
+  const int tid = threadIdx.x;
+  const int C = cluster.num_blocks();
+  const int rank = cluster.block_rank();
+  const int row0 = blockIdx.x / C * R;
+  const int nrows = min(R, a.nB - row0);
+  const int k0 = min(K, rank * seg), nk = min(K, k0 + seg) - k0;
+  const int nq = (nk + 3) / 4;   // float4 columns (a padded copy where K % 4 != 0)
+  const int sq = seg / 4;
+  const int pa = min(P, rank * a.Pc), pb = min(P, pa + a.Pc);  // the CTA's rows of the residual
+  const int pres = min(P, ca.Pr);
+  const int ldw = L.ldw, ldg = seg + 2 * kHalo;
+  const float* rows = static_cast<const float*>(ca.rows) + k0;
+  const size_t rows_ld = ca.rows_ld;
+
+  for (int i = tid; i < pres * sq; i += kNT) {
+    const int p = i / sq, q = i - p * sq;
+    const float4 v = q < nq ? __ldg(reinterpret_cast<const float4*>(rows + p * rows_ld) + q)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(s_d + p * ldw)[q] = v;
+  }
+  zero16<kNT>(s_x, kRT * seg * 4);
+  zero16<kNT>(s_g, R * ldg * 4);
+  row_scalars(a, s_ia, s_nih, row0, nrows);
+  cluster.sync();
+
+  // product 1: groups of kLanes lanes, a row of D each; its rows resident or
+  // in L2 (4 lanes a row measured no faster: scripts/profile_b1_phases.py)
+  constexpr int kLanes = 8;
+  static_assert(kLanes >= kV && 32 % kLanes == 0, "lanes per row");
+  constexpr int kGroups = kNT / kLanes;
+  const int lane8 = tid % kLanes, grp8 = tid / kLanes;
+  const int warp_group0 = (tid >> 5) * (32 / kLanes);  // the warp's first group
+  auto row_ptr = [&](int p) -> const float4* {
+    return p < pres ? reinterpret_cast<const float4*>(s_d + p * ldw)
+                    : reinterpret_cast<const float4*>(rows + p * rows_ld);
+  };
+  // product 2: thread (qt, pg) sums the rows of group pg for float4 column qt
+  const int G = L.groups, nqt = L.nqt, Pg = (P + G - 1) / G;
+  const int qt = tid % nqt, pg = tid / nqt;
+  const int ga = min(P, pg * Pg), gb = min(P, ga + Pg);
+  const float4* x4 = reinterpret_cast<const float4*>(s_x);
+
+  PhaseClock clock;
+  clock.begin();
+  for (int it = 0; it < a.n_iter; ++it) {
+    // 1. partial pred[p][r] = x[r, k_c] . D[p, k_c] for every p: group g of
+    // kLanes lanes takes rows g and g + kGroups of each 2 kGroups (resident or
+    // from L2), lane s of it the float4 columns s, s + kLanes, ... in order
+    // for all kRT rows of x, two steps of loads in flight; the lanes' sums
+    // added by a butterfly.
+    for (int base = 0; base < P; base += 2 * kGroups) {
+      if (base + warp_group0 >= P) continue;  // no row for this warp (the same for all its lanes)
+      const int p0 = base + grp8, p1 = p0 + kGroups;
+      const float4* d0 = row_ptr(p0 < P ? p0 : 0);
+      const float4* d1 = row_ptr(p1 < P ? p1 : 0);
+      float acc[2][kRT];
+#pragma unroll
+      for (int r = 0; r < kRT; ++r) acc[0][r] = acc[1][r] = 0.f;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 na0 = lane8 < nq ? d0[lane8] : zero, nb0 = lane8 < nq ? d1[lane8] : zero;
+      float4 na1 = lane8 + kLanes < nq ? d0[lane8 + kLanes] : zero;
+      float4 nb1 = lane8 + kLanes < nq ? d1[lane8 + kLanes] : zero;
+      for (int q = lane8; q < nq; q += kLanes) {
+        const float4 da = na0, db = nb0;
+        na0 = na1;
+        nb0 = nb1;
+        if (q + 2 * kLanes < nq) {
+          na1 = d0[q + 2 * kLanes];
+          nb1 = d1[q + 2 * kLanes];
+        }
+#pragma unroll
+        for (int r = 0; r < kRT; ++r) {
+          const float4 xv = x4[r * sq + q];
+          acc[0][r] = fmaf(xv.x, da.x, acc[0][r]);
+          acc[0][r] = fmaf(xv.y, da.y, acc[0][r]);
+          acc[0][r] = fmaf(xv.z, da.z, acc[0][r]);
+          acc[0][r] = fmaf(xv.w, da.w, acc[0][r]);
+          acc[1][r] = fmaf(xv.x, db.x, acc[1][r]);
+          acc[1][r] = fmaf(xv.y, db.y, acc[1][r]);
+          acc[1][r] = fmaf(xv.z, db.z, acc[1][r]);
+          acc[1][r] = fmaf(xv.w, db.w, acc[1][r]);
+        }
+      }
+#pragma unroll
+      for (int m = 1; m < kLanes; m <<= 1)
+#pragma unroll
+        for (int r = 0; r < kRT; ++r) {
+          acc[0][r] += __shfl_xor_sync(0xffffffffu, acc[0][r], m);
+          acc[1][r] += __shfl_xor_sync(0xffffffffu, acc[1][r], m);
+        }
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        if (lane8 == v) {
+          if (p0 < P)
+            reinterpret_cast<float4*>(s_buf + p0 * kRT)[v] =
+                make_float4(acc[0][4 * v], acc[0][4 * v + 1], acc[0][4 * v + 2], acc[0][4 * v + 3]);
+          if (p1 < P)
+            reinterpret_cast<float4*>(s_buf + p1 * kRT)[v] =
+                make_float4(acc[1][4 * v], acc[1][4 * v + 1], acc[1][4 * v + 2], acc[1][4 * v + 3]);
+        }
+      }
+    }
+    clock.end(0);
+    cluster.sync();
+    clock.end(1);
+
+    // 2. the residual of the CTA's rows: the C partials summed in ring order
+    // from the CTA's successor, r = Ym - M pred, into every CTA's s_buf in
+    // place of its partial (4 rows of x at a time).
+    for (int e = tid; e < (pb - pa) * kV; e += kNT) {
+      const int p = pa + e / kV, v = e - (e / kV) * kV;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int i = 0; i < C; ++i) {
+        const int c = (rank + 1 + i) & (C - 1);
+        const float4 w = reinterpret_cast<const float4*>(cluster.map_shared_rank(s_buf, c) + p * kRT)[v];
+        s.x += w.x;
+        s.y += w.y;
+        s.z += w.z;
+        s.w += w.w;
+      }
+      float res[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 4 * v + j;
+        if (r < nrows) {
+          const size_t at = (size_t)(row0 + r) * P + p;
+          const float mv = __ldg(a.m + at);
+          res[j] = mv * __ldg(a.y + at) - mv * res[j];
+        } else {
+          res[j] = 0.f;
+        }
+      }
+      const float4 out = make_float4(res[0], res[1], res[2], res[3]);
+#pragma unroll 8
+      for (int i = 0; i < C; ++i) {
+        const int c = (rank + 1 + i) & (C - 1);
+        reinterpret_cast<float4*>(cluster.map_shared_rank(s_buf, c) + p * kRT)[v] = out;
+      }
+    }
+    clock.end(2);
+    cluster.sync();
+    clock.end(3);
+
+    // 3. the gradient step of the CTA's columns, g = x + (r D[:, k_c]) / alpha:
+    // each thread kRT rows by one float4 column over its group's rows of D in
+    // order (resident first); the groups' sums added in order.
+    float4 acc[kRT];
+    auto gradient = [&](int q, int r, float4 s) {  // g of rows r, columns 4q .. 4q + 3
+      const float ia = s_ia[r];
+      const float4 xv = x4[r * sq + q];
+      float* g = s_g + r * ldg + kHalo + 4 * q;
+      const float gv[4] = {xv.x + s.x * ia, xv.y + s.y * ia, xv.z + s.z * ia, xv.w + s.w * ia};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * q + j < nk) g[j] = gv[j];
+    };
+    for (int q = qt; pg < G && q < nq; q += nqt) {
+#pragma unroll
+      for (int r = 0; r < kRT; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      auto rows_of = [&](int p, float4 dv) {
+        const float4* rp = reinterpret_cast<const float4*>(s_buf + p * kRT);
+#pragma unroll
+        for (int v = 0; v < kV; ++v) {
+          const float4 rv = rp[v];
+          const float rr[4] = {rv.x, rv.y, rv.z, rv.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float4& o = acc[4 * v + j];
+            o.x = fmaf(rr[j], dv.x, o.x);
+            o.y = fmaf(rr[j], dv.y, o.y);
+            o.z = fmaf(rr[j], dv.z, o.z);
+            o.w = fmaf(rr[j], dv.w, o.w);
+          }
+        }
+      };
+      // the group's rows in order: resident ones, then from L2 with the next row's load in flight
+      const int gr = min(gb, max(ga, pres));
+#pragma unroll 4
+      for (int p = ga; p < gr; ++p) rows_of(p, reinterpret_cast<const float4*>(s_d + p * ldw)[q]);
+      if (gr < gb) {
+        const float4* src = reinterpret_cast<const float4*>(rows) + q;
+        const size_t ld4 = rows_ld / 4;
+        float4 nd = __ldg(src + gr * ld4);
+#pragma unroll 4
+        for (int p = gr; p < gb; ++p) {
+          const float4 dv = nd;
+          if (p + 1 < gb) nd = __ldg(src + (p + 1) * ld4);
+          rows_of(p, dv);
+        }
+      }
+      if (G == 1) {
+#pragma unroll
+        for (int r = 0; r < kRT; ++r)
+          if (r < nrows) gradient(q, r, acc[r]);
+      }
+    }
+    if (G > 1) {
+      __syncthreads();  // every read of the residual is done: the partials take its place
+      if (pg < G && qt < nq) {
+#pragma unroll
+        for (int r = 0; r < kRT; ++r)
+          if (r < R) reinterpret_cast<float4*>(s_part + (pg * R + r) * seg)[qt] = acc[r];
+      }
+      __syncthreads();
+      for (int e = tid; e < nrows * nq; e += kNT) {
+        const int r = e / nq, q = e - r * nq;
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int i = 0; i < G; ++i) {
+          const float4 w = reinterpret_cast<const float4*>(s_part + (i * R + r) * seg)[q];
+          s.x += w.x;
+          s.y += w.y;
+          s.z += w.z;
+          s.w += w.w;
+        }
+        gradient(q, r, s);
+      }
+    }
+    clock.end(4);
+    cluster.sync();
+    clock.end(5);
+
+    // 4. the halo, the NLM, the new x in place
+    column_halo_nlm<kNT>(cluster, s_g, s_nih, K, seg, k0, nk, nrows,
+                         [&](int r, int j, float v) { s_x[r * seg + j] = v; });
+    clock.end(6);
+  }
+  cluster.sync();  // no peer reads this CTA's shared memory after this
+  for (int e = tid; e < nrows * nk; e += kNT) {
+    const int r = e / nk, j = e - r * nk;
+    a.out[(size_t)(row0 + r) * K + k0 + j] = s_x[r * seg + j];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const ColumnArgs ca) {
+  constexpr int kNT = kThreads;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Args& a = ca.a;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const int P = a.P, K = a.K, R = a.R, seg = a.seg;
+  const ColumnLayout L = make_column_layout(1, R, kRowsBf16, P, seg, ca.Pr);
+  __nv_bfloat16* s_d = reinterpret_cast<__nv_bfloat16*>(smem + L.d);  // [Pr padded to 16][ldw]
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + L.x);  // [16][ldw] operand x
+  float* s_xown = reinterpret_cast<float*>(smem + L.xown);            // [R][seg] carried x
+  float* s_pred = reinterpret_cast<float*>(smem + L.buf);             // [R][pp] partial pred
+  float* s_half = s_pred;                                             // [R][seg] product 2's odd half
+  __nv_bfloat16* s_r = reinterpret_cast<__nv_bfloat16*>(smem + L.res);  // [16][pp + 8] residual
+  float* s_g = reinterpret_cast<float*>(smem + L.g);                  // [R][seg + 8] gradient step
+  float* s_ia = reinterpret_cast<float*>(smem + L.vec);
+  float* s_nih = s_ia + kRowsBf16;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;  // the mma fragments' row and column pair
+  const int C = cluster.num_blocks();
+  const int rank = cluster.block_rank();
+  const int row0 = blockIdx.x / C * R;
+  const int nrows = min(R, a.nB - row0);
+  const int k0 = min(K, rank * seg), nk = min(K, k0 + seg) - k0;
+  const int pa = min(P, rank * a.Pc), pb = min(P, pa + a.Pc);  // a.Pc is a multiple of 4
+  const int pres = min(P, ca.Pr);
+  const int ldw = L.ldw, pp = L.pp, ldr = pp + 8, ldg = seg + 2 * kHalo;
+  const int nks = (nk + 15) / 16;   // product 1's k steps, product 2's 16-wide column tiles
+  const int npt = pp / 16;          // product 1's 16-row tiles of D, product 2's p steps
+  const int nrt = ca.Pr >= P ? npt : ca.Pr / 16;  // of them resident
+  // the copies, as 32-bit pairs of bf16: rows [P][rows_ld], cols [kp][pp]
+  const uint32_t* rows = reinterpret_cast<const uint32_t*>(static_cast<const __nv_bfloat16*>(ca.rows) + k0);
+  const int rows_ld2 = ca.rows_ld / 2;
+  const uint32_t* cols = reinterpret_cast<const uint32_t*>(ca.cols);
+  const int pp2 = pp / 2;
+
+  // The resident rows rounded, zero past P and past nk; x = 0; the residual 0.
+  for (int i = tid; i < round_up(ca.Pr, 16) * (seg / 4); i += kNT) {
+    const int p = i / (seg / 4), k = 4 * (i - p * (seg / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < pres) {
+      const float* src = a.d + (size_t)p * K + k0 + k;
+      v.x = k < nk ? __ldg(src) : 0.f;
+      v.y = k + 1 < nk ? __ldg(src + 1) : 0.f;
+      v.z = k + 2 < nk ? __ldg(src + 2) : 0.f;
+      v.w = k + 3 < nk ? __ldg(src + 3) : 0.f;
+    }
+    store_operand4(s_d + p * ldw + k, v);
+  }
+  zero16<kNT>(s_x, kRowsBf16 * ldw * 2);
+  zero16<kNT>(s_xown, R * seg * 4);
+  zero16<kNT>(s_r, kRowsBf16 * ldr * 2);
+  zero16<kNT>(s_g, R * ldg * 4);
+  row_scalars(a, s_ia, s_nih, row0, nrows);
+  cluster.sync();
+
+  const __nv_bfloat16* x_ptr = s_x + (lane & 15) * ldw + 8 * (lane >> 4);
+  const __nv_bfloat16* r_ptr = s_r + (lane & 15) * ldr + 8 * (lane >> 4);
+
+  PhaseClock clock;
+  clock.begin();
+  for (int it = 0; it < a.n_iter; ++it) {
+    // 1. partial pred = x[:, k_c] D[:, k_c]^T on the tensor cores, by 16-row
+    // tiles of D: warp w takes the tiles read from L2 nrt + w, nrt + w + 8,
+    // ... (32-bit loads of the "col" B fragments from the rounded copy, two
+    // k steps in flight), then the resident ones nrt - 1 - w, nrt - 9 - w, ...
+    // (ldmatrix), so that each warp has its share of both.
+    for (int t = warp; t < npt; t += kWarps) {
+      const int pt = t < npt - nrt ? nrt + t : npt - 1 - t;
+      // the mma accumulates kColChunk k steps at a time into part, and each
+      // chunk is added into acc with a rounded f32 add: the tensor cores'
+      // accumulation truncates, and over a long chain (K / C up to some
+      // 2500 columns) its bias alone flips roundings of the residual
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      auto end_of_chunk = [&](int ks) {
+        if ((ks + 1) % kColChunk == 0 || ks + 1 == nks) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[h][i] += part[h][i];
+              part[h][i] = 0.f;
+            }
+        }
+      };
+      if (pt < nrt) {
+        const __nv_bfloat16* b_ptr =
+            s_d + (pt * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8;
+#pragma unroll 2
+        for (int ks = 0; ks < nks; ++ks) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, x_ptr + 16 * ks);
+          ldmatrix_x4(bf, b_ptr + 16 * ks);
+          mma_bf16(part[0], af, bf[0], bf[1]);
+          mma_bf16(part[1], af, bf[2], bf[3]);
+          end_of_chunk(ks);
+        }
+      } else {
+        // rows pt 16 + grp (+ 8) of the copy; b0: columns 16 ks + 2 tig, b1: + 8
+        const int p_lo = pt * 16 + grp, p_hi = p_lo + 8;
+        const bool v0 = p_lo < P, v1 = p_hi < P;
+        const uint32_t* s0 = rows + (size_t)(v0 ? p_lo : 0) * rows_ld2 + tig;
+        const uint32_t* s1 = rows + (size_t)(v1 ? p_hi : 0) * rows_ld2 + tig;
+        auto fetch = [&](int ks, uint32_t (&b)[4]) {
+          b[0] = v0 && ks < nks ? __ldg(s0 + 8 * ks) : 0u;
+          b[1] = v0 && ks < nks ? __ldg(s0 + 8 * ks + 4) : 0u;
+          b[2] = v1 && ks < nks ? __ldg(s1 + 8 * ks) : 0u;
+          b[3] = v1 && ks < nks ? __ldg(s1 + 8 * ks + 4) : 0u;
+        };
+        uint32_t nb0[4], nb1[4];
+        fetch(0, nb0);
+        fetch(1, nb1);
+        for (int ks = 0; ks < nks; ++ks) {
+          const uint32_t b[4] = {nb0[0], nb0[1], nb0[2], nb0[3]};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) nb0[i] = nb1[i];
+          fetch(ks + 2, nb1);
+          uint32_t af[4];
+          ldmatrix_x4(af, x_ptr + 16 * ks);
+          mma_bf16(part[0], af, b[0], b[1]);
+          mma_bf16(part[1], af, b[2], b[3]);
+          end_of_chunk(ks);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = pt * 16 + h * 8 + 2 * tig;
+        if (grp < R) *reinterpret_cast<float2*>(s_pred + grp * pp + p) = make_float2(acc[h][0], acc[h][1]);
+        if (grp + 8 < R) *reinterpret_cast<float2*>(s_pred + (grp + 8) * pp + p) = make_float2(acc[h][2], acc[h][3]);
+      }
+    }
+    clock.end(0);
+    cluster.sync();
+    clock.end(1);
+
+    // 2. the residual of the CTA's rows, 4 of them at a time: the C partials
+    // in ring order from the CTA's successor, r = Ym - M pred rounded to bf16
+    // once, into every CTA's operand copy.
+    const int nq4 = (pb - pa + 3) / 4;
+    for (int e = tid; e < nrows * nq4; e += kNT) {
+      const int r = e / nq4, p = pa + 4 * (e - r * nq4);
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int i = 0; i < C; ++i) {
+        const int c = (rank + 1 + i) & (C - 1);
+        const float4 w = *reinterpret_cast<const float4*>(cluster.map_shared_rank(s_pred, c) + r * pp + p);
+        s.x += w.x;
+        s.y += w.y;
+        s.z += w.z;
+        s.w += w.w;
+      }
+      float res[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (p + j < pb) {
+          const size_t at = (size_t)(row0 + r) * P + p + j;
+          const float mv = __ldg(a.m + at);
+          res[j] = mv * __ldg(a.y + at) - mv * res[j];
+        } else {
+          res[j] = 0.f;
+        }
+      }
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(res[0], res[1]), hi = __floats2bfloat162_rn(res[2], res[3]);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+#pragma unroll 8
+      for (int i = 0; i < C; ++i) {
+        const int c = (rank + 1 + i) & (C - 1);
+        *reinterpret_cast<uint2*>(cluster.map_shared_rank(s_r, c) + r * ldr + p) = packed;
+      }
+    }
+    clock.end(2);
+    cluster.sync();
+    clock.end(3);
+
+    // 3. g = x + (r D[:, k_c]) / alpha on the tensor cores.  Warp w takes the
+    // 16-wide column tiles w, w + 8, ..., kColPairs of them sharing each A
+    // fragment, over the 16-row steps of D in order (resident:
+    // ldmatrix.trans; the rest: 32-bit loads of the fragments from the
+    // transposed copy in L2, two steps in flight).  Where the CTA has at most
+    // 4 kColPairs tiles, the warps split into two halves instead: warps 0-3
+    // take the even steps, warps 4-7 the odd ones, warp w of a half the tiles
+    // w, w + 4, ...; the odd half's sums go through shared memory and are
+    // added to the even half's.
+    {
+      const int halves = nks <= 4 * kColPairs ? 2 : 1;
+      const int half = halves == 2 ? warp >> 2 : 0, wq = halves == 2 ? warp & 3 : warp;
+      const int span = kWarps / halves;  // warps over the tiles
+      const int ngroups = (nks + span * kColPairs - 1) / (span * kColPairs);  // the same for every warp
+      for (int gi = 0; gi < ngroups; ++gi) {
+        const int j0 = gi * span * kColPairs + wq;
+        int np = 0;  // this warp's tiles in the group
+#pragma unroll
+        for (int i = 0; i < kColPairs; ++i)
+          if (j0 + span * i < nks) np = i + 1;
+        float acc[kColPairs][2][4];
+#pragma unroll
+        for (int i = 0; i < kColPairs; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[i][h][v] = 0.f;
+        if (np > 0) {
+#pragma unroll 1
+          for (int ps = half; ps < nrt; ps += halves) {
+            uint32_t af[4];
+            ldmatrix_x4(af, r_ptr + 16 * ps);
+            const __nv_bfloat16* b_ptr = s_d + (16 * ps + (lane & 15)) * ldw + 8 * (lane >> 4);
+#pragma unroll
+            for (int i = 0; i < kColPairs; ++i) {
+              if (i < np) {
+                uint32_t bf[4];
+                ldmatrix_x4_trans(bf, b_ptr + 16 * (j0 + span * i));
+                mma_bf16(acc[i][0], af, bf[0], bf[1]);
+                mma_bf16(acc[i][1], af, bf[2], bf[3]);
+              }
+            }
+          }
+          const int ps0 = halves == 2 ? nrt + ((half - nrt) & 1) : nrt;  // this half's first step from L2
+          if (ps0 < npt) {
+            // column k0 + 16 j + 8 h + grp of the transposed copy: b0 at rows 16 ps + 2 tig, b1 + 8
+            const uint32_t* src[kColPairs][2];
+#pragma unroll
+            for (int i = 0; i < kColPairs; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                src[i][h] = cols + (size_t)(k0 + 16 * (i < np ? j0 + span * i : j0) + 8 * h + grp) * pp2 + tig;
+            auto fetch = [&](int ps, uint32_t (&b)[kColPairs][2][2]) {
+#pragma unroll
+              for (int i = 0; i < kColPairs; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  b[i][h][0] = i < np && ps < npt ? __ldg(src[i][h] + 8 * ps) : 0u;
+                  b[i][h][1] = i < np && ps < npt ? __ldg(src[i][h] + 8 * ps + 4) : 0u;
+                }
+            };
+            uint32_t nb0[kColPairs][2][2], nb1[kColPairs][2][2];
+            fetch(ps0, nb0);
+            fetch(ps0 + halves, nb1);
+#pragma unroll 1
+            for (int ps = ps0; ps < npt; ps += halves) {
+              uint32_t b[kColPairs][2][2];
+#pragma unroll
+              for (int i = 0; i < kColPairs; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  b[i][h][0] = nb0[i][h][0];
+                  b[i][h][1] = nb0[i][h][1];
+                  nb0[i][h][0] = nb1[i][h][0];
+                  nb0[i][h][1] = nb1[i][h][1];
+                }
+              fetch(ps + 2 * halves, nb1);
+              uint32_t af[4];
+              ldmatrix_x4(af, r_ptr + 16 * ps);
+#pragma unroll
+              for (int i = 0; i < kColPairs; ++i) {
+                if (i < np) {
+                  mma_bf16(acc[i][0], af, b[i][0][0], b[i][0][1]);
+                  mma_bf16(acc[i][1], af, b[i][1][0], b[i][1][1]);
+                }
+              }
+            }
+          }
+        }
+        // the odd half's sums into s_half [R][seg], then the even half adds them
+#pragma unroll
+        for (int i = 0; i < kColPairs; ++i) {
+          if (i < np) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+              for (int v = 0; v < 2; ++v) {
+                const int r = grp + 8 * v;
+                const int col = 16 * (j0 + span * i) + 8 * h + 2 * tig;
+                if (half == 1 && r < R)
+                  *reinterpret_cast<float2*>(s_half + r * seg + col) =
+                      make_float2(acc[i][h][2 * v], acc[i][h][2 * v + 1]);
+              }
+            }
+          }
+        }
+        if (halves == 2) __syncthreads();
+        if (half == 0) {
+#pragma unroll
+          for (int i = 0; i < kColPairs; ++i) {
+            if (i < np) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int v = 0; v < 2; ++v) {
+                  const int r = grp + 8 * v;
+                  const int col = 16 * (j0 + span * i) + 8 * h + 2 * tig;
+                  if (r < nrows) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e)
+                      if (col + e < nk)
+                        s_g[r * ldg + kHalo + col + e] =
+                            s_xown[r * seg + col + e] +
+                            (halves == 2 ? acc[i][h][2 * v + e] + s_half[r * seg + col + e] : acc[i][h][2 * v + e]) *
+                                s_ia[r];
+                  }
+                }
+              }
+            }
+          }
+        }
+        if (halves == 2) __syncthreads();  // s_half is free for the next group
+      }
+    }
+    clock.end(4);
+    cluster.sync();
+    clock.end(5);
+
+    // 4. the halo, the NLM, the new x: f32 carried, bf16 operand
+    column_halo_nlm<kNT>(cluster, s_g, s_nih, K, seg, k0, nk, nrows, [&](int r, int j, float v) {
+      s_xown[r * seg + j] = v;
+      s_x[r * ldw + j] = __float2bfloat16_rn(v);
+    });
+    clock.end(6);
+  }
+  cluster.sync();  // no peer reads this CTA's shared memory after this
+  for (int e = tid; e < nrows * nk; e += kNT) {
+    const int r = e / nk, j = e - r * nk;
+    a.out[(size_t)(row0 + r) * K + k0 + j] = s_xown[r * seg + j];
+  }
+}
+
 // The kernels' slots below: 0 f32, 1 bf16 (slices of D resident); streamed:
 // 3 bf16, f32 in stages of 8 or 16 rows with tiles of 16 block rows (2, 6)
-// or 12 (7, 8); 4 f32, 5 bf16 (column windows).
-constexpr int kKernels = 9;
+// or 12 (7, 8); column: 4, 9, 10 f32 with tiles of 12, 8, 4 rows, 5 bf16.
+constexpr int kKernels = 11;
 
 // The attributes already set on each kernel, so that they are set by the
 // first launch of a shape and a launch recorded into a CUDA graph after it
@@ -1662,6 +2124,27 @@ cudaError_t launch_stream(int slot, const StreamArgs& sa, int cluster_size, int 
   return err;
 }
 
+template <typename Kernel>
+cudaError_t launch_column(Kernel kernel, int slot, const ColumnArgs& ca, int cluster_size, int nclusters, int smem,
+                          int threads, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(kernel, slot, cluster_size, nclusters, smem, stream, &cfg, &attr, threads);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, ca);
+  return err;
+}
+
+// Row strides of the column kernels' copies of D, in elements: f32 rows
+// padded to 8 floats; bf16 rows padded to 16 values, and the transpose's
+// rows (columns of D, padded to 16) of P padded to 16 values.
+inline int column_rows_ld(int bf16, int K) { return bf16 ? round_up(K, 16) : round_up(K, 8); }
+
+long long column_scratch_floats(int bf16, int P, int K, int Pr) {
+  if (!column_copies_d(bf16, K, P, Pr)) return 0;
+  const long long kp = column_rows_ld(bf16, K);
+  return bf16 ? (P * kp + kp * round_up(P, 16)) / 2 : P * kp;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1683,12 +2166,16 @@ int lrs_pnp_ista_stream_copy_stride(int bf16, int K) {
   return stream_copies_d(bf16, K) ? make_stream_layout(bf16, 1, K, 4, 0, 0, bf16 ? kStageBf16 : 8).kp : 0;
 }
 
-// The same for the column-window kernels.
-int lrs_pnp_ista_window_smem_bytes(int K, int Pr) { return make_window_layout(K, Pr).total; }
+// The same for the column kernels, with R rows per cluster, seg columns
+// and Pr resident rows of D[:, k_c] per CTA.
+int lrs_pnp_ista_column_smem_bytes(int bf16, int R, int P, int seg, int Pr) {
+  return make_column_layout(bf16, R, column_tile_rows(bf16, R), P, seg, Pr).total;
+}
 
-// Floats of device-memory scratch the column-window kernels take per cluster.
-long long lrs_pnp_ista_window_scratch_floats(int P, int K, int cluster_size, int seg) {
-  return (long long)window_scratch_floats(P, K, cluster_size, seg);
+// Floats of device-memory scratch a launch of the column kernels takes for
+// its copies of D (0: it reads D itself).
+long long lrs_pnp_ista_column_scratch_floats(int bf16, int P, int K, int Pr) {
+  return column_scratch_floats(bf16, P, K, Pr);
 }
 
 int lrs_pnp_ista_max_clusters(int bf16, int cluster_size, int smem) {
@@ -1779,26 +2266,51 @@ int lrs_pnp_ista_stream_launch(const float* y, const float* m, const float* d,
   return finish_launch(err);
 }
 
-// The column-window kernels: the same arguments, Pr resident rows of each
-// slice and `scratch`, lrs_pnp_ista_window_scratch_floats per cluster of
-// device memory the kernel initialises itself.
-int lrs_pnp_ista_window_launch(const float* y, const float* m, const float* d,
-                               const float* alpha, float h_coef, float* out, float* scratch,
+// The column kernels: the same arguments, seg columns of x and D per CTA,
+// Pr rows of D[:, k_c] resident per CTA and, where column_copies_d, `copy`:
+// lrs_pnp_ista_column_scratch_floats of device memory into which the launch
+// first copies D (one or two kernels before the loop on the same stream).
+int lrs_pnp_ista_column_launch(const float* y, const float* m, const float* d,
+                               const float* alpha, float h_coef, float* out, void* copy,
                                int nB, int P, int K, int n_iter, int bf16, int cluster_size,
                                int nclusters, int R, int Pc, int seg, int Pr, void* stream) {
-  const WindowArgs sa = {{y, m, d, alpha, h_coef, out, nB, P, K, n_iter, R, Pc, seg}, scratch, Pr};
-  const int smem = make_window_layout(K, Pr).total;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
+  const bool copies = column_copies_d(bf16, K, P, Pr);
+  if (copies && copy == nullptr) return (int)cudaErrorInvalidValue;
+  if (R > (bf16 ? kRowsBf16 : 12) || seg % (bf16 ? 16 : 8) != 0 || Pc % 4 != 0 || Pr > P ||
+      (bf16 && Pr < P && Pr % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const int ld = column_rows_ld(bf16, K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bf16) {
-    err = configure(pnp_ista_window<true>, 5, cluster_size, nclusters, smem, s, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_window<true>, sa);
-  } else {
-    err = configure(pnp_ista_window<false>, 4, cluster_size, nclusters, smem, s, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_window<false>, sa);
+  ColumnArgs ca = {{y, m, d, alpha, h_coef, out, nB, P, K, n_iter, R, Pc, seg}, d, K, nullptr, Pr};
+  if (copies) {
+    const long long n = (long long)P * ld;
+    const int blocks = (int)((n + kThreads - 1) / kThreads < 1024 ? (n + kThreads - 1) / kThreads : 1024);
+    ca.rows_ld = ld;
+    if (bf16) {
+      __nv_bfloat16* rows = static_cast<__nv_bfloat16*>(copy);
+      __nv_bfloat16* cols = rows + (size_t)P * ld;
+      copy_d_rows<<<blocks, kThreads, 0, s>>>(d, rows, P, K, ld);
+      copy_dt_rows<<<blocks, kThreads, 0, s>>>(d, cols, P, K, ld, round_up(P, 16));
+      ca.rows = rows;
+      ca.cols = cols;
+    } else {
+      copy_d_rows<<<blocks, kThreads, 0, s>>>(d, static_cast<float*>(copy), P, K, ld);
+      ca.rows = copy;
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
+  const int RT = column_tile_rows(bf16, R);
+  const int smem = make_column_layout(bf16, R, RT, P, seg, Pr).total;
+  cudaError_t err;
+  if (bf16)
+    err = launch_column(pnp_ista_column_bf16, 5, ca, cluster_size, nclusters, smem, kThreads, s);
+  else if (RT == 12)
+    err = launch_column(pnp_ista_column_f32<12>, 4, ca, cluster_size, nclusters, smem, kColThreadsF32, s);
+  else if (RT == 8)
+    err = launch_column(pnp_ista_column_f32<8>, 9, ca, cluster_size, nclusters, smem, kColThreadsF32, s);
+  else
+    err = launch_column(pnp_ista_column_f32<4>, 10, ca, cluster_size, nclusters, smem, kColThreadsF32, s);
   return finish_launch(err);
 }
 

@@ -7,8 +7,9 @@ rows for the whole loop, CTA c owns the slice ``D[p_c, :]`` and the columns
 ``k_c`` of x in step 3 (see the note in the source).  Three tiers take the
 shapes of the TPU kernel's range: ``"resident"`` (each slice of D in shared
 memory), ``"streamed"`` (the first rows of each slice resident, the rest
-read once per iteration through a ring of stages) and ``"window"`` (the
-long-K tail, product 2 by column windows over all P).  :func:`plan_ista`
+read once per iteration through a ring of stages) and ``"column"`` (the
+long-K tail: CTA c owns the columns ``k_c`` of D and x for all P, the
+products' partial pred summed through the cluster).  :func:`plan_ista`
 chooses the tier, C, R, the slices and the shared-memory bytes from (nB, P,
 K, operand type) in plain Python, so the tiling is testable without a card.
 
@@ -73,14 +74,12 @@ _STAGE_ROWS = {False: (16, 8), True: (16,)}
 # and refilled while it runs.
 _RING = 3
 _STREAM_MAX_K = {False: 1024, True: 1280}
-# The column-window kernel (pnp_ista_window): stages of 32 rows of D by 128
-# columns (product 1, with 16 rows of x) or by 64 columns (product 2, with 16
-# rows of the residual), two stages, 16 rows per cluster.
-_WIN_STAGE_ROWS = 32
-_WIN_STAGES = 2
-_WIN_ROWS = 16
-_WIN_STAGE_FLOATS = max(_WIN_STAGE_ROWS * (128 + 4) + _WIN_ROWS * 128,
-                        _WIN_STAGE_ROWS * 64 + _WIN_ROWS * _WIN_STAGE_ROWS)
+# The column kernels (pnp_ista_column_f32 / _bf16): at most 12 rows per
+# cluster in f32 (register tiles of 4, 8 or 12 rows, 512 threads), 16 in
+# bf16 (the mma's m); columns per CTA a multiple of 8 (f32) or 16 (bf16).
+_COL_ROWS = {False: 12, True: 16}
+_COL_THREADS_F32 = 512
+_COL_SEG_ALIGN = {False: 8, True: 16}
 # The TPU kernel's VMEM budget and its smallest row tile
 # (lrs_pnp_dip_tpu/ops/ista_pallas.py:151-158): the range of shapes B1 takes.
 _TPU_VMEM_BUDGET = 12 * 2**20
@@ -182,20 +181,55 @@ def stream_scratch_floats(P: int, K: int, bf16: bool, stages: int) -> int:
     return P * _stream_kp(bf16, K) // (2 if bf16 else 1)
 
 
-def window_smem_bytes(K: int, resident_rows: int) -> int:
-    """Dynamic shared memory of one CTA of the column-window kernel, as
-    ``make_window_layout`` in csrc/ista.cu lays it out: the ring of stages
-    and the resident rows of the slice (row stride K + 4 floats)."""
-    ring = _WIN_STAGES * _WIN_STAGE_FLOATS * 4
-    resident = resident_rows * (_round_up(K, 4) + 4) * 4
-    return _round_up(ring, 16) + _round_up(resident, 16) + 2 * _WIN_ROWS * 4
+def column_groups(seg: int) -> int:
+    """f32 product 2 of the column kernel: the groups of rows of D whose
+    sums are added in order after the pass (512 threads over ``seg / 4``
+    float4 columns)."""
+    return _COL_THREADS_F32 // min(seg // 4, _COL_THREADS_F32)
 
 
-def window_scratch_floats(P: int, K: int, cluster_size: int, seg: int) -> int:
-    """Device-memory scratch of one cluster of the column-window kernel, in
-    floats: the carried x twice, the residual and each CTA's gradient window,
-    16 rows each (``window_scratch_floats`` in csrc/ista.cu)."""
-    return _WIN_ROWS * (2 * _round_up(K, 4) + _round_up(P, 4) + cluster_size * (seg + 2 * _HALO))
+def column_smem_bytes(bf16: bool, rows: int, P: int, seg: int, resident_rows: int) -> int:
+    """Dynamic shared memory of one CTA of the column kernel, as
+    ``make_column_layout`` in csrc/ista.cu lays it out: the resident rows of
+    ``D[:, k_c]``, the CTA's x (bf16: the operand and the carried f32 copy),
+    the partial pred and the residual (f32: one buffer [P][tile rows], which
+    product 2's group sums take after the pass; bf16: pred [rows][P] in f32,
+    whose place product 2's odd half of warps takes, and the residual
+    [16][P] in bf16), the gradient step with its halo and the rows'
+    scalars."""
+    pp = _round_up(P, 16)
+    if bf16:
+        ldw = seg + 8
+        sizes = [_round_up(resident_rows, 16) * ldw * 2, _BF16_ROWS * ldw * 2, rows * seg * 4,
+                 rows * max(pp, seg) * 4, _BF16_ROWS * (pp + 8) * 2]
+    else:
+        rt = _round_up(rows, 4)
+        groups = column_groups(seg)
+        sizes = [resident_rows * (seg + 4) * 4, rt * seg * 4, 0,
+                 max(P * rt, groups * rows * seg if groups > 1 else 0) * 4, 0]
+    sizes.append(rows * (seg + 2 * _HALO) * 4)
+    return sum(_round_up(s, 16) for s in sizes) + 2 * _BF16_ROWS * 4
+
+
+def column_copies_d(bf16: bool, K: int, P: int, resident_rows: int) -> bool:
+    """Whether a launch of the column kernel first copies D
+    (``column_copies_d`` in csrc/ista.cu): f32 pads rows whose K is not a
+    multiple of 4 to 16 bytes; bf16 rounds D and its transpose for the rows
+    it does not keep resident."""
+    return resident_rows < P if bf16 else K % 4 != 0
+
+
+def column_scratch_floats(P: int, K: int, bf16: bool, resident_rows: int) -> int:
+    """Device-memory scratch of a launch of the column kernel, in floats:
+    f32, D's rows padded to 8 floats; bf16, D rounded with rows padded to 16
+    values and its transpose, [K padded to 16][P padded to 16], two values to
+    a float."""
+    if not column_copies_d(bf16, K, P, resident_rows):
+        return 0
+    if bf16:
+        kp = _round_up(K, 16)
+        return (P * kp + kp * _round_up(P, 16)) // 2
+    return P * _round_up(K, 8)
 
 
 @dataclass(frozen=True)
@@ -214,29 +248,31 @@ class IstaPlan:
     seg: int  # columns of x per CTA in step 3
     smem_bytes: int
     # The streamed tilings (the whole slice resident: zero stages).
-    resident_rows: int  # rows of each slice kept in shared memory
+    resident_rows: int  # rows of each slice kept in shared memory (column tier: of D[:, k_c], of all P)
     stage_rows: int  # rows of D per stage of the ring
     stages: int  # stages of the ring
-    tier: str = "resident"  # "resident", "streamed" (the ring) or "window" (column windows)
+    tier: str = "resident"  # "resident", "streamed" (the ring) or "column" (columns of D per CTA)
 
     @property
     def streamed(self) -> bool:
         """Whether the launch takes one of the kernels that may stream D
-        (the streamed or the column-window tier)."""
+        (the streamed or the column tier)."""
         return self.tier != "resident"
 
     @property
     def streamed_rows(self) -> int:
-        """Rows of a whole slice read through the ring in each iteration."""
-        return self.slice_rows - self.resident_rows
+        """Rows of D read from L2 in each iteration: of a whole slice
+        through the ring (streamed tier), or of ``D[:, k_c]`` by each CTA
+        in each product (column tier)."""
+        return (self.P if self.tier == "column" else self.slice_rows) - self.resident_rows
 
     @property
     def scratch_floats(self) -> int:
         """Device-memory scratch of the launch, in floats."""
         if self.tier == "streamed":
             return stream_scratch_floats(self.P, self.K, self.bf16, self.stages)
-        if self.tier == "window":
-            return self.n_clusters * window_scratch_floats(self.P, self.K, self.cluster_size, self.seg)
+        if self.tier == "column":
+            return column_scratch_floats(self.P, self.K, self.bf16, self.resident_rows)
         return 0
 
     @property
@@ -244,20 +280,18 @@ class IstaPlan:
         """Bytes of D one cluster reads through L2 per iteration beyond its
         resident rows (the note in csrc/ista.cu).  Streamed tier: each CTA's
         streamed rows once, each K floats of D, or kp values of its copy
-        (``stream_copies_d``).  Window tier: the streamed rows of the slices, product 2's
-        windows of D, the pieces of x and the residual written and read.  0
-        for the resident kernels."""
-        C, P, K = self.cluster_size, self.P, self.K
+        (``stream_copies_d``).  Column tier: each CTA's rows of ``D[:, k_c]``
+        past its resident ones twice, once per product, its columns padded
+        to 4 floats (f32) or 16 values (bf16).  0 for the resident kernels."""
+        K = self.K
         if self.tier == "streamed":
             rows = sum(max(0, b - a - self.resident_rows) for a, b in self.p_slices())
             if stream_copies_d(self.bf16, K):
                 return rows * _stream_kp(self.bf16, K) * (2 if self.bf16 else 4)
             return rows * 4 * K
-        if self.tier == "window":
-            pieces = -(-self.slice_rows // self.stage_rows)
-            floats = (C * self.streamed_rows * K + P * (K + 2 * _HALO * C)
-                      + _WIN_ROWS * C * pieces * _round_up(K, 4) + _WIN_ROWS * P * (C + 1))
-            return 4 * floats
+        if self.tier == "column":
+            cols = sum(_round_up(b - a, 16 if self.bf16 else 4) for a, b in self.k_segments())
+            return 2 * self.streamed_rows * cols * (2 if self.bf16 else 4)
         return 0
 
     @property
@@ -385,31 +419,49 @@ def _streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons):
     return best[1] if best else None
 
 
-def _window_plan(nB, P, K, bf16, resident, smem_limit, reasons):
-    """The column-window tiling (the long-K tail), or None (reasons
-    appended): the largest cluster the card keeps resident, as many of each
-    slice's rows resident as fit beside the ring (whole stages of 32, or the
-    whole slice)."""
-    for C in (16, 8):
+def _column_resident_rows(bf16, rows, P, seg, smem_limit):
+    """The most rows of ``D[:, k_c]`` each CTA keeps resident beside the
+    rest of the column kernel's layout: all P, else (bf16) a multiple of 16."""
+    if column_smem_bytes(bf16, rows, P, seg, P) <= smem_limit:
+        return P
+    row_bytes = (seg + 8) * 2 if bf16 else (seg + 4) * 4
+    fit = (smem_limit - column_smem_bytes(bf16, rows, P, seg, 0)) // row_bytes
+    return min(P - 1, fit // 16 * 16 if bf16 else fit)
+
+
+def _column_plan(nB, P, K, bf16, resident, smem_limit, reasons):
+    """The column tiling (the long-K tail), or None (reasons appended).  For
+    each cluster size the card keeps resident: CTA c owns ``seg`` columns of
+    D and x (K / C padded to 8 in f32, 16 in bf16) for all P rows and the
+    slice of ``slice_rows`` rows (a multiple of 4) of the residual; the most
+    rows per cluster whose buffers fit, spread over as few waves as cover
+    nB; then as many rows of ``D[:, k_c]`` resident as fit.  Of these, as in
+    :func:`_streamed_plan`, the tiling with the fewest waves, then the fewest
+    bytes of D each CTA reads from L2 per iteration, then the smaller
+    cluster."""
+    best = None
+    for C in (8, 16):
         if resident.get(C, 0) < 1:
-            reasons.append(f"window, cluster {C}: the card keeps no such cluster resident")
+            reasons.append(f"column, cluster {C}: the card keeps no such cluster resident")
             continue
-        slice_rows = -(-P // C)
-        seg = _round_up(-(-K // C), 4)
-        base = window_smem_bytes(K, 0)
-        if base > smem_limit:
-            reasons.append(f"window: {base} B of shared memory for the ring (> {smem_limit})")
-            return None
-        fit = (smem_limit - base) // ((_round_up(K, 4) + 4) * 4)
-        resident_rows = slice_rows if fit >= slice_rows else fit // _WIN_STAGE_ROWS * _WIN_STAGE_ROWS
-        rows, n_clusters = _spread(nB, _WIN_ROWS, resident[C])
-        return IstaPlan(
+        seg = _round_up(-(-K // C), _COL_SEG_ALIGN[bf16])
+        fits = [r for r in range(_COL_ROWS[bf16], 0, -1) if column_smem_bytes(bf16, r, P, seg, 0) <= smem_limit]
+        if not fits:
+            need = column_smem_bytes(bf16, 1, P, seg, 0)
+            reasons.append(f"column, cluster {C}: {need} B of shared memory (> {smem_limit})")
+            continue
+        rows, n_clusters = _spread(nB, fits[0], resident[C])
+        resident_rows = _column_resident_rows(bf16, rows, P, seg, smem_limit)
+        plan = IstaPlan(
             nB=nB, P=P, K=K, bf16=bf16, cluster_size=C, rows=rows,
-            n_clusters=n_clusters, resident=resident[C], slice_rows=slice_rows,
-            seg=seg, smem_bytes=window_smem_bytes(K, resident_rows),
-            resident_rows=resident_rows, stage_rows=_WIN_STAGE_ROWS, stages=_WIN_STAGES, tier="window",
+            n_clusters=n_clusters, resident=resident[C], slice_rows=_round_up(-(-P // C), 4),
+            seg=seg, smem_bytes=column_smem_bytes(bf16, rows, P, seg, resident_rows),
+            resident_rows=resident_rows, stage_rows=0, stages=0, tier="column",
         )
-    return None
+        key = (plan.waves, plan.l2_bytes_per_iteration // C, C)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return best[1] if best else None
 
 
 def plan_ista(
@@ -424,10 +476,10 @@ def plan_ista(
     memory, the most rows per cluster that fit beside it, then as few waves
     of ``resident`` clusters as cover nB, with the rows spread evenly over
     them.  Where that kernel does not take the shape, the streamed kernel
-    (:func:`_streamed_plan`), and past its columns the column-window kernel:
-    between them every shape in the TPU kernel's range (:func:`in_tpu_range`).
-    All run one CTA of 256 threads per SM (at most 255 registers a thread),
-    so the card keeps as many of their clusters resident.  Raises
+    (:func:`_streamed_plan`), and past its columns the column kernel
+    (:func:`_column_plan`): between them every shape in the TPU kernel's
+    range (:func:`in_tpu_range`).  All run one CTA per SM, so the card keeps
+    as many of their clusters resident.  Raises
     ValueError with the reason for a shape none takes, which names
     ``backend="xla"`` as the way around it."""
     if nB < 1 or P < 1 or K < 6:
@@ -441,7 +493,7 @@ def plan_ista(
         )
     elif plan is None:
         plan = (_streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons)
-                or _window_plan(nB, P, K, bf16, resident, smem_limit, reasons))
+                or _column_plan(nB, P, K, bf16, resident, smem_limit, reasons))
     if plan is not None:
         return plan
     raise _refused(
@@ -503,19 +555,19 @@ class FusedIstaKernel:
         lib.lrs_pnp_ista_stream_launch.argtypes = (
             [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 13 + [ptr])
         lib.lrs_pnp_ista_stream_launch.restype = c_int
-        lib.lrs_pnp_ista_window_launch.argtypes = (
+        lib.lrs_pnp_ista_column_launch.argtypes = (
             [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 11 + [ptr])
-        lib.lrs_pnp_ista_window_launch.restype = c_int
+        lib.lrs_pnp_ista_column_launch.restype = c_int
         lib.lrs_pnp_ista_smem_bytes.argtypes = [c_int] * 5
         lib.lrs_pnp_ista_smem_bytes.restype = c_int
         lib.lrs_pnp_ista_stream_smem_bytes.argtypes = [c_int] * 7
         lib.lrs_pnp_ista_stream_smem_bytes.restype = c_int
         lib.lrs_pnp_ista_stream_copy_stride.argtypes = [c_int] * 2
         lib.lrs_pnp_ista_stream_copy_stride.restype = c_int
-        lib.lrs_pnp_ista_window_smem_bytes.argtypes = [c_int] * 2
-        lib.lrs_pnp_ista_window_smem_bytes.restype = c_int
-        lib.lrs_pnp_ista_window_scratch_floats.argtypes = [c_int] * 4
-        lib.lrs_pnp_ista_window_scratch_floats.restype = ctypes.c_longlong
+        lib.lrs_pnp_ista_column_smem_bytes.argtypes = [c_int] * 5
+        lib.lrs_pnp_ista_column_smem_bytes.restype = c_int
+        lib.lrs_pnp_ista_column_scratch_floats.argtypes = [c_int] * 4
+        lib.lrs_pnp_ista_column_scratch_floats.restype = ctypes.c_longlong
         lib.lrs_pnp_ista_max_clusters.argtypes = [c_int] * 3
         lib.lrs_pnp_ista_max_clusters.restype = c_int
         self._lib = lib
@@ -581,10 +633,9 @@ class FusedIstaKernel:
                     int(bf16), plan.rows, K, plan.seg, plan.resident_rows, plan.stages, plan.stage_rows)
                 stride = lib.lrs_pnp_ista_stream_copy_stride(int(bf16), K)
                 scratch = P * stride // (2 if bf16 else 1) if plan.stages else 0
-            elif plan.tier == "window":
-                laid_out = lib.lrs_pnp_ista_window_smem_bytes(K, plan.resident_rows)
-                scratch = plan.n_clusters * lib.lrs_pnp_ista_window_scratch_floats(
-                    P, K, plan.cluster_size, plan.seg)
+            elif plan.tier == "column":
+                laid_out = lib.lrs_pnp_ista_column_smem_bytes(int(bf16), plan.rows, P, plan.seg, plan.resident_rows)
+                scratch = lib.lrs_pnp_ista_column_scratch_floats(int(bf16), P, K, plan.resident_rows)
             else:
                 laid_out = lib.lrs_pnp_ista_smem_bytes(int(bf16), plan.rows, plan.slice_rows, K, plan.seg)
                 scratch = 0
@@ -598,21 +649,18 @@ class FusedIstaKernel:
             head = (y.data_ptr(), m.data_ptr(), d.data_ptr(), alpha.data_ptr(), float(h_coef), out.data_ptr())
             tail = (nB, P, K, int(n_iter), int(bf16), plan.cluster_size, plan.n_clusters, plan.rows,
                     plan.slice_rows, plan.seg)
+            # the streaming tiers first copy D into this scratch (stream_copies_d,
+            # column_copies_d); allocated inside a capture, it stays the graph's
+            copy = None
+            if plan.scratch_floats:
+                copy = (torch.empty(2 * plan.scratch_floats, dtype=torch.bfloat16, device=device) if bf16
+                        else torch.empty(plan.scratch_floats, dtype=torch.float32, device=device))
+            copy_ptr = None if copy is None else copy.data_ptr()
             if plan.tier == "streamed":
-                # the launch copies D for its streamed rows into this scratch
-                # first (stream_copies_d); allocated inside a capture, it stays the graph's
-                copy = None
-                if plan.scratch_floats:
-                    copy = (torch.empty(2 * plan.scratch_floats, dtype=torch.bfloat16, device=device) if bf16
-                            else torch.empty(plan.scratch_floats, dtype=torch.float32, device=device))
                 err = lib.lrs_pnp_ista_stream_launch(
-                    *head, None if copy is None else copy.data_ptr(), *tail, plan.resident_rows,
-                    plan.stages, plan.stage_rows, stream)
-            elif plan.tier == "window":
-                # the kernel initialises its scratch itself: no other launch
-                scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=device)
-                err = lib.lrs_pnp_ista_window_launch(
-                    *head, scratch.data_ptr(), *tail, plan.resident_rows, stream)
+                    *head, copy_ptr, *tail, plan.resident_rows, plan.stages, plan.stage_rows, stream)
+            elif plan.tier == "column":
+                err = lib.lrs_pnp_ista_column_launch(*head, copy_ptr, *tail, plan.resident_rows, stream)
             else:
                 err = lib.lrs_pnp_ista_launch(*head, *tail, stream)
         if err != 0:

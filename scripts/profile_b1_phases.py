@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where kernel B1's time goes inside one iteration, on the card.
 
-    python scripts/profile_b1_phases.py [--n-iter 100] [--cluster 8|16] [--stage-rows 8|16]
+    python scripts/profile_b1_phases.py [--n-iter 100] [--cluster 8|16] [--stage-rows 8|16] [--shapes main|long|all]
 
 Builds csrc/ista.cu a second time with -DISTA_PROFILE, which makes thread 0
 of CTA 0 add up the clock cycles of each phase of an iteration, and prints
@@ -11,7 +11,9 @@ from CUDA events, at nB 144:
 - the main-path problem (the shipped dictionary, synthetic_sample masks,
   trace4 alpha) on the resident kernels, f32 and bf16;
 - block 40 (P 1600, K 512) and P 1296 / K 1024 in f32 and P 576 / K 1152 in
-  bf16 on the streamed kernel (chip_smoke.wide_problem's random dictionaries).
+  bf16 on the streamed kernel (chip_smoke.wide_problem's random dictionaries);
+- with ``--shapes long`` (or ``all``, both lists) instead, each shape of
+  ``chip_smoke.LONG_K_SHAPES`` on the column kernel, with its operand types.
 
 ``--cluster`` keeps the plan to clusters of that size (the card is told to
 keep none of the other), and ``--stage-rows`` sets the f32 streamed kernel's
@@ -20,7 +22,8 @@ The counters cost a few clock reads per iteration; the production build has
 none of them.  In the streamed kernel the phases interleave (each step of
 its pipeline runs product 1 of one stage, the residual of the one before and
 product 2 of the one before that), so each phase's sum is its share of the
-whole pass.
+whole pass.  In the column kernel a cluster sync's time is thread 0's wait
+for the slowest CTA of its cluster.
 """
 
 from __future__ import annotations
@@ -42,6 +45,10 @@ PHASES = {
         "product 1 (x D_s^T)", "sum of warps, residual", "product 2 (r_s D_s)",
         "stage waits, barriers", "pull partials, g", "NLM", "push x", "g out, cluster syncs",
     ),
+    "column": (
+        "product 1 (x_c D_c^T)", "cluster.sync 1", "sum partials, residual", "cluster.sync 2",
+        "product 2 (r D_c), g", "cluster.sync 3", "halo, NLM",
+    ),
 }
 
 
@@ -60,6 +67,7 @@ def main() -> int:
     ap.add_argument("--cluster", type=int, choices=(8, 16), default=None)
     ap.add_argument("--stage-rows", type=int, choices=(8, 16), default=None)
     ap.add_argument("--nvcc-flag", action="append", default=[], help="a further flag for the build")
+    ap.add_argument("--shapes", choices=("main", "long", "all"), default="main")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_b1_phases: no CUDA device is available", file=sys.stderr)
@@ -70,10 +78,16 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"card {smi}")
-    main_problem = chip_smoke.problem(36, 36, 0, load_trained_dictionary(512))
-    cases = [(main_problem, "float32"), (main_problem, "bfloat16"),
-             (chip_smoke.wide_problem(40, 512), "float32"), (chip_smoke.wide_problem(36, 1024), "float32"),
-             (chip_smoke.wide_problem(24, 1152), "bfloat16")]
+    cases = []
+    if args.shapes in ("main", "all"):
+        main_problem = chip_smoke.problem(36, 36, 0, load_trained_dictionary(512))
+        cases += [(main_problem, "float32"), (main_problem, "bfloat16"),
+                  (chip_smoke.wide_problem(40, 512), "float32"), (chip_smoke.wide_problem(36, 1024), "float32"),
+                  (chip_smoke.wide_problem(24, 1152), "bfloat16")]
+    if args.shapes in ("long", "all"):
+        for block, K, types in chip_smoke.LONG_K_SHAPES:
+            problem = chip_smoke.wide_problem(block, K)
+            cases += [(problem, mm) for mm in types]
 
     kernel = FusedIstaKernel(extra_flags=("-DISTA_PROFILE", *args.nvcc_flag))
     lib = kernel.build()
@@ -108,7 +122,7 @@ def main() -> int:
             plan = kernel.plan(blocks.shape[0], blocks.shape[1], D.shape[1], mm == "bfloat16")
             print(f"P {plan.P}, K {plan.K}, {mm}: {ms:.4f} ms per call, max|delta| {err:.3e} from the plain "
                   f"loop; {chip_smoke.describe_plan(plan)}")
-            names = PHASES["resident" if plan.tier == "resident" else "streamed"]
+            names = PHASES[plan.tier]
             total = sum(cycles[: len(names)])
             for name, c in zip(names, cycles):
                 per_it = c / max(args.n_iter, 1)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time kernel B1 through its wrapper on the card, for any tree of the port.
 
-    python scripts/time_b1.py [--root DIR] [--label NAME] [--reps 7] [--shapes main|wide|all]
+    python scripts/time_b1.py [--root DIR] [--label NAME] [--reps 7] [--shapes main|wide|long|all]
 
 Times ``pnp_ista_blocks_fused`` (100 iterations, trace4 alpha) as the median
 of ``--reps`` CUDA-event timings after 2 warm-ups, and prints one JSON line
@@ -10,7 +10,16 @@ default): the shipped dictionary and masks of synthetic_sample at nB 144
 (36x36 crop) and nB 2304 (144x144 cube), with f32 and bf16 operands;
 ``wide``: at nB 144 each shape of that tree's ``chip_smoke.WIDE_SHAPES`` (the
 shapes of the streamed kernel, random dictionaries from
-``chip_smoke.wide_problem``) with its operand types; ``all``: both.  ``--root`` names another checkout of the
+``chip_smoke.wide_problem``) with its operand types; ``long``: at nB 144 each
+shape of this tree's ``chip_smoke.LONG_K_SHAPES`` (the long-K tail past the
+streamed tier's columns, problems from that tree's ``wide_problem``), and
+P 256 / K 3000 at nB 13 with 20 iterations (this tree's
+``chip_smoke.long_k_problem``); ``all``: main and wide.  The long shape list is read from this
+tree's chip_smoke.py whatever ``--root`` says, so that a tree without it is
+timed at the same shapes.  Each line also gives the tier, the bound
+(``bound_ms``, this tree's ``chip_smoke.bound_ms``) and, with ``--library``,
+the 200 ``torch.matmul`` calls of the two products at the shape
+(``library_ms``).  ``--root`` names another checkout of the
 repository (for example the parent commit unpacked with ``git archive``) whose
 package and chip_smoke.py are imported in place of this one's, so that two
 versions of the kernel are timed by one command on one card:
@@ -22,19 +31,50 @@ versions of the kernel are timed by one command on one card:
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
 
+HERE = Path(__file__).resolve().parents[1]
+
+
+def _this_trees_chip_smoke():
+    """This tree's chip_smoke.py, loaded under another name so that
+    ``--root``'s stays importable as ``chip_smoke``."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_this_tree", HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _library_ms(nB: int, P: int, D, n_iter: int, mm: str, time_cuda) -> float:
+    """The 2 n_iter torch.matmul calls of B1's two products at the shape."""
+    import torch
+
+    dt = torch.float32 if mm == "float32" else torch.bfloat16
+    x = torch.zeros((nB, D.shape[1]), device="cuda", dtype=dt)
+    r = torch.zeros((nB, P), device="cuda", dtype=dt)
+    Dm = D.to(dt)
+
+    def matmuls():
+        for _ in range(n_iter):
+            torch.matmul(x, Dm.T)
+            torch.matmul(r, Dm)
+
+    return time_cuda(matmuls)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--shapes", choices=("main", "wide", "all"), default="main")
+    ap.add_argument("--shapes", choices=("main", "wide", "long", "all"), default="main")
+    ap.add_argument("--library", action="store_true", help="also time the 200 torch.matmul yardstick")
     args = ap.parse_args()
+    here = _this_trees_chip_smoke()  # its bound, and its list of long-K shapes
     sys.path.insert(0, str(Path(args.root).resolve()))
 
     import torch
@@ -57,24 +97,34 @@ def main() -> int:
     cases = []
     if args.shapes in ("main", "all"):
         D_np = load_trained_dictionary(512)
-        cases += [(lambda side=side, seed=seed: chip_smoke.problem(side, side, seed, D_np), ("float32", "bfloat16"))
+        cases += [(lambda side=side, seed=seed: chip_smoke.problem(side, side, seed, D_np), ("float32", "bfloat16"), 100)
                   for side, seed in ((36, 0), (144, 1))]
     if args.shapes in ("wide", "all"):
-        cases += [(lambda block=block, K=K: chip_smoke.wide_problem(block, K), types)
+        cases += [(lambda block=block, K=K: chip_smoke.wide_problem(block, K), types, 100)
                   for block, K, types in chip_smoke.WIDE_SHAPES]
-    for make, types in cases:
+    if args.shapes == "long":
+        cases += [(lambda block=block, K=K: chip_smoke.wide_problem(block, K), types, 100)
+                  for block, K, types in here.LONG_K_SHAPES]
+        cases.append((here.long_k_problem, ("float32",), 20))
+    for make, types, n_iter in cases:
         blocks, masks, D, alpha = make()
+        nB, P = blocks.shape
+        K = D.shape[1]
         for mm in types:
-            cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
+            cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
             got = pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
             err = float((got - pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha)).abs().max())
             ms = chip_smoke.time_cuda(
                 lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha), reps=args.reps
             )
-            print(json.dumps({
-                "label": args.label, "card": smi, "nB": int(blocks.shape[0]), "P": int(blocks.shape[1]),
-                "K": int(D.shape[1]), "operands": mm, "n_iter": 100, "ms": ms, "max_abs_err_vs_plain": err,
-            }), flush=True)
+            row = {
+                "label": args.label, "card": smi, "nB": nB, "P": P, "K": K, "operands": mm, "n_iter": n_iter,
+                "tier": ISTA_KERNEL.last_plan.tier, "ms": ms, "max_abs_err_vs_plain": err,
+                "bound_ms": here.bound_ms(nB, P, K, n_iter, mm, here.H100_PEAKS)[0],
+            }
+            if args.library:
+                row["library_ms"] = _library_ms(nB, P, D, n_iter, mm, chip_smoke.time_cuda)
+            print(json.dumps(row), flush=True)
     return 0
 
 

@@ -388,11 +388,11 @@ def test_dip_fit_replayed_equals_the_host_stepped_fit(cuda, compute_dtype):
 @pytest.mark.parametrize(
     "nB,P,K,matmul_dtype,tier",
     [(13, 1700, 40, "float32", "streamed"), (9, 1700, 30, "float32", "streamed"),
-     (20, 2704, 64, "float32", "streamed"), (3, 16, 6000, "float32", "window"),
-     (5, 200, 700, "bfloat16", "streamed"), (3, 16, 3000, "bfloat16", "window"),
+     (20, 2704, 64, "float32", "streamed"), (3, 16, 6000, "float32", "column"),
+     (5, 200, 700, "bfloat16", "streamed"), (3, 16, 3000, "bfloat16", "column"),
      (17, 576, 1152, "bfloat16", "streamed"), (21, 2704, 512, "float32", "streamed"),
      (7, 1296, 1000, "float32", "streamed"), (9, 1296, 1030, "bfloat16", "streamed"),
-     (4, 1024, 1200, "float32", "window"), (3, 7, 196, "bfloat16", "streamed"),
+     (4, 1024, 1200, "float32", "column"), (3, 7, 196, "bfloat16", "streamed"),
      (240, 2704, 64, "float32", "streamed"), (240, 1296, 1000, "float32", "streamed"),
      (5, 1296, 1022, "float32", "streamed")],
     ids=["f32-slices-past-96", "f32-K-not-multiple-of-4", "f32-block-52", "f32-K-6000",
@@ -402,7 +402,7 @@ def test_dip_fit_replayed_equals_the_host_stepped_fit(cuda, compute_dtype):
 )
 def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype, tier):
     """Shapes the resident kernel does not take run on the streamed kernel,
-    or past its columns on the column-window kernel: against the plain loop
+    or past its columns on the column kernel: against the plain loop
     at the limits of the module docstring (bf16: or 4 times the plain loop's
     own order sensitivity), two launches equal.  The case at K 196 forces
     the streamed tier on a shape the resident kernel takes (P 7: the last CTA
@@ -511,11 +511,58 @@ def test_streamed_kernel_short_stage_in_a_fresh_slot(cuda, P, K, matmul_dtype):
     assert f32_gap >= max(1e-5 * float(ref.abs().max()), 4.0 * floor)
 
 
+@pytest.mark.parametrize(
+    "P,K,matmul_dtype",
+    [(1296, 1152, "float32"), (576, 2048, "float32"), (576, 2048, "bfloat16"), (1000, 1300, "bfloat16"),
+     (1296, 1030, "float32"), (1, 62908, "float32"), (16, 39308, "bfloat16")],
+    ids=["f32-P1296-K1152", "f32-P576-K2048", "bf16-P576-K2048", "bf16-short-last-tile", "f32-K1030-rows-copied",
+         "f32-longest-K-at-P1", "bf16-longest-K-at-P16"],
+)
+def test_column_kernel_matches_plain(cuda, P, K, matmul_dtype):
+    """The column tier at nB 144, 12 iterations: P 1296 / K 1152 (the
+    reference block past the streamed kernel's columns) and P 576 / K 2048
+    with rows of D[:, k_c] read from L2 in both products; P 1000 in bf16,
+    whose last 16-row tile of D reaches past P (its loads masked to zeros,
+    the residual's padding columns zero) and whose last CTA owns a short
+    segment of columns; K 1030 in f32, whose rows the launch copies padded
+    to 16 bytes; and the longest K of the range, at P 1 in f32 and at P 16
+    in bf16 (nothing resident).  Two launches give equal bits; f32 at the
+    limits of the module docstring; bf16 finite, within 0.02 of the f32
+    plain loop and within 1e-5 max|ref| or 4 times the bf16 plain loop's own
+    movement (rows of D permuted, or its products on the tensor cores),
+    which the f32 kernel fails."""
+    nB = 144
+    bf16 = matmul_dtype == "bfloat16"
+    plan = ISTA_KERNEL.plan(nB, P, K, bf16)
+    assert plan.tier == "column" and plan.n_clusters * plan.rows >= nB
+    if P == 1000:
+        assert P % 16 and plan.resident_rows < P and plan.k_segments()[-1][1] - plan.k_segments()[-1][0] < plan.seg
+    Y, M, D = _problem(cuda, nB, P=P, K=K, seed=P + K)
+    cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
+    alpha = compute_alpha(D, M, cfg)
+    got = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+    again = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+    torch.cuda.synchronize()
+    assert ISTA_KERNEL.last_plan.tier == "column"
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert torch.all(got[1] == 0.0)
+    ref = pnp_ista_blocks(Y, M, D, cfg, alpha=alpha)
+    if not bf16:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+        return
+    floor = max(_order_sensitivity(Y, M, D, cfg, ref, alpha), _tensor_core_sensitivity(Y, M, D, cfg, ref, alpha))
+    f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha)
+    _assert_bf16_tracks(got, ref, f32_ref, floor)
+    f32_gap = float((pnp_ista_blocks_fused(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha) - ref).abs().max())
+    assert f32_gap >= max(1e-5 * float(ref.abs().max()), 4.0 * floor)
+
+
 def test_streamed_kernel_replayed_from_a_graph(cuda):
     from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
 
     for nB, P, K, mm, tier in ((13, 1700, 40, "float32", "streamed"), (9, 1296, 1030, "bfloat16", "streamed"),
-                               (3, 16, 3000, "bfloat16", "window")):
+                               (3, 16, 3000, "bfloat16", "column"), (144, 1296, 1152, "float32", "column"),
+                               (144, 576, 2048, "bfloat16", "column")):
         Y, M, D = _problem(cuda, nB, P=P, K=K)
         cfg = SparseProxConfig(n_iter=12, matmul_dtype=mm)
         eager = pnp_ista_blocks_fused(Y, M, D, cfg)

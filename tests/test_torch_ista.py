@@ -13,9 +13,10 @@ cover everything once, its shared memory fits one CTA, and a PyTorch loop
 that follows the plan step by step (partial products per slice -- in the
 streamed tier stage by stage, product 2 of each stage added into the
 slice's partial gradient -- summed in the kernel's ring order, the NLM on
-each segment with its halo of 4 and the reflect edge; in the column-window
-tier product 2 per window over all rows) equals the plain loop at rtol 1e-5
-/ atol 1e-6: only the order of the f32 sums differs."""
+each segment with its halo of 4 and the reflect edge; in the column tier
+product 1 per CTA over its columns, the partials summed by slice of rows in
+ring order, product 2 per CTA over all rows) equals the plain loop at rtol
+1e-5 / atol 1e-6: only the order of the f32 sums differs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,8 +30,8 @@ from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
 from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, block_grid, extract_blocks, pnp_ista_blocks_fused
 from lrs_pnp_dip_tpu_torch.ops import ista as tista
 from lrs_pnp_dip_tpu_torch.ops.ista_cuda import (
-    H100_RESIDENT_CLUSTERS, _streamed_plan, _window_plan, in_tpu_range, plan_ista, stream_smem_bytes,
-    tpu_vmem_bytes, window_smem_bytes,
+    H100_RESIDENT_CLUSTERS, _column_plan, _streamed_plan, column_groups, column_scratch_floats,
+    column_smem_bytes, in_tpu_range, plan_ista, stream_smem_bytes, tpu_vmem_bytes,
 )
 from lrs_pnp_dip_tpu_torch.ops.nlm import nlm_column_batch_fast as t_nlm
 from lrs_pnp_dip_tpu_torch.solvers import make_consts
@@ -246,7 +247,7 @@ PLAN_SHAPES = (
     + [(324, 576, 512), (324, 576, 196), (324, 576, 200), (1296, 576, 512)]
     # the streamed kernel: blocks 40, 48 and 52 at K 512 (f32), P 1296 at
     # K 768 to 1152, P 576 at K 1152 and 1280 (bf16 past 640 columns),
-    # shapes the resident kernel refused; the column-window kernel past 1024
+    # shapes the resident kernel refused; the column kernel past 1024
     # columns (f32) or 1280 (bf16)
     + [(324, 1600, 512), (4, 1700, 512), (4, 48, 700), (144, 1600, 512), (144, 2304, 512),
        (144, 2704, 512), (144, 1296, 768), (144, 1296, 1024), (144, 1296, 1152), (144, 576, 1152),
@@ -254,6 +255,10 @@ PLAN_SHAPES = (
     # nothing resident (f32, K 1000), short slices at P 7 and K 196, block 40
     # at the shapes of inpaint(block_size=40), K 1288 (bf16 past 1280)
     + [(7, 1296, 1000), (3, 7, 196), (132, 1600, 512), (9, 1296, 1030), (5, 576, 1288)]
+    # the column kernel at chip_smoke.LONG_K_SHAPES (nB 144), the longest K at
+    # P 1 (f32 and bf16) and at P 16 (bf16), and 2304 rows at P 576 / K 2048
+    + [(144, 1296, 1152), (144, 576, 2048), (144, 256, 3000), (3, 1, 62908), (3, 16, 39308),
+       (2304, 576, 2048)]
 )
 
 
@@ -269,9 +274,9 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
     assert [k for a, b in plan.k_segments() for k in range(a, b)] == list(range(K))
     assert all(b - a <= plan.slice_rows for a, b in plan.p_slices())
     assert plan.seg % 4 == 0 and all(a % 4 == 0 for a, b in plan.k_segments() if b > a)
-    assert plan.rows <= (16 if bf16 or plan.streamed else 11)
+    assert plan.rows <= (16 if bf16 or plan.tier == "streamed" else 12 if plan.tier == "column" else 11)
     assert plan.smem_bytes <= MAX_SMEM
-    assert 0 <= plan.resident_rows <= plan.slice_rows
+    assert 0 <= plan.resident_rows <= (P if plan.tier == "column" else plan.slice_rows)
     if plan.tier == "streamed":
         assert plan.resident_rows == plan.slice_rows or plan.resident_rows % plan.stage_rows == 0
         assert plan.smem_bytes == stream_smem_bytes(
@@ -290,10 +295,19 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
         else:
             assert plan.scratch_floats == (P * (-(-K // 8) * 8) if K % 4 else 0)
         assert (plan.l2_bytes_per_iteration > 0) == (plan.stages > 0)
-    elif plan.tier == "window":
-        assert plan.resident_rows == plan.slice_rows or plan.resident_rows % plan.stage_rows == 0
-        assert plan.smem_bytes == window_smem_bytes(K, plan.resident_rows)
-        assert plan.scratch_floats > 0 and plan.l2_bytes_per_iteration > 0
+    elif plan.tier == "column":
+        # CTA c owns seg columns (a multiple of 8 in f32, 16 in bf16) and a
+        # slice of the residual's rows (a multiple of 4); rows of D[:, k_c]
+        # resident: all P, or in bf16 whole 16-row tiles
+        assert plan.seg % (16 if bf16 else 8) == 0 and plan.slice_rows % 4 == 0
+        assert plan.resident_rows == P or not bf16 or plan.resident_rows % 16 == 0
+        assert plan.smem_bytes == column_smem_bytes(bf16, plan.rows, P, plan.seg, plan.resident_rows)
+        assert (plan.stage_rows, plan.stages) == (0, 0)
+        # D copied once per launch: f32 with K not a multiple of 4 (rows
+        # padded to 8), bf16 rounded with its transpose where rows stream
+        assert plan.scratch_floats == column_scratch_floats(P, K, bf16, plan.resident_rows)
+        assert (plan.scratch_floats > 0) == ((plan.resident_rows < P) if bf16 else K % 4 != 0)
+        assert (plan.l2_bytes_per_iteration > 0) == (plan.resident_rows < P)
         if K <= (1280 if bf16 else 1024):  # the streamed kernel's shared memory refused it
             reasons = []
             assert _streamed_plan(nB, P, K, bf16, H100_RESIDENT_CLUSTERS, MAX_SMEM, reasons) is None
@@ -483,37 +497,47 @@ def _streamed_step(plan, x, Ym, M, D, ia, nih, rnd):
     return _reduce_and_denoise(plan, x, partial, ia, nih)
 
 
-def _window_step(plan, x, Ym, M, D, ia, nih, rnd):
-    """One iteration of the column-window kernel on the rows of one cluster:
-    product 1 per CTA slice in stages of ``stage_rows`` rows of D (resident
-    first), each summed over column stages of 128 in order; the residual in
-    device memory; product 2 per CTA over its columns and their halo, over
-    all rows of D in stages of ``stage_rows``, in order; the NLM."""
-    K, P = plan.K, plan.P
+def _column_step(plan, x, Ym, M, D, ia, nih, rnd):
+    """One iteration of the column kernel on the rows of one cluster: per
+    CTA c, the partial pred over its columns ``k_c``; for each CTA's slice
+    of rows, the C partials summed in ring order from its successor and the
+    residual (bf16: rounded once); per CTA, product 2 over all rows of D in
+    groups whose sums are added in order (f32: ``column_groups`` runs of
+    rows; bf16: the even and the odd 16-row steps where the CTA has at most
+    16 tiles of 16 columns, else all rows in order), the gradient step of its
+    columns, and the NLM on them with the halo of 4 from its neighbours'
+    steps."""
+    C, P, K = plan.cluster_size, plan.P, plan.K
+    segments = plan.k_segments()
+    partial = [rnd(x[:, a:b]) @ rnd(D[:, a:b]).T for a, b in segments]
     resid = torch.zeros_like(Ym)
-    for pa, pb in plan.p_slices():
-        for p in range(pa, pb, plan.stage_rows):
-            rows = slice(p, min(pb, p + plan.stage_rows))
-            pred = torch.zeros((x.shape[0], rows.stop - rows.start))
-            for k in range(0, K, 128):
-                pred = pred + rnd(x[:, k:k + 128]) @ rnd(D[rows, k:k + 128]).T
-            resid[:, rows] = rnd(Ym[:, rows] - M[:, rows] * pred)
+    for c, (pa, pb) in enumerate(plan.p_slices()):
+        s = torch.zeros((x.shape[0], pb - pa))
+        for i in range(C):
+            s = s + partial[(c + 1 + i) % C][:, pa:pb]
+        resid[:, pa:pb] = rnd(Ym[:, pa:pb] - M[:, pa:pb] * s)
+    g = torch.zeros_like(x)
+    for a, b in segments:
+        if not plan.bf16:
+            n = -(-P // column_groups(plan.seg))
+            groups = [torch.arange(p, min(P, p + n)) for p in range(0, P, n)]
+        elif -(-(b - a) // 16) <= 16:
+            groups = [torch.tensor([p for p in range(P) if p // 16 % 2 == h], dtype=torch.long) for h in (0, 1)]
+        else:
+            groups = [torch.arange(P)]
+        s = torch.zeros((x.shape[0], b - a))
+        for rows in groups:
+            s = s + resid[:, rows] @ rnd(D[rows, a:b])
+        g[:, a:b] = x[:, a:b] + s * ia[:, None]
     x_new = torch.zeros_like(x)
-    for k0, k1 in plan.k_segments():
-        if k1 == k0:
-            continue
-        lo, hi = max(0, k0 - 4), min(K, k1 + 4)
-        s = torch.zeros((x.shape[0], hi - lo))
-        for c in range(lo, hi, 64):
-            cols = slice(c, min(hi, c + 64))
-            for p in range(0, P, plan.stage_rows):
-                rows = slice(p, min(P, p + plan.stage_rows))
-                s[:, cols.start - lo:cols.stop - lo] += resid[:, rows] @ rnd(D[rows, cols])
-        x_new[:, k0:k1] = _nlm_segment(x[:, lo:hi] + s * ia[:, None], lo, k0, k1, K, nih)
+    for a, b in segments:
+        if b > a:
+            lo, hi = max(0, a - 4), min(K, b + 4)
+            x_new[:, a:b] = _nlm_segment(g[:, lo:hi], lo, a, b, K, nih)
     return x_new
 
 
-_STEPS = {"resident": _resident_step, "streamed": _streamed_step, "window": _window_step}
+_STEPS = {"resident": _resident_step, "streamed": _streamed_step, "column": _column_step}
 
 
 def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
@@ -535,8 +559,10 @@ def _forced_plan(nB, P, K, bf16, tier, resident_rows):
     """The plan of ``tier`` with ``resident_rows`` rows of each slice resident
     (clusters of 8): the shared-memory limit set so that just these fit."""
     clusters = {8: 15, 16: 0}
-    if tier == "window":
-        plan = _window_plan(nB, P, K, bf16, clusters, window_smem_bytes(K, resident_rows), [])
+    if tier == "column":
+        first = _column_plan(nB, P, K, bf16, clusters, MAX_SMEM, [])
+        limit = column_smem_bytes(bf16, first.rows, P, first.seg, resident_rows)
+        plan = _column_plan(nB, P, K, bf16, clusters, limit, [])
     else:
         first = _streamed_plan(nB, P, K, bf16, clusters, MAX_SMEM, [])
         S = first.stage_rows
@@ -572,10 +598,16 @@ def _forced_plan(nB, P, K, bf16, tier, resident_rows):
         (3, 200, 700, True, H100_RESIDENT_CLUSTERS, None),
         (3, 7, 196, True, H100_RESIDENT_CLUSTERS, ("streamed", 1)),
         (4, 600, 1024, False, H100_RESIDENT_CLUSTERS, ("streamed", 0)),
-        # the column-window kernel: nothing resident, windows of 72 columns,
-        # two stages of product 2; past 1024 columns in f32
-        (2, 20, 1000, False, H100_RESIDENT_CLUSTERS, ("window", 0)),
-        (2, 20, 1100, False, H100_RESIDENT_CLUSTERS, None),
+        # the column kernel: nothing resident (f32, 128 columns per CTA), 12
+        # of 20 rows resident past 1024 columns, bf16 with one 16-row tile
+        # resident and K past 1280, P 7 (the last CTAs own no rows of the
+        # residual) at K 196 (the eighth CTA no column), and K past 1280 in
+        # bf16 with all of D[:, k_c] resident
+        (2, 20, 1000, False, H100_RESIDENT_CLUSTERS, ("column", 0)),
+        (2, 20, 1100, False, H100_RESIDENT_CLUSTERS, ("column", 12)),
+        (3, 40, 1400, True, H100_RESIDENT_CLUSTERS, ("column", 16)),
+        (3, 7, 196, True, H100_RESIDENT_CLUSTERS, ("column", 7)),
+        (5, 100, 1300, True, H100_RESIDENT_CLUSTERS, None),
     ],
 )
 def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident, forced):
@@ -597,6 +629,95 @@ def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident, forced):
     assert torch.all(got[1] == 0.0)  # a fully missing block never moves
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_column_emulation_matches_pallas(bf16):
+    """A long-K shape on the column tier (nB 8, P 64, K 1100, 10
+    iterations): the port's plain loop and the column kernel's order of sums
+    against the TPU kernel in interpret mode, at the module's f32 tolerance
+    (rtol 1e-4 / atol 1e-6) or, in bf16, the plain loop at it and the
+    emulation within BF16_MATCH of max|ref| (its order flips a rounding now
+    and then).  The plan is the column tier's, forced: at this shape the
+    resident kernel takes f32 and the streamed one bf16."""
+    Y, M, D = _problem(1100, P=64, K=1100, nB=8, missing_block=True)
+    cfg = SparseProxConfig(n_iter=10, matmul_dtype="bfloat16" if bf16 else "float32")
+    plan = _column_plan(8, 64, 1100, bf16, H100_RESIDENT_CLUSTERS, MAX_SMEM, [])
+    assert plan.tier == "column" and plan_ista(8, 64, 1100, bf16).tier == ("streamed" if bf16 else "resident")
+    ref = np.asarray(pnp_ista_blocks_pallas(jnp.asarray(Y), jnp.asarray(M), jnp.asarray(D), _jcfg(cfg),
+                                            interpret=True))
+    plain = tista.pnp_ista_blocks(*_t(Y, M, D), cfg).numpy()
+    got = _emulate_plan(plan, *_t(Y, M, D), cfg, None).numpy()
+    np.testing.assert_allclose(plain, ref, rtol=RTOL, atol=ATOL)
+    if bf16:
+        assert np.abs(got - ref).max() < BF16_MATCH * np.abs(ref).max()
+    else:
+        np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    assert np.all(got[1] == 0.0)
+
+
+# (nB, P, K, bf16) -> (tier, C, R, clusters, slice rows, seg, shared memory,
+# resident rows, stage rows, stages) on an H100, as the resident and streamed
+# tiers planned them before the column tier took the long-K tail: the main
+# shape, the auto-dictionary's, chip_smoke.WIDE_SHAPES, nB 240, 2304 and 13.
+FIXED_PLANS = {
+    (144, 1296, 512, False): ("resident", 16, 11, 14, 81, 32, 225056, 81, 0, 0),
+    (144, 1296, 512, True): ("resident", 8, 10, 15, 162, 64, 231616, 162, 0, 0),
+    (324, 576, 512, False): ("resident", 8, 11, 30, 72, 64, 205696, 72, 0, 0),
+    (324, 576, 512, True): ("resident", 8, 11, 30, 72, 64, 131648, 72, 0, 0),
+    (144, 1600, 512, False): ("streamed", 8, 10, 15, 200, 64, 221808, 32, 16, 3),
+    (144, 1600, 512, True): ("resident", 16, 11, 14, 100, 32, 162784, 100, 0, 0),
+    (144, 2304, 512, False): ("streamed", 8, 10, 15, 288, 64, 221808, 32, 16, 3),
+    (144, 2304, 512, True): ("resident", 16, 11, 14, 144, 32, 197088, 144, 0, 0),
+    (144, 2704, 512, False): ("streamed", 8, 10, 15, 338, 64, 221808, 32, 16, 3),
+    (144, 2704, 512, True): ("resident", 16, 11, 14, 169, 32, 231392, 169, 0, 0),
+    (144, 1296, 1024, False): ("streamed", 8, 10, 15, 162, 128, 204656, 8, 8, 3),
+    (144, 1296, 1024, True): ("streamed", 8, 10, 15, 162, 128, 226480, 32, 16, 3),
+    (144, 576, 1152, False): ("resident", 16, 2, 72, 36, 72, 229440, 36, 0, 0),
+    (144, 576, 1152, True): ("streamed", 8, 10, 15, 72, 144, 215216, 16, 16, 3),
+    (240, 1600, 512, False): ("streamed", 8, 16, 15, 200, 64, 208304, 16, 16, 3),
+    (240, 1600, 512, True): ("resident", 16, 12, 20, 100, 32, 165120, 100, 0, 0),
+    (240, 1296, 1024, False): ("streamed", 8, 16, 15, 162, 128, 231344, 8, 8, 3),
+    (240, 1296, 1024, True): ("streamed", 8, 16, 15, 162, 128, 199600, 16, 16, 3),
+    (2304, 1296, 512, False): ("resident", 16, 11, 210, 81, 32, 225056, 81, 0, 0),
+    (2304, 1296, 512, True): ("resident", 8, 10, 231, 162, 64, 231616, 162, 0, 0),
+    (13, 1296, 512, False): ("resident", 16, 2, 7, 81, 32, 199424, 81, 0, 0),
+    (13, 1296, 512, True): ("resident", 8, 1, 13, 162, 64, 208288, 162, 0, 0),
+}
+
+
+@pytest.mark.parametrize("shape", list(FIXED_PLANS), ids=lambda s: "nB{}-P{}-K{}-{}".format(*s[:3], "bf16" if s[3] else "f32"))
+def test_resident_and_streamed_plans_are_unchanged(shape):
+    p = plan_ista(*shape)
+    assert (p.tier, p.cluster_size, p.rows, p.n_clusters, p.slice_rows, p.seg, p.smem_bytes, p.resident_rows,
+            p.stage_rows, p.stages) == FIXED_PLANS[shape]
+
+
+def test_plan_at_the_long_k_shapes():
+    """chip_smoke.LONG_K_SHAPES at nB 144 on an H100: one wave of 15
+    clusters of 8 with 10 rows each (clusters of 16 would take two waves),
+    each CTA a column slice of D with the rows that fit resident, the rest
+    read from L2 twice per iteration; P 256 / K 3000 at nB 13 keeps all of
+    D[:, k_c] resident in clusters of 16."""
+    got = {}
+    for P, K, bf16 in ((1296, 1152, False), (576, 2048, False), (576, 2048, True), (256, 3000, False),
+                       (256, 3000, True)):
+        plan = plan_ista(144, P, K, bf16)
+        got[(P, K, bf16)] = (plan.tier, plan.cluster_size, plan.rows, plan.n_clusters, plan.waves, plan.seg,
+                             plan.resident_rows)
+        # the rows past the resident ones, once per product; each CTA's columns padded to 16 in bf16
+        cols = -(-K // 16) * 16 if bf16 else K
+        assert plan.l2_bytes_per_iteration == 2 * (P - plan.resident_rows) * cols * (2 if bf16 else 4)
+    assert got == {
+        (1296, 1152, False): ("column", 8, 10, 15, 1, 144, 234),
+        (576, 2048, False): ("column", 8, 10, 15, 1, 256, 122),
+        (576, 2048, True): ("column", 8, 10, 15, 1, 256, 304),
+        (256, 3000, False): ("column", 8, 10, 15, 1, 376, 81),
+        (256, 3000, True): ("column", 8, 10, 15, 1, 384, 208),
+    }
+    small = plan_ista(13, 256, 3000, False)
+    assert (small.tier, small.cluster_size, small.rows, small.resident_rows, small.l2_bytes_per_iteration) == (
+        "column", 16, 2, 256, 0)
+
+
 def test_plan_tiers_at_the_streamed_shapes():
     """Which tier and tiling each shape of chip_smoke.WIDE_SHAPES gets on an
     H100 (nB 144), and the bytes of D its clusters stream per iteration:
@@ -604,7 +725,7 @@ def test_plan_tiers_at_the_streamed_shapes():
     clusters of 16, even at P 576 / K 1152 in bf16, where those hold the
     whole slice); f32 at K 512 in stages of 16 rows with two of them
     resident, at K 1024 in stages of 8 with one resident; a ring of three
-    stages; K past the streamed kernel's columns takes the window tier."""
+    stages; K past the streamed kernel's columns takes the column tier."""
     got = {}
     for P, K, bf16 in ((1600, 512, False), (2304, 512, False), (2704, 512, False), (1296, 1024, False),
                        (1296, 1024, True), (576, 1152, True)):
@@ -623,8 +744,8 @@ def test_plan_tiers_at_the_streamed_shapes():
     assert plan_ista(144, 1600, 512, False).l2_bytes_per_iteration == 8 * 168 * 512 * 4
     # bf16 rows come from the rounded copy: 1152 values of 2 bytes
     assert plan_ista(144, 576, 1152, True).l2_bytes_per_iteration == 8 * (72 - 16) * 1152 * 2
-    assert plan_ista(13, 1296, 1152, False).tier == "window"
-    assert plan_ista(13, 7, 9000, True).tier == "window"
+    assert plan_ista(13, 1296, 1152, False).tier == "column"
+    assert plan_ista(13, 7, 9000, True).tier == "column"
 
 
 def _short_stages_in_fresh_slots(plan):
