@@ -376,9 +376,11 @@ def wide_problem(block: int, K: int, seed: int = 0, nB: int = 144):
     return blocks[:nB], masks[:nB], D_t, alpha[:nB]
 
 
-def check_kernel(blocks, masks, D, alpha, matmul_dtype: str, bf16_match=BF16_MATCH, **sparse) -> float:
+def check_kernel(blocks, masks, D, alpha, matmul_dtype: str, bf16_match=BF16_MATCH, with_scale=False,
+                 **sparse):
     """Kernel B1 against the plain version on the same card tensors;
-    returns max |delta|, raises when outside the tolerance.  With bf16
+    returns max |delta| (with ``with_scale``, also max |ref|), raises when
+    outside the tolerance.  With bf16
     operands it also holds the kernel to the f32 plain loop, and checks
     that the f32 kernel's output would fail the bf16 match.  ``sparse``
     overrides fields of the SparseProxConfig (100 iterations, trace4)."""
@@ -419,7 +421,7 @@ def check_kernel(blocks, masks, D, alpha, matmul_dtype: str, bf16_match=BF16_MAT
     log(f"  nB={blocks.shape[0]:5d} {matmul_dtype:9s} max|delta|={err:.3e} "
         f"max|ref|={scale:.3e}{note} ok")
     log(f"        plan: {describe_plan(plan)}")
-    return err
+    return (err, scale) if with_scale else err
 
 
 def long_k_problem():
@@ -473,25 +475,29 @@ def long_k_check(peaks: dict) -> dict:
 def long_k_shapes(peaks: dict, smi: str) -> dict:
     """B1's column tier at chip_smoke.LONG_K_SHAPES (nB 144, 100 iterations,
     trace4 alpha, random unit-column dictionaries): each against its plain
-    loop (bf16 at the limit of bf16_limit), equal bits on repeat, timed
+    loop (bf16 at the limit of bf16_limit, its max |delta| over max |ref|
+    kept beside the limit and its two floors), equal bits on repeat, timed
     beside its bound, its plain loop and the 200 torch.matmul calls."""
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL
 
     out = {}
     for block, K, types in LONG_K_SHAPES:
         wide = wide_problem(block, K)
-        limit, order, tc = bf16_limit(*wide, f"block {block} (P {block * block}), K {K}")
+        floors = {}
+        if "bfloat16" in types:
+            limit, order, tc = bf16_limit(*wide, f"block {block} (P {block * block}), K {K}")
+            floors = dict(order_sensitivity=order, tensor_core_sensitivity=tc, bf16_limit=limit)
         for mm in types:
-            err = check_kernel(*wide, mm, bf16_match=limit)
+            bf16 = mm == "bfloat16"
+            err, scale = check_kernel(*wide, mm, bf16_match=floors.get("bf16_limit", BF16_MATCH), with_scale=True)
             check_same_bits(*wide, mm)
             t = time_b1(*wide, mm, peaks)
-            plan = ISTA_KERNEL.plan(144, block * block, K, mm == "bfloat16")
+            plan = ISTA_KERNEL.plan(144, block * block, K, bf16)
             if plan.tier != "column":
                 raise AssertionError(f"P {block * block}, K {K}, {mm}: tier {plan.tier}, not the column tier")
             out[f"P{block * block}_K{K}_{mm}"] = dict(
-                t, max_abs_err=err, tier=plan.tier, waves=plan.waves,
-                l2_bytes_per_iteration=plan.l2_bytes_per_iteration, order_sensitivity=order,
-                tensor_core_sensitivity=tc, bf16_limit=limit)
+                t, max_abs_err=err, max_ref=scale, max_rel_err=err / scale, tier=plan.tier, waves=plan.waves,
+                l2_bytes_per_iteration=plan.l2_bytes_per_iteration, **(floors if bf16 else {}))
             log(f"  {mm:9s} kernel_ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) -> "
                 f"{t['bound_ms'] / t['ms']:.1%} of bound; plain_ms={t['plain_ms']:.4f}; {2 * 100} {mm} "
                 f"torch.matmul calls {t['library_ms']:.4f} ms; card {smi}")

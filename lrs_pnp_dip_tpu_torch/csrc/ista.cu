@@ -1347,7 +1347,7 @@ struct ColumnLayout {
   int d, x, xown, buf, res, g, vec, total;
 };
 
-// RT: rows of the f32 register tiles (4, 8 or 12; bf16: the mma's 16).
+// RT: rows of the f32 register tiles (4 or 12; bf16: the mma's 16).
 __host__ __device__ inline ColumnLayout make_column_layout(int bf16, int R, int RT, int P, int seg, int Pr) {
   ColumnLayout L;
   L.pp = round_up(P, 16);
@@ -1384,7 +1384,7 @@ __host__ __device__ inline ColumnLayout make_column_layout(int bf16, int R, int 
   return L;
 }
 
-inline int column_tile_rows(int bf16, int R) { return bf16 ? kRowsBf16 : round_up(R, 4); }
+inline int column_tile_rows(int bf16, int R) { return bf16 ? kRowsBf16 : R <= 4 ? 4 : 12; }
 
 struct ColumnArgs {
   Args a;
@@ -1488,7 +1488,7 @@ __device__ __forceinline__ void column_halo_nlm(cg::cluster_group& cluster, floa
 
 template <int kRT>
 __global__ void __launch_bounds__(kColThreadsF32, 1) pnp_ista_column_f32(const ColumnArgs ca) {
-  static_assert(kRT == 4 || kRT == 8 || kRT == 12, "tile rows");
+  static_assert(kRT == 4 || kRT == 12, "tile rows");
   constexpr int kNT = kColThreadsF32;
   constexpr int kV = kRT / 4;  // float4 groups of rows
   cg::cluster_group cluster = cg::this_cluster();
@@ -2071,8 +2071,8 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
 
 // The kernels' slots below: 0 f32, 1 bf16 (slices of D resident); streamed:
 // 3 bf16, f32 in stages of 8 or 16 rows with tiles of 16 block rows (2, 6)
-// or 12 (7, 8); column: 4, 9, 10 f32 with tiles of 12, 8, 4 rows, 5 bf16.
-constexpr int kKernels = 11;
+// or 12 (7, 8); column: 4, 9 f32 with tiles of 12, 4 rows, 5 bf16.
+constexpr int kKernels = 10;
 
 // The attributes already set on each kernel, so that they are set by the
 // first launch of a shape and a launch recorded into a CUDA graph after it
@@ -2307,10 +2307,8 @@ int lrs_pnp_ista_column_launch(const float* y, const float* m, const float* d,
     err = launch_column(pnp_ista_column_bf16, 5, ca, cluster_size, nclusters, smem, kThreads, s);
   else if (RT == 12)
     err = launch_column(pnp_ista_column_f32<12>, 4, ca, cluster_size, nclusters, smem, kColThreadsF32, s);
-  else if (RT == 8)
-    err = launch_column(pnp_ista_column_f32<8>, 9, ca, cluster_size, nclusters, smem, kColThreadsF32, s);
   else
-    err = launch_column(pnp_ista_column_f32<4>, 10, ca, cluster_size, nclusters, smem, kColThreadsF32, s);
+    err = launch_column(pnp_ista_column_f32<4>, 9, ca, cluster_size, nclusters, smem, kColThreadsF32, s);
   return finish_launch(err);
 }
 

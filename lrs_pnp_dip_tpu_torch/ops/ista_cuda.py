@@ -75,7 +75,7 @@ _STAGE_ROWS = {False: (16, 8), True: (16,)}
 _RING = 3
 _STREAM_MAX_K = {False: 1024, True: 1280}
 # The column kernels (pnp_ista_column_f32 / _bf16): at most 12 rows per
-# cluster in f32 (register tiles of 4, 8 or 12 rows, 512 threads), 16 in
+# cluster in f32 (register tiles of 4 or 12 rows, 512 threads), 16 in
 # bf16 (the mma's m); columns per CTA a multiple of 8 (f32) or 16 (bf16).
 _COL_ROWS = {False: 12, True: 16}
 _COL_THREADS_F32 = 512
@@ -203,7 +203,7 @@ def column_smem_bytes(bf16: bool, rows: int, P: int, seg: int, resident_rows: in
         sizes = [_round_up(resident_rows, 16) * ldw * 2, _BF16_ROWS * ldw * 2, rows * seg * 4,
                  rows * max(pp, seg) * 4, _BF16_ROWS * (pp + 8) * 2]
     else:
-        rt = _round_up(rows, 4)
+        rt = 4 if rows <= 4 else 12  # column_tile_rows
         groups = column_groups(seg)
         sizes = [resident_rows * (seg + 4) * 4, rt * seg * 4, 0,
                  max(P * rt, groups * rows * seg if groups > 1 else 0) * 4, 0]
