@@ -35,8 +35,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                and the 2 n_iter torch.matmul calls (f32 and bf16);
   4. solve   — api.inpaint(variant="dip", n_iters=2) at full width (36x36x128,
                skip-128, 144 blocks, default DIP cap and early stop) on the
-               card, counting B1's launches; then one short outer step on
-               the card against the same step on the CPU;
+               card, counting B1's launches: Solver.run with each fit's
+               captured iteration replayed FIT_CHUNK times per read of the
+               stop flag; then the same 2 steps from the same seed through
+               Solver.run in turns, each a new solver, with host-stepped
+               and replayed fits (host, replayed, replayed, host): equal
+               bits and dip_iters, the reads per fit, wall per step, and the
+               warm step faster replayed in every turn; then one short outer
+               step on the card against the same step on the CPU;
   5. paths   — every other path a user can call, each at full width on
                synthetic_sample(36, 36, 128, seed=0) with the shipped
                dictionary, each with B1's count set to 0 just before and
@@ -52,10 +58,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                one launch per step) and
                inpaint(variant="dip_tuned", seeds=[0, 1]) (one
                launch per outer step at nB 288), 2 outer steps each with the
-               DIP fit capped at 50 iterations; inpaint_scene(
-               variant="lrs_pnp") on a 72x72x128 scene, four tiles in one
-               batch (one launch per outer step at nB 576), also against the
-               CPU; one concatenated launch of B1 against four per-lane
+               DIP fit capped at 50 iterations; dip_1lip, dip_fast and the
+               dip_tuned lanes (SeedEnsembleSolver.run) each against the
+               same 2 steps with host-stepped fits, equal bits;
+               inpaint_scene(variant="lrs_pnp") on a 72x72x128 scene, four
+               tiles in one batch (one launch per outer step at nB 576),
+               also against the CPU; inpaint_scene(variant="dip") on it
+               (solve_tiled(scan=False), fits capped at 50 and replayed)
+               against host-stepped fits, equal bits; one concatenated launch of B1 against four per-lane
                launches; B1 against its plain version at nB 288 and at nB
                576 (dip and lrs_pnp settings), f32 and bf16; B1, the SVT and
                a batched SVT timed at these shapes;
@@ -69,9 +79,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                calls of each on the card give equal bits; every
                get_net key's forward on the card against the same weights
                on the CPU; one `dip` outer step at 36x36x128 with each key
-               that keeps the iterate's shape (DIP fit capped at 50), one
-               launch of B1 at nB 144 each, and each other key failing
-               where the JAX package fails;
+               that keeps the iterate's shape (DIP fit capped at 50, each
+               net's fit captured on first use), one launch of B1 at nB 144
+               each, the device memory held after each and the peak, and
+               each other key failing where the JAX package fails;
   7. long tail — the auto-dictionary and the rest of the JAX package's
                surface, at full width: inpaint(variant="dip", block_size=24,
                stride=24, n_iters=2) without dictionary= (it learns K atoms
@@ -97,12 +108,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                one launch of B1 per rank, the result equal bit for bit to
                one launch over all rows; (b) ShardedSolver on {patch: 2},
                the whole lrs_pnp preset, one launch per rank per step at nB
-               72, X against the one-process solve; (c) {patch: 2, band: 2},
+               72, X against the one-process solve, and 2 dip steps (DIP
+               capped at 50), the fit chunked on the root rank, against the
+               same ranks' host-stepped fits; (c) {patch: 2, band: 2},
                four ranks, one lrs_pnp step through the 2-D prox and SVT, no
                launch of B1; (d) {data: 2}, two samples, lrs_pnp, 2 steps, one
                launch per rank per step at nB 144, lanes against the
-               one-process BatchedSolver; (e) {model: 2}, one dip step with
-               channel TP of skip-128 (DIP capped at 50), against the
+               one-process BatchedSolver, and 2 dip steps, each rank's lane
+               fit chunked, against host-stepped fits; (e) {model: 2}, one
+               dip step with channel TP of skip-128 (DIP capped at 50; the
+               fit host-stepped by the mesh's choice), against the
                one-process step; (f) the two-rank multiprocess_dryrun; (g)
                in this process, inpaint(block_size=40) on the card: under
                the default backend B1's streamed kernel once per step (nB
@@ -120,9 +135,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                run (equal bits), each timed per step and sustained, with the
                kernels, host launches, host syncs and device-busy share of
                a step; `dip`, the preset, 2 outer steps through run_scanned
-               against run from the same seed, the DIP fit capped at 200,
-               above its stop: dip_iters equal step by step, every fit
-               stopped before the cap, X equal bits; phase 4's
+               against run from the same seed and against run with
+               host-stepped fits, the DIP fit capped at 200, above its stop:
+               dip_iters equal step by step, every fit stopped before the
+               cap, X equal bits; phase 4's
                inpaint(variant="dip", n_iters=2) again, equal bits; for skip-128 f32 and bf16 and the Lipschitz U-Net, two
                eager fits equal, two graphed fits equal, graphed equal to
                eager, and ms per DIP iteration host-stepped against replayed,
@@ -705,6 +721,57 @@ def drive(label: str, fn, launches: int, nB: int, bf16: bool = False):
     return out, wall
 
 
+def run_fits(solver, n: int, host_stepped: bool):
+    """``solver.run(n)`` with its DIP fits replayed, or stepped from the host
+    (``OuterStages.fit_chunk`` None); returns (cube, history, the reads of
+    the stop flag in each step's fit)."""
+    if host_stepped:
+        solver.stages.fit_chunk = None
+    reads = []
+    state, hist = solver.run(n, callback=lambda i, st, aux: reads.append(solver.stages.dip_fit.flag_reads))
+    return solver.result_cube(state), hist, reads
+
+
+def replay_turns(sample, D_np, cfg, cube, hist, smi) -> None:
+    """Phase 4's turns: the 2 steps of ``inpaint(variant="dip")`` (``cube``,
+    ``hist``) through ``Solver.run`` again from the same seed, each turn a
+    new solver, its fits host-stepped, replayed, replayed, host-stepped.
+    Every turn gives the cube bit for bit with the same ``dip_iters``; a
+    replayed fit reads its stop flag once per FIT_CHUNK iterations, a
+    host-stepped one after every iteration; and the warm (second) step is
+    faster replayed than host-stepped in every turn."""
+    import numpy as np
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.solvers import FIT_CHUNK, Solver
+
+    log("[solve] the same 2 steps through Solver.run in turns from the same seed, host-stepped fits against "
+        f"replayed ones (FIT_CHUNK {FIT_CHUNK}): host, replayed, replayed, host; card {smi}")
+    warm = {"host": [], "replayed": []}
+    for mode in ("host", "replayed", "replayed", "host"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, h, reads = run_fits(Solver(sample, D_np, cfg), 2, host_stepped=mode == "host")
+        wall = time.perf_counter() - t0
+        iters = [int(v) for v in h["dip_iters"]]
+        per_read = [n if mode == "host" else -(-n // FIT_CHUNK) for n in iters]
+        same = np.array_equal(got, cube) and iters == [int(v) for v in hist["dip_iters"]]
+        warm[mode].append(h["seconds"][1])
+        log(f"  {mode:8s}: wall per step {[round(v, 4) for v in h['seconds']]} s ({wall:.2f} s in all), dip_iters "
+            f"{iters}, stop-flag reads per fit {reads}; the cube {'equals' if same else 'differs from'} "
+            "inpaint's bit for bit")
+        if not same:
+            raise AssertionError(f"{mode} fits: the cube or dip_iters {iters} differ from inpaint's "
+                                 f"{[int(v) for v in hist['dip_iters']]}")
+        if reads != per_read:
+            raise AssertionError(f"{mode} fits read the stop flag {reads} times, expected {per_read}")
+    log(f"  warm step: replayed {[round(v, 4) for v in warm['replayed']]} s, host-stepped "
+        f"{[round(v, 4) for v in warm['host']]} s ({min(warm['host']) / max(warm['replayed']):.2f}x at the "
+        "least)")
+    if not max(warm["replayed"]) < min(warm["host"]):
+        raise AssertionError("a replayed warm step was not faster than every host-stepped one")
+
+
 def check_recovery(label: str, cube, shape, final_mpsnr: float, input_mpsnr: float) -> None:
     import numpy as np
 
@@ -1025,7 +1092,7 @@ def parallel_phase(sample, input_mpsnr, D_np, by_path, peaks) -> dict:
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused, sparse_prox
     from lrs_pnp_dip_tpu_torch.parallel.launch import spawn
     from lrs_pnp_dip_tpu_torch.parallel.workers import run_cases
-    from lrs_pnp_dip_tpu_torch.solvers import BatchedSolver, Solver
+    from lrs_pnp_dip_tpu_torch.solvers import FIT_CHUNK, BatchedSolver, Solver
     from lrs_pnp_dip_tpu_torch.utils.config import PRESETS, SparseProxConfig
 
     t_phase = time.perf_counter()
@@ -1056,9 +1123,16 @@ def parallel_phase(sample, input_mpsnr, D_np, by_path, peaks) -> dict:
         mask=dip_mask, seed=1, lr=0.1, n_steps=1, cudnn_benchmark=benchmark,
     )) for benchmark in (False, True)]
     cases.append(tp_first_step[0])
+    dip_capped = PRESETS["dip"]()
+    dip_capped = dataclasses.replace(dip_capped, dip=dataclasses.replace(dip_capped.dip, num_iter=DIP_CAP))
+    for axes, samples in (({"patch": 2}, sample), ({"data": 2}, lanes)):
+        for host_stepped in (False, True):
+            cases.append(("solver_case", dict(axis_sizes=axes, samples=samples, dictionary=D_np, config=dip_capped,
+                                              n_steps=2, host_stepped=host_stepped)))
     log("[parallel] 2 ranks on the one card over gloo: the {patch: 2} sparse prox, ShardedSolver on "
-        "{patch: 2} (lrs_pnp), {data: 2} (lrs_pnp, 2 lanes), {model: 2} (dip, skip-128 channel TP, DIP "
-        f"capped at {TP_DIP_CAP}) and the dryrun")
+        "{patch: 2} (lrs_pnp; dip), {data: 2} (lrs_pnp, 2 lanes; dip, 2 lanes), {model: 2} (dip, skip-128 "
+        f"channel TP, DIP capped at {TP_DIP_CAP}) and the dryrun; the dip cases capped at {DIP_CAP}, each with "
+        "its fits replayed and host-stepped")
     t0 = time.perf_counter()
     two = spawn(run_cases, 2, args=("cuda", cases), device="cuda", timeout_s=SPAWN_TIMEOUT)
     log(f"  2-rank spawn {time.perf_counter() - t0:.1f} s (start-up of the ranks included)")
@@ -1138,6 +1212,27 @@ def parallel_phase(sample, input_mpsnr, D_np, by_path, peaks) -> dict:
     if got["X"].shape != XB.shape or not err <= LANES_MATCH * scale:
         raise AssertionError("the {data: 2} lanes disagree with the BatchedSolver")
 
+    # (b) and (d) with dip: the fit on the root of {patch: 2}, a lane's fit
+    # per rank on {data: 2}; replayed, as in one process, against host-stepped
+    for k, axes, label, nB in ((9, "{patch: 2}", "patch2_dip", 72), (11, "{data: 2}", "data2_dip", 144)):
+        per_step(two, k, label, 1, nB)
+        per_step(two, k + 1, label + "_host_stepped", 1, nB)
+        for rank, r in enumerate(two):
+            rep, host = r[k], r[k + 1]
+            reads = [s["fit_reads"] for s in rep["steps"]]
+            host_reads = [s["fit_reads"] for s in host["steps"]]
+            iters = [int(np.sum(s["dip_iters"])) for s in rep["steps"]]
+            fits_here = rank == 0 or label == "data2_dip"
+            expected = [-(-n // FIT_CHUNK) for n in iters] if fits_here else [0, 0]
+            same = np.array_equal(rep["X"], host["X"]) and iters == [int(np.sum(s["dip_iters"])) for s in host["steps"]]
+            log(f"  ({'b' if k == 9 else 'd'}) {axes} dip, rank {rank}: dip_iters {iters}, stop-flag reads per "
+                f"fit replayed {reads} (host-stepped {host_reads}), the fit "
+                f"{'chunked on this rank' if fits_here else 'on the root, broadcast here'}; X "
+                f"{'equals' if same else 'differs from'} the host-stepped fits' bit for bit")
+            if not same or reads != expected or host_reads != (iters if fits_here else [0, 0]):
+                raise AssertionError(f"{axes} dip on rank {rank}: the replayed fits differ from the host-stepped "
+                                     f"ones, or read the flag {reads} times (expected {expected})")
+
     # (e) {model: 2}: channel TP of skip-128 in the DIP fit
     def rel_l2(a, b):
         return float(np.sqrt(sum(np.sum((x - y) ** 2) for x, y in zip(a, b)) / sum(np.sum(y ** 2) for y in b)))
@@ -1170,6 +1265,11 @@ def parallel_phase(sample, input_mpsnr, D_np, by_path, peaks) -> dict:
         runs[dev] = dict(X=st.X.cpu().numpy(), phi=aux.phi_scatter.cpu().numpy(), dip_loss=float(aux.dip_loss),
                          mpsnr=float(aux.mpsnr), iters=aux.dip_iters, seconds=time.perf_counter() - t0)
     s = got["steps"][0]
+    if s["fit_reads"] != s["dip_iters"]:
+        raise AssertionError(f"{{model: 2}}: the TP fit read its stop flag {s['fit_reads']} times in "
+                             f"{s['dip_iters']} iterations; it is host-stepped")
+    log(f"  (e) {{model: 2}}: the TP fit host-stepped by the mesh's choice (gloo collectives cannot be captured): "
+        f"{s['fit_reads']} stop-flag reads in {s['dip_iters']} iterations")
     tp_run = dict(X=got["X"], dip_loss=float(s["dip_loss"]), mpsnr=float(np.ravel(s["mpsnr"])[0]))
 
     def gaps(a, b):
@@ -1416,6 +1516,15 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
         f"{wall:.2f} s (the capture of both graphs and of the fit included), B1 launches {ISTA_KERNEL.launches}")
     if not (same and scan_hist["dip_iters"].tolist() == run_iters):
         raise AssertionError("dip, the preset: run_scanned differs from run")
+    t0 = time.perf_counter()
+    host_cube, host_hist, host_reads = run_fits(Solver(sample, D_np, cfg), 2, host_stepped=True)
+    host_wall = time.perf_counter() - t0
+    same = (np.array_equal(host_cube, run_state.X.cpu().numpy().reshape(36, 36, 128))
+            and [int(v) for v in host_hist["dip_iters"]] == run_iters)
+    log(f"  host-stepped fits (a new solver, {host_reads} stop-flag reads): run and run_scanned "
+        f"{'equal' if same else 'differ from'} them bit for bit; wall {host_wall:.2f} s")
+    if not same:
+        raise AssertionError("dip, the preset: run and run_scanned differ from the host-stepped fits")
     if max(run_iters) >= STOP_CAP:
         raise AssertionError(f"dip, the preset: a fit ran to the cap of {STOP_CAP} ({run_iters})")
     stops = [n for n in run_iters if n < STOP_CAP]
@@ -1588,7 +1697,8 @@ def main() -> int:
             ISTA_KERNEL, bm3d_prox, compute_alpha, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused,
             sparse_prox, ssim_matlab, svt_gram,
         )
-        from lrs_pnp_dip_tpu_torch.solvers import Solver
+        from lrs_pnp_dip_tpu_torch.solvers import FIT_CHUNK, SeedEnsembleSolver, Solver
+        from lrs_pnp_dip_tpu_torch.solvers.tiled import _tiled_engine
         from lrs_pnp_dip_tpu_torch.utils import resolve_device
         from lrs_pnp_dip_tpu_torch.utils.config import (
             PRESETS, DipConfig, SolverConfig, SparseProxConfig,
@@ -1736,6 +1846,7 @@ def main() -> int:
         raise AssertionError(f"B1 launched {launches} times in 2 outer steps, expected 2")
     if not hist["mpsnr"][-1] > input_mpsnr:
         raise AssertionError(f"final MPSNR {hist['mpsnr'][-1]:.4f} not above input {input_mpsnr:.4f}")
+    replay_turns(sample, D_np, PRESETS["dip"](), cube, hist, smi)
 
     # the same short outer step on the card and on the CPU, same DIP init
     small = synthetic_sample(12, 12, 16, missing=0.1, seed=3)
@@ -1802,6 +1913,13 @@ def main() -> int:
         b1 = timing["bfloat16" if bf16 else "float32"]["ms"]
         dip_ms[f"{variant} ({net})"] = (hist["seconds"][1] * 1e3 - b1) / max(hist["dip_iters"][1], 1)
         log(f"  mpsnr {[round(v, 4) for v in hist['mpsnr']]}, per step {[round(v, 3) for v in hist['seconds']]} s")
+        host_cube, host_hist, reads = run_fits(Solver(sample, D_np, PRESETS[variant](**capped(variant))), 2, True)
+        same = np.array_equal(cube, host_cube) and hist["dip_iters"] == host_hist["dip_iters"]
+        log(f"  the same 2 steps with host-stepped fits ({reads} stop-flag reads): the cube "
+            f"{'equals' if same else 'differs from'} the replayed fits' bit for bit, dip_iters "
+            f"{[int(v) for v in host_hist['dip_iters']]}; per step {[round(v, 3) for v in host_hist['seconds']]} s")
+        if not same:
+            raise AssertionError(f"{variant}: the replayed fits differ from the host-stepped ones")
     log("  ms per DIP iteration in each path's second outer step (wall less B1, over the iterations): "
         + ", ".join(f"{k} {v:.3f}" for k, v in dip_ms.items()))
 
@@ -1848,6 +1966,23 @@ def main() -> int:
         raise AssertionError(f"ensemble history: mpsnr {hist['mpsnr'].shape}, ens_mpsnr {hist['ens_mpsnr']}")
     check_recovery("dip_tuned ensemble", cube, (36, 36, 128), float(hist["ens_mpsnr"][-1]), input_mpsnr)
     log(f"  per-seed mpsnr {hist['mpsnr'].round(4).tolist()}, ens_mpsnr {hist['ens_mpsnr'].round(4).tolist()}")
+    lanes_run = {}
+    for mode in ("replayed", "host"):
+        ens = SeedEnsembleSolver(sample, D_np, PRESETS["dip_tuned"](**capped("dip_tuned")), [0, 1])
+        if mode == "host":
+            ens.stages.fit_chunk = None
+        t0 = time.perf_counter()
+        st, h = ens.run(2)
+        lanes_run[mode] = (st.X.mean(dim=0).reshape(36, 36, 128).cpu().numpy(), h, time.perf_counter() - t0)
+    (rep_cube, rep_hist, rep_wall), (host_cube, host_hist, host_wall) = lanes_run["replayed"], lanes_run["host"]
+    same = np.array_equal(rep_cube, host_cube) and np.array_equal(rep_hist["dip_iters"], host_hist["dip_iters"])
+    chunked_same = np.array_equal(cube, rep_cube) and np.array_equal(hist["dip_iters"], rep_hist["dip_iters"])
+    log(f"  SeedEnsembleSolver.run, the lanes' fits replayed ({rep_wall:.2f} s) against host-stepped "
+        f"({host_wall:.2f} s): the mean cube {'equals' if same else 'differs from'} it bit for bit, dip_iters "
+        f"{rep_hist['dip_iters'].tolist()}; inpaint's run_chunked {'equals' if chunked_same else 'differs from'} "
+        "run bit for bit")
+    if not same:
+        raise AssertionError("dip_tuned lanes: the replayed fits differ from the host-stepped ones")
 
     log("[paths] inpaint_scene(variant='lrs_pnp', tile_batch=4) on synthetic_sample(72, 72, 128, seed=2), card and CPU")
     scene = synthetic_sample(72, 72, 128, seed=2)
@@ -1864,6 +1999,32 @@ def main() -> int:
         f"(limit {SOLVE_MATCH})")
     if not err < SOLVE_MATCH:
         raise AssertionError("the card's scene disagrees with the CPU's")
+
+    log(f"[paths] inpaint_scene(variant='dip', tile_batch=4, n_iters=2) on the 72x72x128 scene, DIP fit capped at "
+        f"{DIP_CAP}: solve_tiled(scan=False), the host-stepped outer loop, with replayed fits, against host-stepped "
+        "fits")
+
+    def dip_scene():
+        return port.inpaint_scene(scene.noisy, scene.mask, variant="dip", tile_batch=4, n_iters=2, **capped("dip"))
+
+    rec, wall = drive("inpaint_scene dip", dip_scene, launches=2, nB=576)
+    by_path["inpaint_scene_dip"] = ISTA_KERNEL.launches
+    check_recovery("inpaint_scene dip", rec, (72, 72, 128), float(mpsnr(torch.from_numpy(scene.clean),
+                                                                        torch.from_numpy(rec))), scene_in)
+    engine = _tiled_engine(PRESETS["dip"](**capped("dip")), (36, 36, 128), None, resolve_device("cuda"))
+    engine.stages.fit_chunk = None
+    t0 = time.perf_counter()
+    try:
+        rec_host = dip_scene()
+    finally:
+        engine.stages.fit_chunk = FIT_CHUNK
+    wall_host = time.perf_counter() - t0
+    same = np.array_equal(rec, rec_host)
+    log(f"  replayed fits {wall:.2f} s, host-stepped {wall_host:.2f} s for the scene; "
+        f"{'equal' if same else 'different'} bits; mpsnr {scene_in:.4f} -> "
+        f"{float(mpsnr(torch.from_numpy(scene.clean), torch.from_numpy(rec))):.4f}")
+    if not same:
+        raise AssertionError("inpaint_scene(variant='dip'): the replayed fits differ from the host-stepped ones")
 
     log("[paths] one concatenated launch of B1 against per-lane launches, nB 576 = 4 x 144")
     lanes = [main] + [problem(36, 36, seed, D_np) for seed in (1, 2, 3)]
@@ -1985,6 +2146,9 @@ def main() -> int:
     log(f"  (zoo forwards {time.perf_counter() - t_phase:.1f} s)")
     t_phase = time.perf_counter()
     dip_cap = dataclasses.replace(PRESETS["dip"]().dip, num_iter=ZOO_DIP_CAP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     for key in NET_TYPES:
         def one_step():
             return port.inpaint(sample.noisy, sample.mask, variant="dip", clean=sample.clean, n_iters=1,
@@ -2004,10 +2168,14 @@ def main() -> int:
         iters = int(hist["dip_iters"][0])
         per_iter = (hist["seconds"][0] * 1e3 - timing["float32"]["ms"]) / max(iters, 1)
         log(f"  {key:14s} dip step: wall {wall:.2f} s, {iters} DIP iterations, ~{per_iter:.3f} ms per "
-            f"iteration (first use of the net's shapes included), mpsnr {hist['mpsnr'][0]:.4f}, "
-            f"B1 launches {ISTA_KERNEL.launches} (nB {ISTA_KERNEL.last_plan.nB})")
+            f"iteration (first use of the net's shapes and its capture included), mpsnr {hist['mpsnr'][0]:.4f}, "
+            f"B1 launches {ISTA_KERNEL.launches} (nB {ISTA_KERNEL.last_plan.nB}); device memory held after it "
+            f"{(torch.cuda.memory_allocated() - held) / 2**20:+.1f} MiB")
 
-    log(f"  (zoo dip steps {time.perf_counter() - t_phase:.1f} s)")
+    log(f"  (zoo dip steps {time.perf_counter() - t_phase:.1f} s; peak device memory over them "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, held after them "
+        f"{(torch.cuda.memory_allocated() - held) / 2**20:+.1f} MiB, reserved {torch.cuda.memory_reserved() / 2**20:.1f} "
+        "MiB: each solver's captured fit freed with it)")
 
     # 7. the long tail
     auto_timing = long_tail(port, sample, input_mpsnr, scene, scene_in, capped, by_path, smi, peaks)

@@ -71,6 +71,9 @@ def inpaint(
     carries per-seed ``mpsnr`` (n_iters, n_seeds) and the ensemble's
     ``ens_mpsnr`` (n_iters,).  The ensemble runs on the device
     (``SeedEnsembleSolver.run_chunked``: 25 outer steps per host read).
+    Without ``seeds`` the host steps the outer loop (``Solver.run``) and
+    each DIP fit runs on the device, its captured iteration replayed 8
+    times per read of the stop flag.
 
     Runs on ``device``: the card by default, which raises when there is
     none; pass ``device='cpu'`` for the plain PyTorch path."""
@@ -120,8 +123,9 @@ def inpaint_scene(
     (H, W, B) cube.
 
     ``scan``: ``None`` (default) takes the device-resident loop for
-    ``lrs_pnp`` and the host-stepped loop for the DIP variants, as the JAX
-    package chooses; ``True`` / ``False`` force either.  ``net``,
+    ``lrs_pnp`` and the host-stepped outer loop for the DIP variants, as the
+    JAX package chooses (each DIP fit replays its captured iteration either
+    way); ``True`` / ``False`` force either.  ``net``,
     ``verbose`` and ``pad_final`` go to ``solve_tiled``."""
     from .solvers.tiled import solve_tiled
 

@@ -1336,6 +1336,7 @@ __global__ void __launch_bounds__(stream_threads<kBf16>()) pnp_ista_stream(const
 constexpr int kColThreadsF32 = 2 * kThreads;  // f32: 16 warps
 constexpr int kColPairs = 4;                  // bf16 product 2: 16-wide column tiles sharing an A fragment
 constexpr int kColChunk = 8;                  // bf16 product 1: k steps per mma chain (see there)
+constexpr int kColSplitSteps = 32;            // bf16 product 2: the fewest p steps it splits over (see there)
 
 // Byte offsets in dynamic shared memory.  ops/ista_cuda.py:column_smem_bytes
 // computes the same total.
@@ -1922,12 +1923,19 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
     // fragment, over the 16-row steps of D in order (resident:
     // ldmatrix.trans; the rest: 32-bit loads of the fragments from the
     // transposed copy in L2, two steps in flight).  Where the CTA has at most
-    // 4 kColPairs tiles, the warps split into two halves instead: warps 0-3
-    // take the even steps, warps 4-7 the odd ones, warp w of a half the tiles
-    // w, w + 4, ...; the odd half's sums go through shared memory and are
-    // added to the even half's.
+    // 4 kColPairs tiles and P at least kColSplitSteps steps of 16 rows, the
+    // warps split into two halves instead: warps 0-3 take the even steps,
+    // warps 4-7 the odd ones, warp w of a half the tiles w, w + 4, ...; the
+    // odd half's sums go through shared memory and are added to the even
+    // half's.  Over fewer steps the exchange costs what the halves save (on
+    // an H100 at nB 144, scripts/check_bf16_chains.py --sweep: +8.8% at 9
+    // steps, even at 16 and 25, -8% to -22% from 36 to 57).
     {
-      const int halves = nks <= 4 * kColPairs ? 2 : 1;
+#ifdef ISTA_COL_NO_SPLIT
+      const int halves = 1;  // a build to time product 2 without the split (scripts/check_bf16_chains.py)
+#else
+      const int halves = nks <= 4 * kColPairs && npt >= kColSplitSteps ? 2 : 1;
+#endif
       const int half = halves == 2 ? warp >> 2 : 0, wq = halves == 2 ? warp & 3 : warp;
       const int span = kWarps / halves;  // warps over the tiles
       const int ngroups = (nks + span * kColPairs - 1) / (span * kColPairs);  // the same for every warp

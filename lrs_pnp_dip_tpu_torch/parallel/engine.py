@@ -14,7 +14,7 @@ axes as the JAX engine chooses them:
   * ``model`` with ``dip`` or ``dip_1lip``: channel TP of the DIP net
     (:class:`.tensor.ChannelParallel`);
   * ``data``: the lanes of a batch, lane i seeded with ``seed + i``; each
-    ``data`` group runs the lockstep step (:func:`..solvers.batch.build_lockstep_step`)
+    ``data`` group runs the lockstep step (:func:`..solvers.batch.lockstep_step`)
     on its own lanes, and each lane trains its own net, so no gradient
     crosses groups.
 
@@ -36,7 +36,14 @@ The DIP fit is not split over ``patch`` or ``band``: GSPMD's spatial
 partition of a 36x36 conv has no counterpart here, and it changes no
 result.  The fit runs on the rank with coordinate 0 on those axes (with
 its ``model`` group under TP) and its output is broadcast over them, so
-every rank holds the same bits of U.
+every rank holds the same bits of U.  There, as in one process, it replays
+its captured iteration ``FIT_CHUNK`` times per read of the stop flag.  The
+mesh's ``model`` axis is the one exception: a channel-TP net runs gloo
+collectives inside its forward and backward, on CUDA tensors through the
+host (:mod:`..utils.comm`), which a CUDA graph cannot capture, and NCCL,
+which could be captured, cannot put two ranks on one card.  So its module
+declares ``capturable = False`` (:class:`.tensor.ChannelParallel`) and the
+TP fit is stepped from the host, one read of the stop flag per iteration.
 
 The JAX engine switches the batched path to ``backend="xla"`` (``:92-100``)
 because ``vmap`` cannot map its ``pallas_call``; that is a limit of ``vmap``,
@@ -54,9 +61,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..data.io import HsiSample
-from ..solvers.admm import SolverState, build_step, init_state, make_consts
-from ..solvers.batch import build_lockstep_step, stack_consts, stack_states
-from ..solvers.dip import DipResult, make_dip_fit
+from ..solvers.admm import OuterStages, SolverState, init_state, make_consts, single_step
+from ..solvers.batch import lockstep_step, stack_consts, stack_states
+from ..solvers.dip import DipFit, DipResult, make_dip_fit
 from ..utils.comm import all_gather, broadcast
 from ..utils.config import SolverConfig
 from ..utils.device import resolve_device
@@ -73,36 +80,44 @@ from .tensor import make_channel_constraint
 _FIT_AXES = ("patch", "band")  # the axes the DIP fit is not split over
 
 
+class _FitOnRoot:
+    """``fit`` (a :class:`..solvers.dip.DipFit`) on the rank ``root`` of
+    ``group``, its result broadcast over the group.  It takes the chunk of
+    :class:`..solvers.admm.OuterStages` and passes it on to the root's fit."""
+
+    takes_chunk = True
+
+    def __init__(self, fit: DipFit, root: int, group):
+        self.fit, self.root, self.group = fit, root, group
+
+    def __call__(self, dip_input, target, mask, init=None, generator=None, chunk=None) -> DipResult:
+        if dist.get_rank() == self.root:
+            res = self.fit(dip_input, target, mask, init=init, generator=generator, chunk=chunk)
+            out = res.out
+            meta = torch.tensor(
+                [float(res.loss), res.n_iters, float(res.stopped)], dtype=torch.float64, device=out.device
+            )
+        else:
+            out = torch.empty_like(target, dtype=torch.float32)
+            meta = torch.empty(3, dtype=torch.float64, device=out.device)
+        out = broadcast(out, self.root, self.group)
+        meta = broadcast(meta, self.root, self.group).tolist()
+        loss = torch.tensor(meta[0], dtype=torch.float32, device=out.device)
+        return DipResult(out=out, loss=loss, n_iters=int(meta[1]), stopped=bool(meta[2]))
+
+
 def _fit_factory(mesh: DeviceMesh):
     """The DIP-fit hook of :class:`..solvers.admm.OuterStages`: channel TP
-    over ``model`` when the mesh has it, and the fit on the rank at
-    coordinate 0 of ``patch`` / ``band`` with its result broadcast there."""
+    over ``model`` when the mesh has it (stepped from the host: see the
+    module docstring), and the fit on the rank at coordinate 0 of ``patch``
+    / ``band`` with its result broadcast there."""
     fan_group = axis_group(mesh, _FIT_AXES)
     root = group_root(mesh, _FIT_AXES)
     tp = axis_size(mesh, "model") > 1
 
     def factory(net, dip_config):
         fit = make_dip_fit(make_channel_constraint(mesh, "model")(net) if tp else net, dip_config)
-        if fan_group is None:
-            return fit
-
-        def fit_on_root(dip_input, target, mask, init=None, generator=None):
-            if dist.get_rank() == root:
-                res = fit(dip_input, target, mask, init=init, generator=generator)
-                out = res.out
-                meta = torch.tensor(
-                    [float(res.loss), res.n_iters, float(res.stopped)],
-                    dtype=torch.float64, device=out.device,
-                )
-            else:
-                out = torch.empty_like(target, dtype=torch.float32)
-                meta = torch.empty(3, dtype=torch.float64, device=out.device)
-            out = broadcast(out, root, fan_group)
-            meta = broadcast(meta, root, fan_group).tolist()
-            loss = torch.tensor(meta[0], dtype=torch.float32, device=out.device)
-            return DipResult(out=out, loss=loss, n_iters=int(meta[1]), stopped=bool(meta[2]))
-
-        return fit_on_root
+        return fit if fan_group is None else _FitOnRoot(fit, root, fan_group)
 
     return factory
 
@@ -148,24 +163,24 @@ class ShardedSolver:
         if config.variant in ("dip", "dip_1lip"):
             dip_fit_factory = _fit_factory(mesh)
 
+        self.stages = OuterStages(
+            config, self.shape, net=net, svt_fn=svt_fn, dip_init=dip_init, device=self.device,
+            sparse_prox_fn=sparse_prox_fn, dip_fit_factory=dip_fit_factory,
+        )
         if self.batched:
             n_data = axis_size(mesh, "data")
             if len(samples_list) % n_data:
                 raise ValueError(f"{len(samples_list)} samples do not split over data={n_data}")
             per = len(samples_list) // n_data
             self.lanes = list(range(axis_index(mesh, "data") * per, (axis_index(mesh, "data") + 1) * per))
-            build = build_lockstep_step
+            self._step = lockstep_step(self.stages)
             consts = stack_consts([
                 make_consts(samples_list[i], dictionary, config, device=self.device) for i in self.lanes
             ])
         else:
             self.lanes = [0]
-            build = build_step
+            self._step = single_step(self.stages)
             consts = make_consts(samples_list[0], dictionary, config, device=self.device)
-        self._step = build(
-            config, self.shape, net=net, svt_fn=svt_fn, dip_init=dip_init, device=self.device,
-            sparse_prox_fn=sparse_prox_fn, dip_fit_factory=dip_fit_factory,
-        )
         self.consts = consts
         self._spec = state_sharding(mesh, self.batched).X
         self._group_spec = within_data_group(self._spec)

@@ -153,7 +153,14 @@ class ChannelParallel(nn.Module):
     :meth:`reset_parameters` draws the template from the generator, every
     rank alike, and slices it; :meth:`load_state_dict` loads the template
     from a whole state dict and slices it.  Takes and returns what ``net``
-    does, whole on every rank of the axis."""
+    does, whole on every rank of the axis.
+
+    ``capturable`` is False: the forward and backward run gloo collectives,
+    which stage CUDA tensors through the host and cannot be captured in a
+    CUDA graph (NCCL could be, but cannot put two ranks on one card), so
+    :class:`..solvers.dip.DipFit` steps a fit of this module from the host."""
+
+    capturable = False
 
     def __init__(self, net: nn.Module, mesh: DeviceMesh, axis: str = "model", strict: bool = False):
         super().__init__()

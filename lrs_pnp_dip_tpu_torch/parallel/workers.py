@@ -88,13 +88,17 @@ def solver_case(
     n_steps: int,
     net_spec: Optional[tuple] = None,
     dip_inits: Optional[Sequence[dict]] = None,
+    host_stepped: bool = False,
 ) -> dict:
     """``n_steps`` of :class:`.engine.ShardedSolver`: the whole final X (all
     lanes), and per step the metrics, the whole phi_scatter, the DIP
-    iterations and loss, B1's launches and last nB on this rank, the bytes
-    moved and the wall seconds; the rank's device and TF32 flags.  ``net_spec`` names the DIP net (see
-    :func:`_net`); ``dip_inits[itr]`` is the state dict each step's DIP fit
-    starts from, when given."""
+    iterations and loss, the reads of the stop flag in this rank's last DIP
+    fit of the step (0 where the fit ran on another rank), B1's launches and
+    last nB on this rank, the bytes moved and the wall seconds; the rank's
+    device and TF32 flags.  ``net_spec`` names the DIP net (see :func:`_net`);
+    ``dip_inits[itr]`` is the state dict each step's DIP fit starts from,
+    when given; ``host_stepped`` steps the DIP fits from the host
+    (``OuterStages.fit_chunk`` None) in place of replaying them."""
     from .engine import ShardedSolver
 
     mesh = make_mesh(axis_sizes, device)
@@ -103,14 +107,20 @@ def solver_case(
     solver = ShardedSolver(
         samples, dictionary, config, mesh, net=_net(net_spec), device=device, dip_init=dip_init
     )
+    if host_stepped:
+        solver.stages.fit_chunk = None
+    fit = getattr(solver.stages.dip_fit, "fit", solver.stages.dip_fit)  # the DipFit behind a fit on one rank
     state = solver.init_state()
     steps = []
     for _ in range(n_steps):
+        if fit is not None:
+            fit.flag_reads = 0
         (state, aux), launches, nB, moved, seconds = _counted(dev, lambda: solver.step(state))
         steps.append(dict(
             mpsnr=solver._lanes_metric(aux.mpsnr), ssim=solver._lanes_metric(aux.ssim),
             phi_scatter=solver.gather(aux.phi_scatter, solver._group_spec).cpu().numpy(),
             dip_iters=aux.dip_iters, dip_loss=aux.dip_loss.detach().cpu().numpy(),
+            fit_reads=None if fit is None else fit.flag_reads,
             launches=launches, nB=nB, bytes=moved, seconds=seconds,
         ))
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)

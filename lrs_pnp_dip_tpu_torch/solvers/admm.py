@@ -13,7 +13,9 @@ Per outer iteration (``main_LRS_PnP_DIP_pro.py:355-528``,
 :class:`OuterStages` holds those stages for one problem geometry;
 :func:`build_step` strings them into the single-problem step and
 :mod:`.batch` into the lockstep step of several problems.
-:meth:`Solver.run` steps the outer loop from the host;
+:meth:`Solver.run` steps the outer loop from the host, and each step's DIP
+fit runs as one device program (its captured iteration replayed, as the
+JAX package's jitted step runs its ``while_loop``);
 :meth:`Solver.run_scanned` is the device-resident loop of
 :mod:`.scan` (CUDA graphs on the card), the counterpart of the JAX
 package's ``lax.scan``.
@@ -37,7 +39,7 @@ from ..ops.ssim import ssim
 from ..ops.svt import svt_gram
 from ..utils.config import SolverConfig
 from ..utils.device import resolve_device
-from .dip import make_dip_fit
+from .dip import FIT_CHUNK, make_dip_fit
 
 
 class SolverState(NamedTuple):
@@ -116,7 +118,15 @@ class OuterStages:
     :func:`..ops.ista.sparse_prox` with the config's sparse settings, and
     ``dip_fit_factory(net, dip_config)`` replaces :func:`.dip.make_dip_fit`
     (channel TP of the net, or the fit on one rank with its result
-    broadcast).  Without them the step is the unsharded one, bit for bit."""
+    broadcast).  Without them the step is the unsharded one, bit for bit.
+
+    ``fit_chunk`` is the chunk :meth:`low_rank` gives the DIP fit:
+    ``FIT_CHUNK`` when the fit says it ``takes_chunk`` (a
+    :class:`.dip.DipFit`, or the sharded engine's fit on one rank), so that
+    on the card every step replays the fit's captured iteration; None for a
+    fit that does not, which is called as it always was.  Setting it to None
+    steps the fit from the host, which is how the tests and
+    ``chip_smoke.py`` hold the replayed fit to the host-stepped one."""
 
     def __init__(
         self,
@@ -141,6 +151,7 @@ class OuterStages:
         )
         self.dip_init = dip_init
         self.dip_fit = None
+        self.fit_chunk: Optional[int] = None
         if cfg.variant in ("dip", "dip_1lip"):
             if cfg.dip.input_mode not in ("iterate", "noise"):
                 raise ValueError(
@@ -149,6 +160,8 @@ class OuterStages:
                 )
             net = (net or default_net(cfg, b)).to(self.device)
             self.dip_fit = (dip_fit_factory or make_dip_fit)(net, cfg.dip)
+            if getattr(self.dip_fit, "takes_chunk", False):
+                self.fit_chunk = FIT_CHUNK
         elif cfg.variant != "lrs_pnp":
             raise ValueError(f"unknown variant {cfg.variant!r}")
 
@@ -170,11 +183,10 @@ class OuterStages:
         """The `lrs_pnp` low-rank prox; takes a leading batch axis."""
         return self.svt_fn(Z, 1.0 / self.config.mu2)
 
-    def low_rank(self, state: SolverState, consts: ProblemConsts, chunk: Optional[int] = None):
+    def low_rank(self, state: SolverState, consts: ProblemConsts):
         """The low-rank / DIP prox: (U, dip_iters, dip_loss).  The DIP fit
-        takes one problem; the `lrs_pnp` SVT also takes a stacked state (a
-        leading lane axis), as one batched ``eigh``.  ``chunk`` is the DIP
-        fit's (:class:`.dip.DipFit`): None steps it from the host."""
+        takes one problem, with ``fit_chunk``; the `lrs_pnp` SVT also takes
+        a stacked state (a leading lane axis), as one batched ``eigh``."""
         cfg = self.config
         h, w, b = self.image_shape
         Z = self.low_rank_input(state)
@@ -190,7 +202,7 @@ class OuterStages:
             dip_input, consts.dip_target, consts.dip_mask,
             init=None if self.dip_init is None else self.dip_init(state.itr),
             generator=state.generator,
-            **({} if chunk is None else {"chunk": chunk}),
+            **({} if self.fit_chunk is None else {"chunk": self.fit_chunk}),
         )
         return res.out.reshape(h * w, b), res.n_iters, res.loss
 

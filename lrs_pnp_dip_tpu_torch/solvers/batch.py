@@ -11,14 +11,16 @@ How the lanes are batched here:
   * the SVT of all `lrs_pnp` lanes is one batched ``eigh``;
   * the DIP fits run lane by lane, each from its own generator with its own
     Adam and its own early stop: what ``while_loop`` under ``vmap`` computes,
-    without the finished lanes idling;
+    without the finished lanes idling.  Every lane's fit replays the one
+    captured iteration of the engine's :class:`.dip.DipFit` (one capture per
+    net and shape, not per lane);
   * the data-fidelity update, the duals and the metrics are looped over the
     lanes through the single-problem stage.
 
 A stacked :class:`SolverState` holds ``X``, ``lambda1``, ``lambda2`` as
 ``(N, P, B)`` and a tuple of N generators; a stacked :class:`ProblemConsts`
 holds every field with a leading lane axis except ``D``.
-:meth:`SeedEnsembleSolver.run` steps from the host;
+:meth:`SeedEnsembleSolver.run` steps the outer loop from the host;
 :meth:`SeedEnsembleSolver.run_scanned` and
 :meth:`SeedEnsembleSolver.run_chunked` run the same step on the device
 (:mod:`.scan`: CUDA graphs on the card, the lanes' DIP fits one after

@@ -21,11 +21,15 @@ as ``while_loop`` under ``vmap`` does for a finished lane.  (Buffers such
 as the Lipschitz layers' power-iteration vector still advance; nothing
 reads them before the next fit draws them anew.)  So the iteration can be
 captured in a CUDA graph once per net and shape and replayed: the fit with
-``chunk=k`` replays it ``k`` times between two reads of the stop flag, the
-device-resident fit of :meth:`..admm.Solver.run_scanned`.  Without a chunk
-the host steps the fit and reads the flag after every iteration, without a
-graph: the fit of :meth:`..admm.Solver.run`.  On the CPU both run eagerly
-and give the same bits.
+``chunk=k`` replays it ``k`` times between two reads of the stop flag.  That
+is how every entry point runs the fit (``OuterStages.fit_chunk`` is
+``FIT_CHUNK``): one device program per fit, as the JAX package's jitted
+step runs its ``while_loop``.  Without a chunk the host steps the fit and
+reads the flag after every iteration, without a graph; the tests and
+``chip_smoke.py`` hold the replayed fit to it, and a net whose module
+declares ``capturable = False`` (channel TP, whose gloo collectives a graph
+cannot hold: :class:`..parallel.tensor.ChannelParallel`) is always stepped
+so.  On the CPU both run eagerly and give the same bits.
 
 Adam is written out on one flat f32 buffer that every parameter is a view
 of, with its moments beside it, in ``torch.optim.Adam``'s operations and
@@ -48,6 +52,7 @@ choose types op by op, a different computation, so the cast is explicit.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Mapping, NamedTuple, Optional
 
 import torch
@@ -96,7 +101,6 @@ class _FitTensors:
         self.es = init_early_stop(
             cfg.buffer_size, target.numel(), incremental=cfg.es_mode == "incremental", device=dev
         )
-        self.graph: Optional[Captured] = None
 
     def restart(self) -> None:
         reset_early_stop(self.es)
@@ -114,14 +118,19 @@ class DipFit:
     The net starts from ``init`` (a state dict) when given, else it is
     re-initialised in place from ``generator``: one module serves every
     outer step, each fit starting from fresh parameters and a fresh Adam.
-    ``chunk=None`` steps the fit from the host; ``chunk=k`` is the
-    device-resident fit (a captured graph on the card, replayed ``k`` times
-    per read of the stop flag).  The first call flattens the net's
+    ``chunk=k`` is the device-resident fit (a captured graph on the card,
+    replayed ``k`` times per read of the stop flag), what the solvers run;
+    ``chunk=None`` steps the fit from the host, and so does every chunk when
+    the net's module says ``capturable = False``, which the fit reads before
+    it starts.  ``flag_reads`` is the number of reads of the stop flag in
+    the latest fit.  The first call flattens the net's
     parameters into one buffer (each stays a parameter of the net, now a
     view of it).  Every call runs with cuDNN's deterministic algorithms
     (:func:`~..utils.device.deterministic_cudnn`), and the nets' padding and
     upsampling have fixed-order backwards: two fits from one init give equal
     bits on the card, graphed or eager."""
+
+    takes_chunk = True  # OuterStages passes it FIT_CHUNK
 
     def __init__(self, model: nn.Module, cfg: DipConfig = DipConfig()):
         if cfg.return_mode not in ("last", "window_mean"):
@@ -146,6 +155,8 @@ class DipFit:
         self.params = list(model.parameters())
         self._flat = None  # (params, moment 1, moment 2, gradients) buffers
         self._tensors: Optional[_FitTensors] = None
+        self._graph: Optional[Captured] = None  # the captured iteration on self._tensors
+        self.flag_reads = 0
 
     # -- the flat parameter buffer and Adam ---------------------------------
 
@@ -175,8 +186,7 @@ class DipFit:
         # torch.optim.Adam's scalars of step t, in float64 as it computes them
         self._neg_step_size = (-(self.cfg.learning_rate / (1 - _BETA1**steps))).float().to(device)
         self._bc2_sqrt = torch.sqrt(1 - _BETA2**steps).float().to(device)
-        if self._tensors is not None:
-            self._tensors.graph = None
+        self._graph = None
 
     def _adam(self, grads, active: torch.Tensor, i: torch.Tensor) -> None:
         """One Adam step of every parameter at step ``i + 1``, masked by ``active``."""
@@ -242,26 +252,35 @@ class DipFit:
         cfg = self.cfg
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if not getattr(self.model, "capturable", True):
+            chunk = None
         if self.params:
             self._flatten(target.device)
         ft = self._tensors
         key = (target.device, tuple(dip_input.shape), tuple(target.shape), tuple(mask.shape))
         if ft is None or ft.key != key:
             ft = self._tensors = _FitTensors(key, cfg, dip_input, target, mask, self.bf16)
+            self._graph = None
         self.model.train()
         ft.input.copy_(dip_input)
         ft.target_masked.copy_(target * mask)
         ft.mask.copy_(mask)
         self._start(ft, init, generator)
-        if chunk is not None and ft.graph is None:
-            ft.graph = Captured(lambda: self._iteration(ft), target.device)
-        i = stop = count = 0
+        if chunk is not None and self._graph is None:
+            # the graph holds the fit weakly: a fit dropped by its solver is
+            # freed, its graph's memory pool with it, without waiting for
+            # the garbage collector
+            me = weakref.proxy(self)
+            self._graph = Captured(lambda: me._iteration(ft), target.device)
+        i = stop = count = reads = 0
         if cfg.num_iter > 0:
-            step = (lambda: self._iteration(ft)) if chunk is None else ft.graph
+            step = (lambda: self._iteration(ft)) if chunk is None else self._graph
             while not stop and i < cfg.num_iter:
                 for _ in range(chunk or 1):
                     step()
                 i, stop, count = ft.status.tolist()
+                reads += 1
+        self.flag_reads = reads
         out = ft.out.clone()
         if cfg.return_mode == "window_mean":
             n_seen = min(count, cfg.buffer_size)

@@ -13,7 +13,8 @@ runs each outer step as
      cuSOLVER's status is checked on the host, which a graph cannot
      capture: one host sync per step), or the DIP fit of each lane through
      the one captured fit of :class:`.dip.DipFit` (one read of its stop flag
-     per ``FIT_CHUNK`` iterations), or a custom ``svt_fn``;
+     per ``FIT_CHUNK`` iterations, the fit that :meth:`.admm.Solver.run`
+     and the lockstep engines' ``run`` replay too), or a custom ``svt_fn``;
   3. graph B: the rest of the SVT, the data-fidelity update, the duals, the
      metrics (and the ensemble's, for a seed ensemble); it writes the step's
      scalars into a history buffer on the device at a device-side index and
@@ -39,7 +40,7 @@ from ..ops.ssim import ssim
 from ..ops.svt import gram, svt_from_eigh, svt_gram
 from .admm import OuterStages, ProblemConsts, SolverState
 from .batch import _lane_consts, _lane_state, lockstep_finish, lockstep_sparse
-from .dip import FIT_CHUNK, DipFit
+from .dip import DipFit
 from .graphs import Captured
 
 
@@ -107,15 +108,13 @@ class ScannedSolve:
         elif not self.dip:
             self.U.copy_(stages.svt(stages.low_rank_input(st)))
         elif not self.lanes:
-            U, n_iters, loss = stages.low_rank(st, self.consts, chunk=FIT_CHUNK)
+            U, n_iters, loss = stages.low_rank(st, self.consts)
             self.U.copy_(U)
             self.dip_iters.fill_(n_iters)
             self.dip_loss.copy_(loss)
         else:
             for i in range(self.n_lanes):
-                U, n_iters, loss = stages.low_rank(
-                    _lane_state(st, i), _lane_consts(self.consts, i), chunk=FIT_CHUNK
-                )
+                U, n_iters, loss = stages.low_rank(_lane_state(st, i), _lane_consts(self.consts, i))
                 self.U[i].copy_(U)
                 self.dip_iters[i].fill_(n_iters)
                 self.dip_loss[i].copy_(loss)

@@ -8,7 +8,9 @@ launch of kernel B1, per outer step over the blocks of every tile of the
 batch), and stitches the recovered tiles back with overlap averaging.  The
 tile feeder prefetches on a host thread while the device solves the
 previous batch.  With ``scan=True`` a batch's steps run on the device
-(:class:`.scan.ScannedSolve`, CUDA graphs on the card), else from the host.
+(:class:`.scan.ScannedSolve`, CUDA graphs on the card), else from the host;
+either way each DIP fit replays the engine's one captured iteration (one
+capture per net and tile shape, whatever the batch).
 """
 
 from __future__ import annotations
@@ -79,8 +81,9 @@ def solve_tiled(
 
     ``scan=True`` (default) runs a batch's ``n`` outer steps on the device
     (:class:`.scan.ScannedSolve`: captured graphs on the card, the state
-    read back once per batch); ``scan=False`` steps each batch from the
-    host.  Both give the same bits on the CPU.
+    read back once per batch); ``scan=False`` steps each batch's outer loop
+    from the host, its DIP fits replayed as in ``scan=True``.  Both give the
+    same bits on the CPU.
 
     A final partial batch runs at its real size by default; ``pad_final=True``
     pads it to ``tile_batch`` by duplicating its last tile (the extras are

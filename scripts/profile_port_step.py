@@ -10,10 +10,13 @@ net.  At the reference size (synthetic_sample(36, 36, 128, seed=0), the
 shipped dictionary, 144 blocks), after one warm-up step, it prints:
 
   * the wall time of one outer step with the DIP fit capped at
-    ``--dip-iters`` iterations (the early stop may end it sooner);
+    ``--dip-iters`` iterations (the early stop may end it sooner), the fit
+    replayed from its captured iteration as ``Solver.run`` runs it;
   * the sparse prox's time (CUDA events) and, for `lrs_pnp`, the SVT's;
-  * for a DIP preset, the fit's time per iteration and a torch.profiler
-    table of ``--trace-iters`` DIP iterations; for `lrs_pnp` and `matlab`,
+  * for a DIP preset, the host-stepped fit's time per iteration and a
+    torch.profiler table of ``--trace-iters`` of its iterations (their
+    kernels; ``chip_smoke.py`` phase 9 profiles the replayed iteration
+    beside it); for `lrs_pnp` and `matlab`,
     the same table of one outer step: device time and host time by operator, the
     device's busy share of the wall time;
 

@@ -395,6 +395,72 @@ def test_dip_fit_replayed_equals_the_host_stepped_fit(cuda, compute_dtype):
     assert not torch.backends.cudnn.deterministic  # the caller's flag, given back
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_solver_run_replays_the_fit(cuda, compute_dtype):
+    """``Solver.run`` of `dip` replays each step's DIP fit (one read of the
+    stop flag per FIT_CHUNK iterations) and gives the bits and dip_iters of
+    the same 2 steps with host-stepped fits, one launch of B1 per step; in
+    bf16 with bf16 sparse-prox operands, as `dip_fast`."""
+    from lrs_pnp_dip_tpu_torch.models import Skip
+    from lrs_pnp_dip_tpu_torch.solvers import FIT_CHUNK
+    from lrs_pnp_dip_tpu_torch.utils.config import DipConfig
+
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((36, 48)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    sample = synthetic_sample(12, 12, 16, missing=0.1, seed=3)
+    cfg = SolverConfig(
+        block_size=6, stride=6, sparse=SparseProxConfig(n_iter=20, matmul_dtype=compute_dtype),
+        dip=DipConfig(num_iter=40, buffer_size=3, patience=2, learning_rate=0.01, compute_dtype=compute_dtype),
+    )
+    runs = {}
+    for mode in ("replayed", "host"):
+        net = Skip(num_input_channels=16, num_output_channels=16, channels_down=(8, 8), channels_up=(8, 8),
+                   channels_skip=(4, 4), pad="reflection")
+        solver = Solver(sample, D, cfg, net=net, device=cuda)
+        if mode == "host":
+            solver.stages.fit_chunk = None
+        reads = []
+        ISTA_KERNEL.launches = 0
+        state, hist = solver.run(2, callback=lambda i, st, aux: reads.append(solver.stages.dip_fit.flag_reads))
+        torch.cuda.synchronize()
+        assert ISTA_KERNEL.launches == 2
+        iters = [int(n) for n in hist["dip_iters"]]
+        assert reads == (iters if mode == "host" else [-(-n // FIT_CHUNK) for n in iters])
+        runs[mode] = state, iters
+    assert runs["replayed"][1] == runs["host"][1]
+    for name in ("X", "lambda1", "lambda2"):
+        assert torch.equal(getattr(runs["replayed"][0], name), getattr(runs["host"][0], name)), name
+
+
+@pytest.mark.parametrize("settings", ["dip", "lrs_pnp"])
+def test_resident_bf16_kernel_at_its_widest_K(cuda, settings):
+    """The resident bf16 kernel sums product 1 over all K in each warp's
+    mma chain: 40 k steps at K 640 (its widest), where the column kernel
+    needed its chains cut.  Main-path blocks against a random 1296x640
+    unit-column dictionary, nB 144, at the `dip` sparse settings (100
+    iterations, trace4 alpha, h_scale 1) and the `lrs_pnp` ones (80,
+    specnorm, 0.1), held to the larger of the plain loop's two floors (rows
+    of D permuted, products on the tensor cores)."""
+    Y, M, _ = _main_path_blocks(cuda, 144)
+    rng = np.random.default_rng(640)
+    D = rng.standard_normal((1296, 640)).astype(np.float32)
+    D = torch.from_numpy(D / np.linalg.norm(D, axis=0, keepdims=True)).to(cuda)
+    sparse = (dict(n_iter=100, alpha_mode="trace4", h_scale=1.0) if settings == "dip"
+              else dict(n_iter=80, alpha_mode="specnorm", h_scale=0.1))
+    cfg = SparseProxConfig(matmul_dtype="bfloat16", **sparse)
+    plan = ISTA_KERNEL.plan(144, 1296, 640, True)
+    assert (plan.tier, plan.K) == ("resident", 640)
+    alpha = compute_alpha(D, M, cfg)
+    got = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+    torch.cuda.synchronize()
+    assert ISTA_KERNEL.last_plan.tier == "resident"
+    ref = pnp_ista_blocks(Y, M, D, cfg, alpha=alpha)
+    floor = max(_order_sensitivity(Y, M, D, cfg, ref, alpha), _tensor_core_sensitivity(Y, M, D, cfg, ref, alpha))
+    f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(**sparse), alpha=alpha)
+    _assert_bf16_tracks(got, ref, f32_ref, floor)
+
+
 @pytest.mark.parametrize(
     "nB,P,K,matmul_dtype,tier",
     [(13, 1700, 40, "float32", "streamed"), (9, 1700, 30, "float32", "streamed"),
