@@ -15,12 +15,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                (80 iterations, specnorm alpha, h_scale 0.1); and two
                launches on the same inputs must give equal bits (the
                engines' shapes, nB 288 and 576, are held in phase 5); then
-               at nB 144 the shapes only the streamed tiers take, with
+               at nB 144 the shapes past the resident kernel, with
                random dictionaries (wide_problem): blocks 40, 48 and 52 at K
-               512 and P 1296 at K 1024, f32 and bf16, and P 576 at K 1152
-               in bf16, each against its plain loop, with equal bits on
-               repeat, its plan (tier, waves, bytes of D through L2 per
-               cluster and iteration) printed, bf16 held to the larger of
+               512 and P 1296 at K 1024, f32 and bf16, and P 576 at K
+               1152, on the tier the plan picks, each against its plain
+               loop, with equal bits on repeat, its plan (tier, waves,
+               bytes of D through L2 per cluster and iteration) printed,
+               bf16 held to the larger of
                1e-5 and 4 times the bf16 plain loop's floor (rows of D
                permuted, or its products on the tensor cores); the f32
                streamed kernel's tiles of 16 block rows at nB 240 (block 40,
@@ -29,7 +30,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                then the column kernel at nB 144 (LONG_K_SHAPES: P 1296 / K
                1152 f32, P 576 / K 2048 and P 256 / K 3000 f32 and bf16) the
                same way, timed beside its bound, plain loop and yardstick,
-               and once at P 256 / K 3000, nB 13 (long_k_check);
+               and once at P 256 / K 3000, nB 13 (long_k_check); then at
+               each shape of TIER_SHAPES (the main shape, nB 72, 288, 576
+               and 2304, the auto-dictionary's P 576 at nB 324 and 1296,
+               blocks 40, 48 and 52, K 1024 and 1152; random problems,
+               tier_problem) every tiling of plan_candidates forced in turn
+               against the plain loop, with equal bits on repeat, then all
+               timed in turns (logged beside their predicted times), the
+               bound and the yardstick, the plan's pick beside the fastest
+               (tier_sweep);
   3. timing  — B1 at the main-path shape, at nB 2304 and at the streamed
                shapes with CUDA events, beside its bound, its plain version
                and the 2 n_iter torch.matmul calls (f32 and bf16);
@@ -128,9 +137,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   9. scanned — the device-resident solve (CUDA graphs), at full width:
                B1 replayed from a captured graph against an eager launch
                (equal bits, f32 and bf16, one launch counted per replay),
-               on the streamed kernel (block 40 in f32, P 576 / K 1152 in
+               on the streamed kernel (block 40 in f32, P 1296 / K 1024 in
                bf16) and on the column kernel (P 1296 / K 1152 in f32, P 576
-               / K 2048 in bf16);
+               / K 2048 in bf16, P 576 / K 1152 in f32 and bf16);
                the lrs_pnp preset's step through Solver.run_scanned against
                run (equal bits), each timed per step and sustained, with the
                kernels, host launches, host syncs and device-busy share of
@@ -207,10 +216,13 @@ BF16_DRIFT = 0.02
 # against LAPACK's on an f32 Gram, two outer steps.  The CPU tests hold the
 # port to the JAX package at the same figure.
 SOLVE_MATCH = 1e-4
-# Shapes that take B1's streamed kernel at nB 144 (wide_problem): (block, K,
-# operand types).  Blocks 40, 48 and 52 at K 512, P 1296 at K 1024 (f32
+# Shapes past B1's resident kernel at nB 144 (wide_problem): (block, K,
+# operand types).  Blocks 40, 48 and 52 at K 512 and P 1296 at K 1024 (f32
 # slices past shared memory), P 576 at K 1152 (bf16 past 640 columns; in
-# f32 the resident kernel takes it, 2 rows per cluster in 11 waves).
+# f32 the resident kernel takes it, 2 rows per cluster in 11 waves).  The
+# plan takes the streamed tier at blocks 40 to 52 in f32 and at K 1024 in
+# bf16, the column tier at K 1024 in f32 and at K 1152 (timed faster:
+# tier_sweep).
 WIDE_SHAPES = (
     (40, 512, ("float32", "bfloat16")),
     (48, 512, ("float32", "bfloat16")),
@@ -227,6 +239,28 @@ LONG_K_SHAPES = (
     (36, 1152, ("float32",)),
     (24, 2048, ("float32", "bfloat16")),
     (16, 3000, ("float32", "bfloat16")),
+)
+# Shapes at which B1's plan chooses between its tiers (nB, P, K, operand
+# types): the main shape, one rank's share of it under {patch: 2}, the
+# dip_tuned lanes, the four-tile scene, the 144x144 cube, the auto-dictionary
+# (block 24) solve and scene, block 40, blocks 48 and 52, 1024 atoms at block
+# 36, 1152 atoms at block 24 and 36 (bf16).  Every candidate of plan_candidates
+# is held to the plain loop and timed at each (tier_sweep,
+# scripts/time_b1.py --tiers).
+TIER_SHAPES = (
+    (144, 1296, 512, ("float32", "bfloat16")),
+    (72, 1296, 512, ("float32", "bfloat16")),
+    (288, 1296, 512, ("float32", "bfloat16")),
+    (576, 1296, 512, ("float32", "bfloat16")),
+    (2304, 1296, 512, ("float32", "bfloat16")),
+    (324, 576, 512, ("float32", "bfloat16")),
+    (1296, 576, 512, ("float32", "bfloat16")),
+    (132, 1600, 512, ("float32", "bfloat16")),
+    (144, 2304, 512, ("float32", "bfloat16")),
+    (144, 2704, 512, ("float32", "bfloat16")),
+    (144, 1296, 1024, ("float32", "bfloat16")),
+    (144, 576, 1152, ("float32", "bfloat16")),
+    (144, 1296, 1152, ("bfloat16",)),
 )
 # The seed of the random 1296 x 1024 dictionary of phase 5's dip_fast path on
 # B1's streamed kernel (bf16 past 640 columns).
@@ -548,14 +582,9 @@ def wide_tiles_of_16(peaks: dict, smi: str) -> dict:
         if twelve is None or twelve.rows != 12:
             raise AssertionError(f"nB 240, P {P}, K {K}: no tiling of 12 rows per cluster")
         cfg = SparseProxConfig(n_iter=100)
-        saved = dict(ISTA_KERNEL._plans)
-        ISTA_KERNEL._plans[(240, P, K, False)] = twelve
-        try:
+        with ISTA_KERNEL.forcing(twelve):
             got = pnp_ista_blocks_fused(*wide[:3], cfg, alpha=wide[3])
             t12 = time_cuda(lambda: pnp_ista_blocks_fused(*wide[:3], cfg, alpha=wide[3]), reps=5)
-        finally:
-            ISTA_KERNEL._plans.clear()
-            ISTA_KERNEL._plans.update(saved)
         torch.testing.assert_close(got, pnp_ista_blocks(*wide[:3], cfg, alpha=wide[3]), **F32_TOL)
         out[f"P{P}_K{K}_float32_nB240"] = dict(
             t, max_abs_err=err, tier=plan.tier, waves=plan.waves, rows=plan.rows,
@@ -563,6 +592,125 @@ def wide_tiles_of_16(peaks: dict, smi: str) -> dict:
         log(f"  nB 240, P {P}, K {K}, f32: 16 rows per cluster in one wave {t['ms']:.4f} ms, 12 rows in "
             f"{-(-twelve.n_clusters // plan.resident)} waves {t12:.4f} ms; bound_ms={t['bound_ms']:.4f}; "
             f"plain_ms={t['plain_ms']:.4f}; 200 torch.matmul calls {t['library_ms']:.4f} ms; card {smi}")
+    return out
+
+
+def tier_problem(nB: int, P: int, K: int, seed: int = 0):
+    """Random blocks (nB, P), masks with 12% of the values missing and the
+    second block wholly missing, a random (P, K) unit-column dictionary and
+    trace4 alpha, on the card: B1's inputs at a shape of TIER_SHAPES."""
+    import numpy as np
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import compute_alpha
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((P, K)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    Y = rng.standard_normal((nB, P)).astype(np.float32)
+    M = (rng.random((nB, P)) > 0.12).astype(np.float32)
+    M[1] = 0.0
+    Y, M, D = (torch.from_numpy(a).cuda() for a in (Y, M, D))
+    return Y, M, D, compute_alpha(D, M, SparseProxConfig(alpha_mode="trace4"))
+
+
+def time_candidates(blocks, masks, D, alpha, cfg, plans, warmup: int = 2, reps: int = 7) -> list:
+    """Median ms of one B1 launch under each of ``plans`` (one shape's
+    candidates), timed in turns: ``warmup`` launches of each, then ``reps``
+    rounds that time each once with CUDA events.  Returns each plan's
+    median and all its times."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks_fused
+
+    for plan in plans:
+        with ISTA_KERNEL.forcing(plan):
+            for _ in range(warmup):
+                pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
+    times = [[] for _ in plans]
+    for _ in range(reps):
+        for plan, got in zip(plans, times):
+            with ISTA_KERNEL.forcing(plan):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
+                end.record()
+                torch.cuda.synchronize()
+                got.append(start.elapsed_time(end))
+    return [(statistics.median(t), t) for t in times]
+
+
+def tier_sweep(peaks: dict, smi: str) -> dict:
+    """B1's tiers at TIER_SHAPES (tier_problem, 100 iterations, trace4
+    alpha): every tiling of plan_candidates, forced in turn, against the
+    plain loop (f32 at F32_TOL and within 1e-4 of max |ref|; bf16 at the
+    limit of bf16_limit and within BF16_DRIFT of the f32 plain loop), two
+    launches with equal bits; then all timed in turns (time_candidates),
+    each logged beside its predicted time (which stays out of the returned
+    entry: the kernels line carries measured times and the bound only), and
+    the plan's pick beside the fastest.
+    Fails on a candidate that misses the plain loop; a pick slower than the
+    fastest is reported, not failed (timings move between calls)."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates, predicted_ms
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    out = {}
+    for nB, P, K, types in TIER_SHAPES:
+        problem = tier_problem(nB, P, K)
+        for mm in types:
+            bf16 = mm == "bfloat16"
+            cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
+            ref = pnp_ista_blocks(*problem[:3], cfg, alpha=problem[3])
+            scale = float(ref.abs().max())
+            if bf16:
+                limit, _, _ = bf16_limit(*problem, f"nB {nB}, P {P}, K {K}")
+                f32_ref = pnp_ista_blocks(*problem[:3], dataclasses.replace(cfg, matmul_dtype="float32"),
+                                          alpha=problem[3])
+            plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+            pick = ISTA_KERNEL.plan(nB, P, K, bf16)
+            rows = []
+            for plan in plans:
+                with ISTA_KERNEL.forcing(plan):
+                    got = pnp_ista_blocks_fused(*problem[:3], cfg, alpha=problem[3])
+                    torch.matmul(problem[0], problem[2])  # other work in between
+                    again = pnp_ista_blocks_fused(*problem[:3], cfg, alpha=problem[3])
+                    torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                label = f"nB {nB}, P {P}, K {K}, {mm}, tier {plan.tier}"
+                if not (torch.isfinite(got).all() and torch.equal(got, again)):
+                    raise AssertionError(f"{label}: not finite, or two launches differ")
+                if bf16:
+                    drift = float((got - f32_ref).abs().max())
+                    if not (err < limit * scale and drift < BF16_DRIFT * float(f32_ref.abs().max())):
+                        raise AssertionError(f"{label}: {err:.3g} >= {limit:.3g} * {scale:.3g} or drift {drift:.3g}")
+                else:
+                    torch.testing.assert_close(got, ref, **F32_TOL)
+                    if not err < 1e-4 * scale:
+                        raise AssertionError(f"{label}: {err:.3g} >= 1e-4 * {scale:.3g}")
+                rows.append(dict(tier=plan.tier, cluster_size=plan.cluster_size, rows=plan.rows, waves=plan.waves,
+                                 l2_bytes_per_iteration=plan.l2_bytes_per_iteration, max_abs_err=err,
+                                 pick=plan == pick))
+            timed = time_candidates(*problem[:3], problem[3], cfg, plans)
+            for plan, row, (ms, _) in zip(plans, rows, timed):
+                row["ms"] = ms
+                log(f"  nB {nB:5d} P {P:5d} K {K:5d} {mm:9s} {row['tier']:8s} C{row['cluster_size']:2d} "
+                    f"R{row['rows']:2d} {row['waves']:2d} wave(s): {ms:.4f} ms (model's prediction "
+                    f"{predicted_ms(plan):.4f}, not a measurement){' <- pick' if row['pick'] else ''}; "
+                    f"max|delta|={row['max_abs_err']:.3e} of max|ref| {scale:.3e}, equal bits on repeat")
+            pick_ms = next(r["ms"] for r in rows if r["pick"])
+            fastest = min(r["ms"] for r in rows)
+            b_ms, by, _, _ = bound_ms(nB, P, K, 100, mm, peaks)
+            lib_ms = matmul_yardstick_ms(nB, problem[2], 100, mm)
+            log(f"    pick {pick.tier} {pick_ms:.4f} ms, fastest {fastest:.4f} ms, ratio {pick_ms / fastest:.4f}; "
+                f"bound_ms={b_ms:.4f} ({by}); 200 torch.matmul calls {lib_ms:.4f} ms; card {smi}")
+            out[f"nB{nB}_P{P}_K{K}_{mm}"] = dict(
+                candidates=rows, pick=pick.tier, pick_ms=pick_ms, fastest_ms=fastest, ratio=pick_ms / fastest,
+                bound_ms=b_ms, bound_by=by, library_ms=lib_ms, max_ref=scale)
     return out
 
 
@@ -659,8 +807,6 @@ def time_b1(blocks, masks, D, alpha, matmul_dtype: str, peaks: dict, n_iter: int
     """B1's time beside its bound, its plain loop and the 2 n_iter
     torch.matmul calls of its two products (a partial yardstick: no single
     PyTorch call computes the fused loop with its NLM), in ms."""
-    import torch
-
     from lrs_pnp_dip_tpu_torch.ops import pnp_ista_blocks, pnp_ista_blocks_fused
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
@@ -669,9 +815,20 @@ def time_b1(blocks, masks, D, alpha, matmul_dtype: str, peaks: dict, n_iter: int
     cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=matmul_dtype)
     k_ms = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha), reps=5)
     p_ms = time_cuda(lambda: pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha), warmup=1, reps=3)
+    b_ms, by, _, _ = bound_ms(nB, P, K, n_iter, matmul_dtype, peaks)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=matmul_yardstick_ms(nB, D, n_iter, matmul_dtype))
+
+
+def matmul_yardstick_ms(nB: int, D, n_iter: int, matmul_dtype: str) -> float:
+    """The 2 n_iter torch.matmul calls of B1's two products at (nB, D's
+    shape) with the operand type, in ms: a partial yardstick, since no
+    single PyTorch call computes the fused loop with its NLM."""
+    import torch
+
     dt = torch.float32 if matmul_dtype == "float32" else torch.bfloat16
-    x = torch.zeros((nB, K), device="cuda", dtype=dt)
-    r = torch.zeros((nB, P), device="cuda", dtype=dt)
+    x = torch.zeros((nB, D.shape[1]), device="cuda", dtype=dt)
+    r = torch.zeros((nB, D.shape[0]), device="cuda", dtype=dt)
     Dm = D.to(dt)
 
     def matmuls():
@@ -679,9 +836,7 @@ def time_b1(blocks, masks, D, alpha, matmul_dtype: str, peaks: dict, n_iter: int
             torch.matmul(x, Dm.T)
             torch.matmul(r, Dm)
 
-    lib_ms = time_cuda(matmuls)
-    b_ms, by, _, _ = bound_ms(nB, P, K, n_iter, matmul_dtype, peaks)
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
+    return time_cuda(matmuls)
 
 
 def bound_ms(nB: int, P: int, K: int, n_iter: int, matmul_dtype: str, peaks: dict):
@@ -1423,14 +1578,16 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
 
     t_phase = time.perf_counter()
     log("[scanned] kernel B1 launched from a captured graph against an eager launch, nB 144, f32 and bf16, "
-        "on the streamed kernel (block 40, K 512, f32; P 576, K 1152, bf16) and on the column kernel "
-        "(P 1296, K 1152, f32; P 576, K 2048, bf16)")
+        "on the streamed kernel (block 40, K 512, f32; P 1296, K 1024, bf16) and on the column kernel "
+        "(P 1296, K 1152, f32; P 576, K 2048, bf16; P 576, K 1152, f32 and bf16, moved there by the plan's timings)")
     blocks, masks, D, alpha = problem(36, 36, 0, D_np)
     for mm, inputs, tier in (("float32", None, "resident"), ("bfloat16", None, "resident"),
                              ("float32", wide_problem(40, 512), "streamed"),
-                             ("bfloat16", wide_problem(24, 1152), "streamed"),
+                             ("bfloat16", wide_problem(36, 1024), "streamed"),
                              ("float32", wide_problem(36, 1152), "column"),
-                             ("bfloat16", wide_problem(24, 2048), "column")):
+                             ("bfloat16", wide_problem(24, 2048), "column"),
+                             ("float32", wide_problem(24, 1152), "column"),
+                             ("bfloat16", wide_problem(24, 1152), "column")):
         blocks, masks, D, alpha = inputs or problem(36, 36, 0, D_np)
         cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
         eager = pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
@@ -1747,7 +1904,7 @@ def main() -> int:
     for mm in ("float32", "bfloat16"):
         check_same_bits(*main, mm)
         check_same_bits(*big, mm)
-    log("[check] the streamed kernel at nB 144: random unit-column dictionaries, blocks of a 72x72x128 "
+    log("[check] B1 past the resident kernel at nB 144: random unit-column dictionaries, blocks of a 72x72x128 "
         "synthetic cube, 100 iterations, trace4 alpha")
     wide_timing = {}
     t_phase = time.perf_counter()
@@ -1774,6 +1931,11 @@ def main() -> int:
     long_k_timing = long_k_shapes(peaks, smi)
     long_k_timing["P256_K3000_float32_nB13_20it"] = long_k_check(peaks)
     log(f"  (long-K shapes {time.perf_counter() - t_phase:.1f} s)")
+    log("[check] B1's tiers at the shapes where its plan chooses (TIER_SHAPES): every tiling of plan_candidates "
+        "against the plain loop, equal bits on repeat, all timed in turns; random blocks, 100 iterations, trace4 alpha")
+    t_phase = time.perf_counter()
+    tier_timing = tier_sweep(peaks, smi)
+    log(f"  (tier sweep {time.perf_counter() - t_phase:.1f} s)")
 
     # 3. timing at the main-path shape
     blocks, masks, D, alpha = main
@@ -2210,6 +2372,8 @@ def main() -> int:
         "at_streamed_shapes": wide_timing,
         # B1 at nB 144 at the shapes of the column kernel (random dictionaries)
         "at_long_k_shapes": long_k_timing,
+        # every tier that takes each of TIER_SHAPES, timed in turns, and the plan's pick
+        "tier_sweep": tier_timing,
         # B1 at nB 72, one rank's share of the main shape under {patch: 2}
         "at_nB72_per_rank": shard_timing,
         # the yardstick at the engines' and the ranks' shapes (nB 72, 288, 576, 2304)

@@ -11,7 +11,9 @@ read once per iteration through a ring of stages) and ``"column"`` (the
 long-K tail: CTA c owns the columns ``k_c`` of D and x for all P, the
 products' partial pred summed through the cluster).  :func:`plan_ista`
 chooses the tier, C, R, the slices and the shared-memory bytes from (nB, P,
-K, operand type) in plain Python, so the tiling is testable without a card.
+K, operand type) in plain Python, so the tiling is testable without a card:
+of the tiers that take the shape, the one with the least predicted time,
+from constants fitted to the card's timings of every tier.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (into ``csrc/build/``, named by the
@@ -25,12 +27,13 @@ launch the card refuses (cluster size, shared memory) raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
-from dataclasses import dataclass
 from pathlib import Path
 from typing import Mapping, Optional
 
@@ -232,7 +235,7 @@ def column_scratch_floats(P: int, K: int, bf16: bool, resident_rows: int) -> int
     return P * _round_up(K, 8)
 
 
-@dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True)
 class IstaPlan:
     """The tiling of one launch of kernel B1."""
 
@@ -464,6 +467,150 @@ def _column_plan(nB, P, K, bf16, resident, smem_limit, reasons):
     return best[1] if best else None
 
 
+def tile_rows(plan: IstaPlan) -> int:
+    """Block rows of the register or mma tile each product runs on, R of
+    them real: 16 in bf16; in f32 11 (resident), 12 or 16 (streamed, 16
+    past 12 rows), 4 or 12 (column, 12 past 4 rows)."""
+    if plan.bf16:
+        return _BF16_ROWS
+    if plan.tier == "streamed":
+        return _STREAM_ROWS if plan.rows > 12 else 12
+    if plan.tier == "column":
+        return 4 if plan.rows <= 4 else 12
+    return _F32_ROWS
+
+
+def iteration_counts(plan: IstaPlan) -> tuple:
+    """What one CTA does in one iteration of ``plan``, as csrc/ista.cu
+    lays the work out: (steps, FMAs, bytes of D read from L2, values summed
+    through the cluster).  Steps: the resident kernels' steps along K in
+    product 1 (f32: each warp an eighth of K; bf16: an mma's k of 16); the
+    streamed kernel's consumer steps, one per stage of its slice and two to
+    drain the pipeline; the column kernel's rounds of rows of D (64 a round
+    in f32, one per group of 8 lanes; 16 in bf16, an mma's k).  FMAs
+    as the tiles issue them, padding included: f32 resident product 1 by
+    lanes of 32 rows of the slice; f32 column product 1 by groups of 8 lanes
+    of 4 columns over 64 rows.  Exchanged: the R x K partial gradient
+    (resident, streamed) or the R x P partial prediction (column)."""
+    t, P, K, R = tile_rows(plan), plan.P, plan.K, plan.rows
+    sl, seg = plan.slice_rows, plan.seg
+    l2 = plan.l2_bytes_per_iteration // plan.cluster_size
+    if plan.tier == "resident":
+        if plan.bf16:
+            return -(-K // 16), t * _round_up(K, 32) * 2 * _round_up(sl, 16), l2, R * K
+        return -(-K // _WARPS), t * K * (32 * -(-sl // 32) + sl), l2, R * K
+    if plan.tier == "streamed":
+        S = plan.stage_rows
+        return -(-sl // S) + 2, 2 * t * -(-sl // S) * S * (_round_up(K, 16) if plan.bf16 else K), l2, R * K
+    if plan.bf16:
+        return -(-P // 16), 2 * t * _round_up(P, 16) * _round_up(seg, 16), l2, R * P
+    return -(-P // 64), t * (_round_up(P, 64) * 32 * -(-seg // 32) + P * seg), l2, R * P
+
+
+# One wave's iteration of each tier and operand type takes a + b steps + c
+# FMAs + d bytes + e values (iteration_counts) microseconds: (a, b per step,
+# c per million FMAs, d per MB of L2, e per thousand values), fitted by
+# scripts/fit_b1_plan.py to the sweeps of scripts/time_b1.py --tiers
+# (scripts/b1_tier_sweeps.jsonl) on an NVIDIA H100 80GB HBM3, 700.00 W; the
+# times are in PERF.md section 6, "B1 across its tiers".
+_COST_US = {
+    ("resident", False): (3.82, 0.05291, 3.486, 0.0, 0.399),
+    ("resident", True): (3.658, 0.06827, 0.5336, 0.0, 0.3622),
+    ("streamed", False): (1.301, 1.258, 5.686, 13.74, 0.4941),
+    ("streamed", True): (1.937, 0.8863, 0.38, 24.46, 0.4617),
+    ("column", False): (6.187, 0.219, 10.26, 5.098, 0.5214),
+    ("column", True): (5.351, 0.06954, 1.632, 39.05, 0.3336),
+}
+# The largest relative error of each group's fit over those sweeps.
+_FIT_ERROR = {
+    ("resident", False): 0.162, ("resident", True): 0.135,
+    ("streamed", False): 0.134, ("streamed", True): 0.133,
+    ("column", False): 0.241, ("column", True): 0.173,
+}
+# The shapes (nB, P, K, operand types: f32, bf16) whose every candidate
+# those sweeps timed: the paths' shapes (chip_smoke.TIER_SHAPES), the short
+# launches of the card tests and of chip_smoke.py, the tier-named cases of
+# tests/test_torch_cuda.py and the test shapes whose pick the rule moves.
+SWEPT_SHAPES = frozenset(
+    (nB, P, K, bf16)
+    for nB, P, K, types in (
+        (2, 36, 700, "f"), (3, 16, 3000, "f"), (3, 100, 1000, "f"), (5, 200, 700, "fb"), (5, 1296, 1022, "f"),
+        (7, 1296, 1000, "f"), (8, 64, 1100, "fb"), (9, 1296, 1030, "b"), (9, 1700, 30, "f"), (11, 100, 300, "fb"),
+        (11, 1300, 600, "f"), (13, 1296, 512, "fb"), (13, 1700, 40, "f"), (14, 576, 1152, "f"),
+        (17, 576, 1152, "fb"), (20, 48, 32, "fb"), (20, 2704, 64, "f"), (21, 2704, 512, "f"),
+        (29, 1296, 512, "fb"), (40, 48, 32, "fb"), (40, 144, 1024, "b"), (40, 1296, 1152, "f"),
+        (72, 576, 1152, "fb"), (72, 1296, 512, "fb"), (132, 1600, 512, "fb"), (144, 400, 1024, "fb"),
+        (144, 529, 1024, "fb"), (144, 576, 1152, "fb"), (144, 1296, 512, "fb"), (144, 1296, 640, "fb"),
+        (144, 1296, 1004, "f"), (144, 1296, 1024, "fb"), (144, 1296, 1152, "b"), (144, 2304, 512, "fb"),
+        (144, 2704, 512, "fb"), (165, 48, 32, "f"), (166, 48, 32, "f"), (216, 36, 48, "fb"), (240, 48, 32, "fb"),
+        (240, 1296, 1024, "f"), (240, 1600, 512, "fb"), (288, 1296, 512, "fb"), (324, 576, 512, "fb"),
+        (576, 1296, 512, "fb"), (1296, 576, 512, "fb"), (2304, 1296, 512, "fb"),
+    )
+    for bf16 in (False, True)
+    if "fb"[bf16] in types
+)
+# At a swept shape a later candidate of plan_candidates replaces an earlier
+# one only when it is predicted faster by more than this share: in those
+# sweeps three quarters of the candidates' medians moved by less between two
+# calls (2.7%), and the picks were held to the timings.  Elsewhere it must be
+# predicted faster by more than the larger fit error of the two tiers' groups.
+TIE_MARGIN = 0.03
+
+
+def predicted_ms(plan: IstaPlan, n_iter: int = 100) -> float:
+    """The predicted time of a launch of ``plan`` with ``n_iter``
+    iterations on an H100: its waves times one wave's iteration
+    (``_COST_US``) times ``n_iter``."""
+    steps, fmas, l2, exchanged = iteration_counts(plan)
+    a, b, c, d, e = _COST_US[plan.tier, plan.bf16]
+    us = a + b * steps + c * fmas / 1e6 + d * l2 / 1e6 + e * exchanged / 1e3
+    return plan.waves * n_iter * us / 1e3
+
+
+def plan_candidates(
+    nB: int, P: int, K: int, bf16: bool,
+    resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
+    smem_limit: int = _MAX_SMEM_BYTES,
+    reasons: Optional[list] = None,
+) -> list:
+    """Every tier's tiling that takes (nB, P, K, operand type), in the order
+    resident (:func:`_resident_plan`), streamed (:func:`_streamed_plan`),
+    column (:func:`_column_plan`); the two streaming tiers only inside the
+    TPU kernel's range (:func:`in_tpu_range`).  Why a tier does not take the
+    shape is appended to ``reasons``."""
+    reasons = [] if reasons is None else reasons
+    plans = [_resident_plan(nB, P, K, bf16, resident, smem_limit, reasons)]
+    if in_tpu_range(P, K):
+        plans += [_streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons),
+                  _column_plan(nB, P, K, bf16, resident, smem_limit, reasons)]
+    elif plans[0] is None:
+        reasons.append(
+            f"past the TPU kernel's range: {tpu_vmem_bytes(P, K)} B of VMEM at its smallest tile "
+            f"(> {_TPU_VMEM_BUDGET})"
+        )
+    return [p for p in plans if p is not None]
+
+
+def pick_margin(kept: IstaPlan, plan: IstaPlan) -> float:
+    """The share by which ``plan`` must be predicted faster than ``kept``
+    to replace it: ``TIE_MARGIN`` at the shapes of ``SWEPT_SHAPES``, else
+    the larger ``_FIT_ERROR`` of their two groups."""
+    if (plan.nB, plan.P, plan.K, plan.bf16) in SWEPT_SHAPES:
+        return TIE_MARGIN
+    return max(_FIT_ERROR[kept.tier, kept.bf16], _FIT_ERROR[plan.tier, plan.bf16])
+
+
+def pick_plan(plans: list) -> IstaPlan:
+    """The candidate with the least predicted time, going through ``plans``
+    in order: a later one replaces the one kept only when it is predicted
+    faster by more than :func:`pick_margin`, so ties keep the earlier tier."""
+    best = plans[0]
+    for plan in plans[1:]:
+        if predicted_ms(plan) < (1.0 - pick_margin(best, plan)) * predicted_ms(best):
+            best = plan
+    return best
+
+
 def plan_ista(
     nB: int, P: int, K: int, bf16: bool,
     resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
@@ -471,35 +618,57 @@ def plan_ista(
 ) -> IstaPlan:
     """Choose the tiling for (nB, P, K, operand type).
 
-    First the kernel with each slice of D resident: the smallest cluster
-    whose slice fits the register tiles and ``smem_limit`` bytes of shared
-    memory, the most rows per cluster that fit beside it, then as few waves
-    of ``resident`` clusters as cover nB, with the rows spread evenly over
-    them.  Where that kernel does not take the shape, the streamed kernel
-    (:func:`_streamed_plan`), and past its columns the column kernel
-    (:func:`_column_plan`): between them every shape in the TPU kernel's
-    range (:func:`in_tpu_range`).  All run one CTA per SM, so the card keeps
-    as many of their clusters resident.  Raises
-    ValueError with the reason for a shape none takes, which names
-    ``backend="xla"`` as the way around it."""
+    Each tier that takes the shape offers its tiling
+    (:func:`plan_candidates`): the kernel with each slice of D resident
+    (the smallest cluster whose slice fits the register tiles and
+    ``smem_limit`` bytes of shared memory, the most rows per cluster that
+    fit beside it, then as few waves of ``resident`` clusters as cover nB,
+    with the rows spread evenly over them), the streamed kernel
+    (:func:`_streamed_plan`) and the column kernel (:func:`_column_plan`):
+    between them every shape in the TPU kernel's range
+    (:func:`in_tpu_range`).  The plan is the one with the least predicted
+    time (:func:`pick_plan`, :func:`predicted_ms`), a pure function of the
+    shape and the card's resident clusters.  All run one CTA per SM, so the
+    card keeps as many of their clusters resident.  Raises ValueError with
+    the reason for a shape none takes, which names ``backend="xla"`` as the
+    way around it."""
     if nB < 1 or P < 1 or K < 6:
         raise _refused(f"needs nB >= 1, P >= 1 and K >= 6 (nB={nB}, P={P}, K={K})")
     reasons = []
-    plan = _resident_plan(nB, P, K, bf16, resident, smem_limit, reasons)
-    if plan is None and not in_tpu_range(P, K):
-        reasons.append(
-            f"past the TPU kernel's range: {tpu_vmem_bytes(P, K)} B of VMEM at its smallest tile "
-            f"(> {_TPU_VMEM_BUDGET})"
-        )
-    elif plan is None:
-        plan = (_streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons)
-                or _column_plan(nB, P, K, bf16, resident, smem_limit, reasons))
-    if plan is not None:
-        return plan
+    plans = plan_candidates(nB, P, K, bf16, resident, smem_limit, reasons)
+    if plans:
+        return pick_plan(plans)
     raise _refused(
         f"kernel B1 does not take P={P}, K={K} with {'bf16' if bf16 else 'f32'} operands: "
         + "; ".join(reasons)
     )
+
+
+def share_plan(whole: IstaPlan, nB: int) -> IstaPlan:
+    """The tiling of ``nB`` of ``whole``'s rows launched on their own (one
+    rank's share of the rows under ``patch``): ``whole``'s tier, cluster
+    size, slices, segments, stages and register tiles (:func:`tile_rows`),
+    the rows spread over as few waves as cover them, at most ``whole.rows``
+    per cluster; where fewer rows per cluster would take a smaller tile,
+    ``whole.rows`` each.  Every row then meets the tiles and the order of
+    sums it meets in ``whole``, which :func:`plan_ista` at ``nB`` may not
+    give (another tier, cluster size or tile wins at fewer rows)."""
+    rows, n_clusters = _spread(nB, whole.rows, whole.resident)
+    share = dataclasses.replace(whole, nB=nB, rows=rows, n_clusters=n_clusters)
+    if tile_rows(share) != tile_rows(whole):
+        share = dataclasses.replace(whole, nB=nB, n_clusters=-(-nB // whole.rows))
+    return dataclasses.replace(share, smem_bytes=plan_smem_bytes(share))
+
+
+def plan_smem_bytes(plan: IstaPlan) -> int:
+    """The shared-memory bytes that ``plan``'s tier lays out for its rows,
+    slices, segments and stages."""
+    if plan.tier == "streamed":
+        return stream_smem_bytes(plan.bf16, plan.rows, plan.K, plan.seg, plan.resident_rows, plan.stages,
+                                 plan.stage_rows)
+    if plan.tier == "column":
+        return column_smem_bytes(plan.bf16, plan.rows, plan.P, plan.seg, plan.resident_rows)
+    return smem_bytes(plan.bf16, plan.rows, plan.slice_rows, plan.K, plan.seg)
 
 
 class FusedIstaKernel:
@@ -524,6 +693,8 @@ class FusedIstaKernel:
         self._lib: Optional[ctypes.CDLL] = None
         self._resident: dict = {}
         self._plans: dict = {}
+        self._share_plans: dict = {}
+        self._whole: Optional[int] = None
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(
@@ -584,11 +755,43 @@ class FusedIstaKernel:
         return self._resident[bf16]
 
     def plan(self, nB: int, P: int, K: int, bf16: bool) -> IstaPlan:
-        """:func:`plan_ista` for the card this process runs on, kept per shape."""
+        """:func:`plan_ista` for the card this process runs on, kept per
+        shape; inside :meth:`shares_of`, the share of the whole's plan."""
         key = (nB, P, K, bool(bf16))
+        if self._whole not in (None, nB):
+            share = key + (self._whole,)
+            if share not in self._share_plans:
+                self._share_plans[share] = share_plan(self.plan(self._whole, P, K, bf16), nB)
+            return self._share_plans[share]
         if key not in self._plans:
             self._plans[key] = plan_ista(nB, P, K, bf16, self.resident_clusters(bf16))
         return self._plans[key]
+
+    @contextlib.contextmanager
+    def forcing(self, *plans: IstaPlan):
+        """Inside the block launches at each plan's shape take that plan in
+        place of :func:`plan_ista`'s pick: how the card tests and the tier
+        sweep hold every candidate of :func:`plan_candidates` to the plain
+        loop and time it against the others."""
+        saved = dict(self._plans)
+        self._plans.update({(p.nB, p.P, p.K, p.bf16): p for p in plans})
+        try:
+            yield
+        finally:
+            self._plans.clear()
+            self._plans.update(saved)
+
+    @contextlib.contextmanager
+    def shares_of(self, nB: int):
+        """Inside the block every launch takes its rows as a share of ``nB``
+        rows (:func:`share_plan` of the plan at ``nB``): the sharded sparse
+        prox launches each rank's rows so, and the ranks' rows then equal one
+        launch over all ``nB`` rows bit for bit."""
+        saved, self._whole = self._whole, nB
+        try:
+            yield
+        finally:
+            self._whole = saved
 
     def launch(
         self,

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.ista import compute_alpha, pnp_ista_blocks, sparse_coefs
+from ..ops.ista_cuda import ISTA_KERNEL
 from ..ops.svt import _gram_spectral_filter
 from ..utils.comm import all_gather, all_reduce
 from .mesh import axis_group, axis_index, axis_size
@@ -103,7 +104,9 @@ def make_sharded_sparse_prox(mesh: DeviceMesh, cfg, axis: str = "patch") -> Call
     tensors.  The blocks are padded to a multiple of the axis size with
     fully masked rows (zero coefficients; a caller's alpha is padded with
     1.0), each rank codes its rows (:func:`..ops.ista.sparse_coefs`: one
-    launch of kernel B1 on the card, the MATLAB twin's ``parfor``), and the
+    launch of kernel B1 on the card, tiled as its share of one launch over
+    all the rows by :meth:`..ops.ista_cuda.FusedIstaKernel.shares_of`; the
+    MATLAB twin's ``parfor``), and the
     coefficients are gathered, the padding sliced away and the blocks
     reconstructed with the whole dictionary on every rank.  The JAX version
     gathers reconstructed rows; gathering the (nB, K) coefficients moves
@@ -127,7 +130,8 @@ def make_sharded_sparse_prox(mesh: DeviceMesh, cfg, axis: str = "patch") -> Call
             alpha = F.pad(alpha, (0, pad), value=1.0)
         rows = (nB + pad) // n
         mine = slice(me * rows, (me + 1) * rows)
-        coefs = sparse_coefs(blocks[mine], mask_blocks[mine], D, cfg, alpha=alpha[mine])
+        with ISTA_KERNEL.shares_of(nB):
+            coefs = sparse_coefs(blocks[mine], mask_blocks[mine], D, cfg, alpha=alpha[mine])
         return all_gather(coefs, group, 0)[:nB] @ D.to(torch.float32).T
 
     return prox

@@ -2,6 +2,7 @@
 """Time kernel B1 through its wrapper on the card, for any tree of the port.
 
     python scripts/time_b1.py [--root DIR] [--label NAME] [--reps 7] [--shapes main|wide|long|all]
+    python scripts/time_b1.py --tiers [--library]
 
 Times ``pnp_ista_blocks_fused`` (100 iterations, trace4 alpha) as the median
 of ``--reps`` CUDA-event timings after 2 warm-ups, and prints one JSON line
@@ -26,6 +27,17 @@ versions of the kernel are timed by one command on one card:
 
     python scripts/time_b1.py --root archive/parent --label parent
     python scripts/time_b1.py --label change
+
+``--tiers`` times every candidate tiling of ``plan_candidates`` (one per
+tier that takes the shape) at each shape of ``ista_cuda.SWEPT_SHAPES``
+(random problems from ``chip_smoke.tier_problem``, 100 iterations): the
+candidates take turns, 2 warm-ups and ``--reps`` rounds each (``chip_smoke.time_candidates``), and each line gives the
+candidate's tiling, its median and all its times, its max |delta| from the
+plain loop, whether ``plan_ista`` picks it, its predicted time
+(``ista_cuda.predicted_ms``), the bound and, with ``--library``, the
+yardstick.  The plan's constants are fitted to these lines
+(``scripts/fit_b1_plan.py``); a shape added to ``SWEPT_SHAPES`` is swept
+before the sweeps are committed.
 """
 
 from __future__ import annotations
@@ -66,6 +78,44 @@ def _library_ms(nB: int, P: int, D, n_iter: int, mm: str, time_cuda) -> float:
     return time_cuda(matmuls)
 
 
+def _tiers(here, args, smi: str) -> int:
+    """The ``--tiers`` sweep (module docstring)."""
+    import dataclasses
+
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import SWEPT_SHAPES, _MAX_SMEM_BYTES, plan_candidates, predicted_ms
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    n_iter = 100
+    for nB, P, K in sorted({shape[:3] for shape in SWEPT_SHAPES}):
+        problem = here.tier_problem(nB, P, K)
+        for bf16 in (False, True):
+            if (nB, P, K, bf16) not in SWEPT_SHAPES:
+                continue
+            mm = "bfloat16" if bf16 else "float32"
+            cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
+            plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+            pick = ISTA_KERNEL.plan(nB, P, K, bf16)
+            ref = pnp_ista_blocks(*problem[:3], cfg, alpha=problem[3])
+            errs = []
+            for plan in plans:
+                with ISTA_KERNEL.forcing(plan):
+                    errs.append(float((pnp_ista_blocks_fused(*problem[:3], cfg, alpha=problem[3]) - ref).abs().max()))
+            timed = here.time_candidates(*problem[:3], problem[3], cfg, plans, reps=args.reps)
+            library = here.matmul_yardstick_ms(nB, problem[2], n_iter, mm) if args.library else None
+            for plan, err, (ms, times) in zip(plans, errs, timed):
+                row = {
+                    "label": args.label, "card": smi, "nB": nB, "P": P, "K": K, "operands": mm, "n_iter": n_iter,
+                    **{k: v for k, v in dataclasses.asdict(plan).items() if k not in ("nB", "P", "K", "bf16")},
+                    "waves": plan.waves, "l2_bytes_per_iteration": plan.l2_bytes_per_iteration,
+                    "pick": plan == pick, "predicted_ms": predicted_ms(plan, n_iter), "ms": ms, "times": times,
+                    "max_abs_err_vs_plain": err, "max_ref": float(ref.abs().max()),
+                    "bound_ms": here.bound_ms(nB, P, K, n_iter, mm, here.H100_PEAKS)[0], "library_ms": library,
+                }
+                print(json.dumps(row), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
@@ -73,6 +123,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--shapes", choices=("main", "wide", "long", "all"), default="main")
     ap.add_argument("--library", action="store_true", help="also time the 200 torch.matmul yardstick")
+    ap.add_argument("--tiers", action="store_true", help="time every tier's tiling at ista_cuda.SWEPT_SHAPES")
     args = ap.parse_args()
     here = _this_trees_chip_smoke()  # its bound, and its list of long-K shapes
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -94,6 +145,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     ISTA_KERNEL.build()
+    if args.tiers:
+        return _tiers(here, args, smi)
     cases = []
     if args.shapes in ("main", "all"):
         D_np = load_trained_dictionary(512)

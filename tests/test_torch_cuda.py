@@ -26,7 +26,7 @@ from lrs_pnp_dip_tpu_torch.data import synthetic_sample
 from lrs_pnp_dip_tpu_torch.ops import (
     ISTA_KERNEL, compute_alpha, pnp_ista_blocks, pnp_ista_blocks_fused, svt_gram,
 )
-from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, _streamed_plan
+from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
 from lrs_pnp_dip_tpu_torch.solvers import BatchedSolver, Solver
 from lrs_pnp_dip_tpu_torch.utils.config import SolverConfig, SparseProxConfig
 
@@ -39,6 +39,12 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _candidate(nB, P, K, bf16, tier):
+    """The tiling of ``tier`` among plan_candidates on this card."""
+    plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+    return next(p for p in plans if p.tier == tier)
 
 
 def _problem(cuda, nB, P, K, seed=0):
@@ -129,15 +135,20 @@ def _assert_f32_tracks(got, ref):
 
 @pytest.mark.parametrize("nB", [30, 31, 165, 166])
 def test_kernel_f32_across_chunk_and_wave_boundaries(cuda, nB):
-    """P 48, K 32 in f32 runs clusters of 8 with up to 11 rows, 15 at once:
-    30 rows are 15 chunks of 2 and 31 rows chunks of 3 with a short last one;
-    165 rows fill one wave and 166 need a second."""
-    plan = ISTA_KERNEL.plan(nB, 48, 32, False)
+    """P 48, K 32 in f32 on the resident kernel runs clusters of 8 with up to
+    11 rows, 15 at once: 30 rows are 15 chunks of 2 and 31 rows chunks of 3
+    with a short last one; 165 rows fill one wave and 166 need a second (the
+    plan takes the streamed tier's one wave there, so the resident tiling is
+    forced)."""
+    plan = _candidate(nB, 48, 32, False, "resident")
     if nB in (165, 166) and plan.resident == 15:
         assert plan.waves == (1 if nB == 165 else 2)
+        assert ISTA_KERNEL.plan(nB, 48, 32, False).tier == ("resident" if nB == 165 else "streamed")
     Y, M, D = _problem(cuda, nB, P=48, K=32, seed=nB)
     cfg = SparseProxConfig(n_iter=12)
-    got = pnp_ista_blocks_fused(Y, M, D, cfg)
+    with ISTA_KERNEL.forcing(plan):
+        got = pnp_ista_blocks_fused(Y, M, D, cfg)
+        assert ISTA_KERNEL.last_plan == plan
     torch.testing.assert_close(got, pnp_ista_blocks(Y, M, D, cfg), rtol=1e-4, atol=1e-5)
 
 
@@ -279,18 +290,29 @@ def test_svt_gram_on_the_card_matches_the_cpu(cuda):
     assert float((got - ref).abs().max()) < 2e-5 * float(np.abs(X).max())
 
 
-@pytest.mark.parametrize("nB", [40, 13])
-def test_sharded_prox_launches_once_per_rank_with_equal_bits(cuda, nB):
+@pytest.mark.parametrize(
+    "nB,P,K,matmul_dtype",
+    [(40, 48, 32, "float32"), (13, 48, 32, "float32"), (144, 576, 1152, "float32"), (144, 576, 1152, "bfloat16")],
+    ids=["40", "13", "P576-K1152-f32", "P576-K1152-bf16"],
+)
+def test_sharded_prox_launches_once_per_rank_with_equal_bits(cuda, nB, P, K, matmul_dtype):
     """Two ranks on the one card over gloo ({patch: 2}): each launches B1
     once on its half of the rows (13 takes one padding row), and the
-    gathered rows equal one launch over all rows bit for bit."""
+    gathered rows equal one launch over all rows bit for bit.  At P 576 / K
+    1152 the plan puts 144 rows on the column tier's clusters of 8 and 72
+    rows alone on its clusters of 16 (f32) or the streamed tier (bf16): each
+    rank launches its share of the whole's tiling (``shares_of``)."""
     from lrs_pnp_dip_tpu_torch.ops import sparse_prox
     from lrs_pnp_dip_tpu_torch.parallel.launch import spawn
     from lrs_pnp_dip_tpu_torch.parallel.workers import run_cases
 
     ISTA_KERNEL.build()  # once, before the ranks load the library
-    Y, M, D = _problem(cuda, nB, P=48, K=32, seed=nB)
-    cfg = SparseProxConfig(n_iter=15)
+    Y, M, D = _problem(cuda, nB, P=P, K=K, seed=nB)
+    cfg = SparseProxConfig(n_iter=15, matmul_dtype=matmul_dtype)
+    if P == 576:
+        bf16 = matmul_dtype == "bfloat16"
+        whole, alone = ISTA_KERNEL.plan(nB, P, K, bf16), ISTA_KERNEL.plan(nB // 2, P, K, bf16)
+        assert whole.tier == "column" and (alone.tier, alone.cluster_size) != ("column", whole.cluster_size)
     case = dict(axis_sizes={"patch": 2}, blocks=Y.cpu().numpy(), mask=M.cpu().numpy(), D=D.cpu().numpy(), cfg=cfg)
     ranks = spawn(run_cases, 2, args=("cuda", [("prox_case", case)]), device="cuda")
     ref = sparse_prox(Y, M, D, cfg).cpu().numpy()
@@ -462,46 +484,42 @@ def test_resident_bf16_kernel_at_its_widest_K(cuda, settings):
 
 
 @pytest.mark.parametrize(
-    "nB,P,K,matmul_dtype,tier",
-    [(13, 1700, 40, "float32", "streamed"), (9, 1700, 30, "float32", "streamed"),
-     (20, 2704, 64, "float32", "streamed"), (3, 16, 6000, "float32", "column"),
-     (5, 200, 700, "bfloat16", "streamed"), (3, 16, 3000, "bfloat16", "column"),
-     (17, 576, 1152, "bfloat16", "streamed"), (21, 2704, 512, "float32", "streamed"),
-     (7, 1296, 1000, "float32", "streamed"), (9, 1296, 1030, "bfloat16", "streamed"),
-     (4, 1024, 1200, "float32", "column"), (3, 7, 196, "bfloat16", "streamed"),
-     (240, 2704, 64, "float32", "streamed"), (240, 1296, 1000, "float32", "streamed"),
-     (5, 1296, 1022, "float32", "streamed")],
+    "nB,P,K,matmul_dtype,tier,pick",
+    [(13, 1700, 40, "float32", "streamed", "column"), (9, 1700, 30, "float32", "streamed", "column"),
+     (20, 2704, 64, "float32", "streamed", "column"), (3, 16, 6000, "float32", "column", "column"),
+     (5, 200, 700, "bfloat16", "streamed", "streamed"), (3, 16, 3000, "bfloat16", "column", "column"),
+     (17, 576, 1152, "bfloat16", "streamed", "streamed"), (21, 2704, 512, "float32", "streamed", "column"),
+     (7, 1296, 1000, "float32", "streamed", "column"), (9, 1296, 1030, "bfloat16", "streamed", "streamed"),
+     (4, 1024, 1200, "float32", "column", "column"), (3, 7, 196, "bfloat16", "streamed", "resident"),
+     (240, 2704, 64, "float32", "streamed", "streamed"), (240, 1296, 1000, "float32", "streamed", "streamed"),
+     (5, 1296, 1022, "float32", "streamed", "column")],
     ids=["f32-slices-past-96", "f32-K-not-multiple-of-4", "f32-block-52", "f32-K-6000",
          "bf16-K-past-640", "bf16-K-3000", "bf16-P576-K1152", "f32-block-52-K512",
          "f32-K1000-nothing-resident", "bf16-K1030-partly-resident", "f32-K1200", "bf16-K196-forced",
          "f32-16-rows-stages-of-16", "f32-16-rows-stages-of-8", "f32-K1022-rows-copied"],
 )
-def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype, tier):
+def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype, tier, pick):
     """Shapes the resident kernel does not take run on the streamed kernel,
     or past its columns on the column kernel: against the plain loop
     at the limits of the module docstring (bf16: or 4 times the plain loop's
     own order sensitivity; f32 also within 1e-4 of max|ref|), two launches
-    equal.  The case at K 196 forces
-    the streamed tier on a shape the resident kernel takes (P 7: the last CTA
-    owns no row of D and no column of x); the cases at nB 240 run tiles of 16
-    block rows; K 1022 streams rows copied from D with their padding."""
+    equal.  Where the plan picks another tier (``pick``: the column tier,
+    predicted faster, at most of the f32 shapes; the resident kernel at K
+    196) the tiling of ``tier`` is forced (at K 196, P 7: the last CTA owns no
+    row of D and no column of x); the cases at nB 240 run tiles of 16 block
+    rows; K 1022 streams rows copied from D with their padding."""
     Y, M, D = _problem(cuda, nB, P=P, K=K, seed=P + K)
     cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
     bf16 = matmul_dtype == "bfloat16"
-    saved = dict(ISTA_KERNEL._plans)
+    assert ISTA_KERNEL.plan(nB, P, K, bf16).tier == pick
+    plan = _candidate(nB, P, K, bf16, tier)
     if K == 196:
-        forced = _streamed_plan(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES, [])
-        assert forced.tier == "streamed" and forced.p_slices()[-1][0] == P
-        ISTA_KERNEL._plans[(nB, P, K, bf16)] = forced
-    try:
-        assert ISTA_KERNEL.plan(nB, P, K, bf16).tier == tier
+        assert plan.p_slices()[-1][0] == P
+    with ISTA_KERNEL.forcing(plan):
         got = pnp_ista_blocks_fused(Y, M, D, cfg)
         again = pnp_ista_blocks_fused(Y, M, D, cfg)
         torch.cuda.synchronize()
-        assert ISTA_KERNEL.last_plan.tier == tier and torch.equal(got, again)
-    finally:
-        ISTA_KERNEL._plans.clear()
-        ISTA_KERNEL._plans.update(saved)
+        assert ISTA_KERNEL.last_plan == plan and torch.equal(got, again)
     ref = pnp_ista_blocks(Y, M, D, cfg)
     if matmul_dtype == "float32":
         _assert_f32_tracks(got, ref)
@@ -509,6 +527,76 @@ def test_streamed_kernel_matches_plain(cuda, nB, P, K, matmul_dtype, tier):
         f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=12))
         _assert_bf16_tracks(got, ref, f32_ref, _order_sensitivity(Y, M, D, cfg, ref))
     assert torch.all(got[1] == 0.0)
+
+
+# The shapes at which the plan chooses between B1's tiers (chip_smoke.TIER_SHAPES).
+TIER_SHAPES = [
+    (nB, P, K, mm)
+    for nB, P, K, types in (
+        (144, 1296, 512, "fb"), (72, 1296, 512, "fb"), (288, 1296, 512, "fb"), (576, 1296, 512, "fb"),
+        (2304, 1296, 512, "fb"), (324, 576, 512, "fb"), (1296, 576, 512, "fb"), (132, 1600, 512, "fb"),
+        (144, 2304, 512, "fb"), (144, 2704, 512, "fb"), (144, 1296, 1024, "fb"), (144, 576, 1152, "fb"),
+        (144, 1296, 1152, "b"),
+    )
+    for mm in (("float32",) if "f" in types else ()) + (("bfloat16",) if "b" in types else ())
+]
+
+
+# Every candidate at 12 iterations too, at nB 72 (one rank's share of the main
+# shape under {patch: 2}).  In bf16 the column tier misses there: its output
+# leaves the plain loop's in one jump at iteration 6 in one row, by 1.57e-5
+# of max|ref| (one flipped bf16 rounding), where none of 32 orders of the
+# plain loop's sums flips a rounding that far (PERF.md section 6;
+# scripts/witness_b1_bf16.py).  The plan never picks that tier at this
+# shape; the failure stands until the column kernel's sums flip no more
+# often than the plain loop's (ROADMAP.md, C9).
+CANDIDATE_CASES = [shape + (100,) for shape in TIER_SHAPES] + [
+    (72, 1296, 512, "float32", 12), (72, 1296, 512, "bfloat16", 12)]
+
+
+@pytest.mark.parametrize("nB,P,K,matmul_dtype,n_iter", CANDIDATE_CASES,
+                         ids=["nB{}-P{}-K{}-{}{}".format(nB, P, K, mm[:4], "" if n == 100 else f"-{n}it")
+                              for nB, P, K, mm, n in CANDIDATE_CASES])
+def test_every_candidate_tier_matches_plain(cuda, nB, P, K, matmul_dtype, n_iter):
+    """Every tiling of plan_candidates at each shape of the plan's sweep,
+    forced in turn, on random blocks, 100 iterations (the sweep's and the
+    paths'; 12 at nB 72): two launches give equal bits, the second after
+    other work; against the plain loop, f32 at the limits of
+    _assert_f32_tracks, bf16 within 0.02 of the f32 plain loop and within
+    1e-5 max|ref| or 4 times the larger of the bf16 plain loop's two floors
+    (rows of D permuted, products on the tensor cores); a fully missing
+    block stays 0.  The plan's own pick is one of them.  Every tier is
+    checked, and the failure names each tier that missed."""
+    bf16 = matmul_dtype == "bfloat16"
+    Y, M, D = _problem(cuda, nB, P=P, K=K, seed=P + K)
+    cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=matmul_dtype)
+    alpha = compute_alpha(D, M, cfg)
+    ref = pnp_ista_blocks(Y, M, D, cfg, alpha=alpha)
+    if bf16:
+        floor = max(_order_sensitivity(Y, M, D, cfg, ref, alpha), _tensor_core_sensitivity(Y, M, D, cfg, ref, alpha))
+        f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=n_iter), alpha=alpha)
+    plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+    assert len(plans) >= 2 and ISTA_KERNEL.plan(nB, P, K, bf16) in plans
+    missed = []
+    for plan in plans:
+        with ISTA_KERNEL.forcing(plan):
+            got = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+            torch.matmul(Y, D)  # other work in between
+            again = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+            torch.cuda.synchronize()
+            assert ISTA_KERNEL.last_plan == plan
+        try:
+            assert torch.equal(got, again)
+            if bf16:
+                _assert_bf16_tracks(got, ref, f32_ref, floor)
+            else:
+                _assert_f32_tracks(got, ref)
+            assert torch.all(got[1] == 0.0)
+        except AssertionError as e:
+            err = float((got - ref).abs().max())
+            missed.append(f"tier {plan.tier} (C{plan.cluster_size} R{plan.rows}): max|delta| {err:.3e} = "
+                          f"{err / float(ref.abs().max()):.3e} of max|ref|: {e}")
+    assert not missed, "; ".join(missed)
 
 
 def _zero_padded_slices(Y, M, D, plan, rows):
@@ -557,25 +645,29 @@ def test_streamed_kernel_short_stage_in_a_fresh_slot(cuda, P, K, matmul_dtype):
     movement, whichever is larger: with the rows of D permuted
     (_order_sensitivity) or with its products on the tensor cores.  At P 400
     max|ref| is 0.015, and one residual whose bf16 rounding flips moves an
-    output by about 1e-5 of it; the f32 kernel must still fail the limit."""
+    output by about 1e-5 of it; the f32 kernel must still fail the limit.
+    The plan picks the column tier at these shapes (predicted faster), so
+    the streamed tilings are forced."""
     nB = 144
     bf16 = matmul_dtype == "bfloat16"
-    plan = ISTA_KERNEL.plan(nB, P, K, bf16)
+    assert ISTA_KERNEL.plan(nB, P, K, bf16).tier == "column"
+    plan = _candidate(nB, P, K, bf16, "streamed")
     assert (plan.tier, plan.cluster_size, plan.rows) == ("streamed", 8, 10) and plan.stages > 0
     Y, M, D = _problem(cuda, nB, P=P, K=K, seed=P + K)
     cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
     alpha = compute_alpha(D, M, cfg)  # one alpha for both layouts: its sum over P runs in cuBLAS's order
-    got = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
-    again = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
     rows = plan.resident_rows + -(-plan.streamed_rows // plan.stage_rows) * plan.stage_rows
     padded = _zero_padded_slices(Y, M, D, plan, rows)
-    whole = ISTA_KERNEL.plan(nB, plan.cluster_size * rows, K, bf16)
+    whole = _candidate(nB, plan.cluster_size * rows, K, bf16, "streamed")
     assert (whole.cluster_size, whole.rows, whole.resident_rows, whole.stage_rows, whole.stages) == (
         plan.cluster_size, plan.rows, plan.resident_rows, plan.stage_rows, plan.stages)
     assert whole.streamed_rows % whole.stage_rows == 0
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all() and torch.equal(got, again)
-    assert torch.equal(pnp_ista_blocks_fused(*padded, cfg, alpha=alpha), got)
+    with ISTA_KERNEL.forcing(plan, whole):
+        got = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+        again = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        assert torch.equal(pnp_ista_blocks_fused(*padded, cfg, alpha=alpha), got)
     ref = pnp_ista_blocks(Y, M, D, cfg, alpha=alpha)
     assert torch.all(got[1] == 0.0)
     if not bf16:
@@ -584,7 +676,9 @@ def test_streamed_kernel_short_stage_in_a_fresh_slot(cuda, P, K, matmul_dtype):
     floor = max(_order_sensitivity(Y, M, D, cfg, ref, alpha), _tensor_core_sensitivity(Y, M, D, cfg, ref, alpha))
     f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha)
     _assert_bf16_tracks(got, ref, f32_ref, floor)
-    f32_gap = float((pnp_ista_blocks_fused(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha) - ref).abs().max())
+    with ISTA_KERNEL.forcing(plan):
+        f32_out = pnp_ista_blocks_fused(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha)
+    f32_gap = float((f32_out - ref).abs().max())
     assert f32_gap >= max(1e-5 * float(ref.abs().max()), 4.0 * floor)
 
 
@@ -638,17 +732,24 @@ def test_column_kernel_matches_plain(cuda, nB, P, K, matmul_dtype):
 
 
 def test_streamed_kernel_replayed_from_a_graph(cuda):
+    """Each streaming tier replayed from a graph gives its eager bits (at P
+    1700 / K 40 in f32 the plan picks the column tier; the streamed tiling
+    is forced); so do the shapes whose tier the plan's timings moved, P 576 /
+    K 1152 (f32 off the resident tier, bf16 off the streamed one) and P 1296
+    / K 1024 in f32 (off the streamed tier), now on the column tier."""
     from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
 
     for nB, P, K, mm, tier in ((13, 1700, 40, "float32", "streamed"), (9, 1296, 1030, "bfloat16", "streamed"),
                                (3, 16, 3000, "bfloat16", "column"), (144, 1296, 1152, "float32", "column"),
-                               (144, 576, 2048, "bfloat16", "column")):
+                               (144, 576, 2048, "bfloat16", "column"), (144, 576, 1152, "float32", "column"),
+                               (144, 576, 1152, "bfloat16", "column"), (144, 1296, 1024, "float32", "column")):
         Y, M, D = _problem(cuda, nB, P=P, K=K)
         cfg = SparseProxConfig(n_iter=12, matmul_dtype=mm)
-        eager = pnp_ista_blocks_fused(Y, M, D, cfg)
-        graph = Captured(lambda: pnp_ista_blocks_fused(Y, M, D, cfg), cuda)
-        graph()
-        assert torch.equal(graph(), eager) and torch.equal(graph(), eager)
+        with ISTA_KERNEL.forcing(_candidate(nB, P, K, mm == "bfloat16", tier)):
+            eager = pnp_ista_blocks_fused(Y, M, D, cfg)
+            graph = Captured(lambda: pnp_ista_blocks_fused(Y, M, D, cfg), cuda)
+            graph()
+            assert torch.equal(graph(), eager) and torch.equal(graph(), eager)
         assert graph.b1_launches == 1 and graph.b1_plan.tier == tier
 
 

@@ -16,7 +16,13 @@ slice's partial gradient -- summed in the kernel's ring order, the NLM on
 each segment with its halo of 4 and the reflect edge; in the column tier
 product 1 per CTA over its columns, the partials summed by slice of rows in
 ring order, product 2 per CTA over all rows) equals the plain loop at rtol
-1e-5 / atol 1e-6: only the order of the f32 sums differs."""
+1e-5 / atol 1e-6: only the order of the f32 sums differs.  Of the tiers that
+take a shape (``plan_candidates``) the plan picks the one with the least
+predicted time (``predicted_ms``, constants fitted to the card's sweeps in
+``scripts/b1_tier_sweeps.jsonl``); the picks at the sweep's shapes are
+pinned here."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,9 +35,11 @@ from lrs_pnp_dip_tpu.ops.nlm import nlm_column_batch_fast as j_nlm
 from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary, synthetic_sample
 from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, block_grid, extract_blocks, pnp_ista_blocks_fused
 from lrs_pnp_dip_tpu_torch.ops import ista as tista
+from lrs_pnp_dip_tpu_torch.ops import ista_cuda
 from lrs_pnp_dip_tpu_torch.ops.ista_cuda import (
-    H100_RESIDENT_CLUSTERS, _column_plan, _streamed_plan, column_groups, column_scratch_floats,
-    column_smem_bytes, in_tpu_range, plan_ista, stream_smem_bytes, tpu_vmem_bytes,
+    H100_RESIDENT_CLUSTERS, TIE_MARGIN, FusedIstaKernel, _column_plan, _streamed_plan, column_groups,
+    column_scratch_floats, column_smem_bytes, in_tpu_range, pick_plan, plan_candidates, plan_ista,
+    plan_smem_bytes, predicted_ms, share_plan, stream_smem_bytes, tile_rows, tpu_vmem_bytes,
 )
 from lrs_pnp_dip_tpu_torch.ops.nlm import nlm_column_batch_fast as t_nlm
 from lrs_pnp_dip_tpu_torch.solvers import make_consts
@@ -308,16 +316,22 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
         assert plan.scratch_floats == column_scratch_floats(P, K, bf16, plan.resident_rows)
         assert (plan.scratch_floats > 0) == ((plan.resident_rows < P) if bf16 else K % 4 != 0)
         assert (plan.l2_bytes_per_iteration > 0) == (plan.resident_rows < P)
-        if K <= (1280 if bf16 else 1024):  # the streamed kernel's shared memory refused it
+        if K <= (1280 if bf16 else 1024):
+            # the streamed kernel's shared memory refused it, or its tiling is
+            # predicted slower by more than the margin
             reasons = []
-            assert _streamed_plan(nB, P, K, bf16, H100_RESIDENT_CLUSTERS, MAX_SMEM, reasons) is None
-            assert reasons and all(r.startswith("streamed") for r in reasons)
+            streamed = _streamed_plan(nB, P, K, bf16, H100_RESIDENT_CLUSTERS, MAX_SMEM, reasons)
+            if streamed is None:
+                assert reasons and all(r.startswith("streamed") for r in reasons)
+            else:
+                assert predicted_ms(plan) < (1.0 - TIE_MARGIN) * predicted_ms(streamed)
     else:
         assert plan.tier == "resident"
         assert plan.resident_rows == plan.slice_rows and plan.scratch_floats == 0
     assert plan.cluster_size in H100_RESIDENT_CLUSTERS
     assert plan.resident == H100_RESIDENT_CLUSTERS[plan.cluster_size]
     assert plan.waves == -(-plan.n_clusters // plan.resident)
+    assert plan == pick_plan(plan_candidates(nB, P, K, bf16))
 
 
 def test_plan_at_the_main_shape():
@@ -555,6 +569,22 @@ def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
     return out
 
 
+# Small swept shapes that the least predicted time moves off the first tier
+# that takes them, and the tier it moves them to: the column tier over the
+# resident one (f32, K 3000 at P 16) and over the streamed one (f32 at P
+# 1700, K 30), the streamed tier over the resident one (f32, 166 rows of P
+# 48: one wave of 12 rows per cluster against two waves; bf16 at P 100, K
+# 300).  bf16 at P 144, K 1152 stays on the streamed tier: no sweep timed it,
+# and the column tier is predicted 4% faster, inside the fits' error.
+MOVED_TO = {
+    (3, 16, 3000, False): "column",
+    (9, 1700, 30, False): "column",
+    (40, 144, 1152, True): "streamed",
+    (166, 48, 32, False): "streamed",
+    (11, 100, 300, True): "streamed",
+}
+
+
 def _forced_plan(nB, P, K, bf16, tier, resident_rows):
     """The plan of ``tier`` with ``resident_rows`` rows of each slice resident
     (clusters of 8): the shared-memory limit set so that just these fit."""
@@ -608,6 +638,13 @@ def _forced_plan(nB, P, K, bf16, tier, resident_rows):
         (3, 40, 1400, True, H100_RESIDENT_CLUSTERS, ("column", 16)),
         (3, 7, 196, True, H100_RESIDENT_CLUSTERS, ("column", 7)),
         (5, 100, 1300, True, H100_RESIDENT_CLUSTERS, None),
+        # shapes the least predicted time moves off the first tier that takes
+        # them, and one it keeps there (MOVED_TO)
+        (3, 16, 3000, False, H100_RESIDENT_CLUSTERS, None),
+        (9, 1700, 30, False, H100_RESIDENT_CLUSTERS, None),
+        (40, 144, 1152, True, H100_RESIDENT_CLUSTERS, None),
+        (166, 48, 32, False, H100_RESIDENT_CLUSTERS, None),
+        (11, 100, 300, True, H100_RESIDENT_CLUSTERS, None),
     ],
 )
 def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident, forced):
@@ -618,6 +655,7 @@ def test_plan_emulation_matches_plain_loop(nB, P, K, bf16, resident, forced):
         assert (plan.tier, plan.resident_rows) == forced
     else:
         plan = plan_ista(nB, P, K, bf16, resident=resident)
+        assert plan.tier == MOVED_TO.get((nB, P, K, bf16), plan.tier)
     if plan.tier == "streamed" and forced:
         assert plan.stages == min(3, -(-plan.streamed_rows // plan.stage_rows)) > 0 or P == 7
     ref = tista.pnp_ista_blocks(*_t(Y, M, D), cfg)
@@ -636,12 +674,13 @@ def test_column_emulation_matches_pallas(bf16):
     against the TPU kernel in interpret mode, at the module's f32 tolerance
     (rtol 1e-4 / atol 1e-6) or, in bf16, the plain loop at it and the
     emulation within BF16_MATCH of max|ref| (its order flips a rounding now
-    and then).  The plan is the column tier's, forced: at this shape the
-    resident kernel takes f32 and the streamed one bf16."""
+    and then).  In f32 the plan picks the column tier over the resident one;
+    in bf16 it keeps the streamed tier, so the column tiling is taken from
+    _column_plan."""
     Y, M, D = _problem(1100, P=64, K=1100, nB=8, missing_block=True)
     cfg = SparseProxConfig(n_iter=10, matmul_dtype="bfloat16" if bf16 else "float32")
     plan = _column_plan(8, 64, 1100, bf16, H100_RESIDENT_CLUSTERS, MAX_SMEM, [])
-    assert plan.tier == "column" and plan_ista(8, 64, 1100, bf16).tier == ("streamed" if bf16 else "resident")
+    assert plan.tier == "column" and plan_ista(8, 64, 1100, bf16).tier == ("streamed" if bf16 else "column")
     ref = np.asarray(pnp_ista_blocks_pallas(jnp.asarray(Y), jnp.asarray(M), jnp.asarray(D), _jcfg(cfg),
                                             interpret=True))
     plain = tista.pnp_ista_blocks(*_t(Y, M, D), cfg).numpy()
@@ -657,7 +696,10 @@ def test_column_emulation_matches_pallas(bf16):
 # (nB, P, K, bf16) -> (tier, C, R, clusters, slice rows, seg, shared memory,
 # resident rows, stage rows, stages) on an H100, as the resident and streamed
 # tiers planned them before the column tier took the long-K tail: the main
-# shape, the auto-dictionary's, chip_smoke.WIDE_SHAPES, nB 240, 2304 and 13.
+# shape, the auto-dictionary's, chip_smoke.WIDE_SHAPES, nB 240, 2304 and 13;
+# since the plan picks the least predicted time, P 1296 / K 1024 in f32 and
+# P 576 / K 1152 in both types take the column tier, and block 40 at nB 240
+# in bf16 the streamed tier (one wave of clusters of 8 against three).
 FIXED_PLANS = {
     (144, 1296, 512, False): ("resident", 16, 11, 14, 81, 32, 225056, 81, 0, 0),
     (144, 1296, 512, True): ("resident", 8, 10, 15, 162, 64, 231616, 162, 0, 0),
@@ -669,12 +711,12 @@ FIXED_PLANS = {
     (144, 2304, 512, True): ("resident", 16, 11, 14, 144, 32, 197088, 144, 0, 0),
     (144, 2704, 512, False): ("streamed", 8, 10, 15, 338, 64, 221808, 32, 16, 3),
     (144, 2704, 512, True): ("resident", 16, 11, 14, 169, 32, 231392, 169, 0, 0),
-    (144, 1296, 1024, False): ("streamed", 8, 10, 15, 162, 128, 204656, 8, 8, 3),
+    (144, 1296, 1024, False): ("column", 8, 10, 15, 164, 128, 231968, 262, 0, 0),
     (144, 1296, 1024, True): ("streamed", 8, 10, 15, 162, 128, 226480, 32, 16, 3),
-    (144, 576, 1152, False): ("resident", 16, 2, 72, 36, 72, 229440, 36, 0, 0),
-    (144, 576, 1152, True): ("streamed", 8, 10, 15, 72, 144, 215216, 16, 16, 3),
+    (144, 576, 1152, False): ("column", 8, 10, 15, 72, 144, 232288, 234, 0, 0),
+    (144, 576, 1152, True): ("column", 8, 10, 15, 72, 144, 228800, 560, 0, 0),
     (240, 1600, 512, False): ("streamed", 8, 16, 15, 200, 64, 208304, 16, 16, 3),
-    (240, 1600, 512, True): ("resident", 16, 12, 20, 100, 32, 165120, 100, 0, 0),
+    (240, 1600, 512, True): ("streamed", 8, 16, 15, 200, 64, 225968, 128, 16, 3),
     (240, 1296, 1024, False): ("streamed", 8, 16, 15, 162, 128, 231344, 8, 8, 3),
     (240, 1296, 1024, True): ("streamed", 8, 16, 15, 162, 128, 199600, 16, 16, 3),
     (2304, 1296, 512, False): ("resident", 16, 11, 210, 81, 32, 225056, 81, 0, 0),
@@ -724,8 +766,11 @@ def test_plan_tiers_at_the_streamed_shapes():
     one wave of clusters of 8 everywhere (on the card it beat two waves of
     clusters of 16, even at P 576 / K 1152 in bf16, where those hold the
     whole slice); f32 at K 512 in stages of 16 rows with two of them
-    resident, at K 1024 in stages of 8 with one resident; a ring of three
-    stages; K past the streamed kernel's columns takes the column tier."""
+    resident, bf16 at K 1024 in stages of 16 with two resident; a ring of
+    three stages.  P 1296 / K 1024 in f32 and P 576 / K 1152 in bf16 take
+    the column tier, predicted (and timed) faster; their streamed tilings
+    keep one resident stage of 8 and of 16 rows.  K past the streamed
+    kernel's columns takes the column tier."""
     got = {}
     for P, K, bf16 in ((1600, 512, False), (2304, 512, False), (2704, 512, False), (1296, 1024, False),
                        (1296, 1024, True), (576, 1152, True)):
@@ -736,16 +781,168 @@ def test_plan_tiers_at_the_streamed_shapes():
         (1600, 512, False): ("streamed", 8, 1, 32, 16, 3),
         (2304, 512, False): ("streamed", 8, 1, 32, 16, 3),
         (2704, 512, False): ("streamed", 8, 1, 32, 16, 3),
-        (1296, 1024, False): ("streamed", 8, 1, 8, 8, 3),
+        (1296, 1024, False): ("column", 8, 1, 262, 0, 0),
         (1296, 1024, True): ("streamed", 8, 1, 32, 16, 3),
-        (576, 1152, True): ("streamed", 8, 1, 16, 16, 3),
+        (576, 1152, True): ("column", 8, 1, 560, 0, 0),
     }
+    streamed = {(P, K, bf16): _streamed_plan(144, P, K, bf16, H100_RESIDENT_CLUSTERS, MAX_SMEM, [])
+                for P, K, bf16 in ((1296, 1024, False), (576, 1152, True))}
+    assert [(p.cluster_size, p.waves, p.resident_rows, p.stage_rows, p.stages) for p in streamed.values()] == [
+        (8, 1, 8, 8, 3), (8, 1, 16, 16, 3)]
     # block 40: 8 CTAs stream the 168 rows of 512 floats past their 32 resident ones once per iteration
     assert plan_ista(144, 1600, 512, False).l2_bytes_per_iteration == 8 * 168 * 512 * 4
     # bf16 rows come from the rounded copy: 1152 values of 2 bytes
-    assert plan_ista(144, 576, 1152, True).l2_bytes_per_iteration == 8 * (72 - 16) * 1152 * 2
+    assert streamed[(576, 1152, True)].l2_bytes_per_iteration == 8 * (72 - 16) * 1152 * 2
     assert plan_ista(13, 1296, 1152, False).tier == "column"
     assert plan_ista(13, 7, 9000, True).tier == "column"
+
+
+# chip_smoke.TIER_SHAPES -> (the tiers of plan_candidates, in order; the
+# pick of plan_ista on an H100 as (tier, C, R, waves)).  The sweeps of
+# scripts/time_b1.py --tiers timed every candidate; the pick was within 5% of
+# the fastest in every call (PERF.md section 6, "B1 across its tiers").
+TIER_PICKS = {
+    (144, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 2)),
+    (144, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 10, 1)),
+    (72, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 1)),
+    (72, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 5, 1)),
+    (288, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 4)),
+    (288, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 10, 2)),
+    (576, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 8)),
+    (576, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 10, 4)),
+    (2304, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 30)),
+    (2304, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 10, 16)),
+    (324, 576, 512, False): (("resident", "streamed", "column"), ("resident", 8, 11, 2)),
+    (324, 576, 512, True): (("resident", "streamed", "column"), ("resident", 8, 11, 2)),
+    (1296, 576, 512, False): (("resident", "streamed", "column"), ("resident", 8, 11, 8)),
+    (1296, 576, 512, True): (("resident", "streamed", "column"), ("resident", 8, 15, 6)),
+    (132, 1600, 512, False): (("streamed", "column"), ("streamed", 8, 9, 1)),
+    (132, 1600, 512, True): (("resident", "streamed", "column"), ("resident", 16, 10, 2)),
+    (144, 2304, 512, False): (("streamed", "column"), ("streamed", 8, 10, 1)),
+    (144, 2304, 512, True): (("resident", "streamed", "column"), ("resident", 16, 11, 2)),
+    (144, 2704, 512, False): (("streamed", "column"), ("streamed", 8, 10, 1)),
+    (144, 2704, 512, True): (("resident", "streamed", "column"), ("resident", 16, 11, 2)),
+    (144, 1296, 1024, False): (("streamed", "column"), ("column", 8, 10, 1)),
+    (144, 1296, 1024, True): (("streamed", "column"), ("streamed", 8, 10, 1)),
+    (144, 576, 1152, False): (("resident", "column"), ("column", 8, 10, 1)),
+    (144, 576, 1152, True): (("streamed", "column"), ("column", 8, 10, 1)),
+    (144, 1296, 1152, True): (("streamed", "column"), ("streamed", 8, 10, 1)),
+}
+
+
+def _shape_id(shape):
+    return "nB{}-P{}-K{}-{}".format(*shape[:3], "bf16" if shape[3] else "f32")
+
+
+@pytest.mark.parametrize("shape", list(TIER_PICKS), ids=_shape_id)
+def test_plan_picks_the_least_cost_tier(shape):
+    """At each shape of the sweep: the tiers that take it, in order, and the
+    plan's pick, which has the least predicted time of them or is an
+    earlier tier predicted within TIE_MARGIN of it."""
+    tiers, pick = TIER_PICKS[shape]
+    plans = plan_candidates(*shape)
+    assert tuple(p.tier for p in plans) == tiers
+    plan = plan_ista(*shape)
+    assert plan in plans and (plan.tier, plan.cluster_size, plan.rows, plan.waves) == pick
+    fastest = min(predicted_ms(p) for p in plans)
+    assert predicted_ms(plan) * (1.0 - TIE_MARGIN) <= fastest
+    assert all(predicted_ms(p) >= (1.0 - TIE_MARGIN) * predicted_ms(plan) for p in plans[plans.index(plan) + 1:])
+
+
+def test_plan_ties_keep_the_earlier_tier(monkeypatch):
+    """Predicted ties keep plan_candidates' order (resident, streamed,
+    column: the order the plan took before it compared times); a later tier
+    replaces an earlier one only when predicted faster by more than
+    TIE_MARGIN at a swept shape, by more than the fits' error elsewhere."""
+    shape = (144, 576, 1152, False)
+    first, later = plan_candidates(*shape)
+    assert (first.tier, later.tier) == ("resident", "column")
+    for gain, picked in ((0.0, first), (TIE_MARGIN / 2, first), (2 * TIE_MARGIN, later)):
+        monkeypatch.setattr(ista_cuda, "predicted_ms", lambda p, n_iter=100, g=gain: 1.0 - g * (p == later))
+        assert plan_ista(*shape) == picked
+    # off the swept shapes a later tier must win by more than the larger
+    # fit error of the two tiers' groups
+    shape = (40, 576, 1152, False)
+    assert shape not in ista_cuda.SWEPT_SHAPES
+    first, later = plan_candidates(*shape)
+    error = max(ista_cuda._FIT_ERROR["resident", False], ista_cuda._FIT_ERROR["column", False])
+    for gain, picked in ((2 * TIE_MARGIN, first), (error - 0.01, first), (error + 0.01, later)):
+        monkeypatch.setattr(ista_cuda, "predicted_ms", lambda p, n_iter=100, g=gain: 1.0 - g * (p == later))
+        assert plan_ista(*shape) == picked
+    monkeypatch.setattr(ista_cuda, "predicted_ms", lambda p, n_iter=100: 1.0)
+    for shape in TIER_PICKS:
+        assert plan_ista(*shape) == plan_candidates(*shape)[0]
+
+
+@pytest.mark.parametrize("shape", [(144, 1296, 512, False), (144, 1296, 512, True), (144, 576, 1152, False),
+                                   (144, 1296, 1024, True)], ids=_shape_id)
+def test_predicted_time_grows_with_waves(shape):
+    """Inside a tier the predicted time is one wave's times the waves, and
+    grows with n_iter in proportion."""
+    for plan in plan_candidates(*shape):
+        times = [predicted_ms(dataclasses.replace(plan, n_clusters=w * plan.resident)) for w in (1, 2, 3, 5)]
+        assert times[0] > 0 and times == pytest.approx([w * times[0] for w in (1, 2, 3, 5)])
+        assert predicted_ms(plan, 80) == pytest.approx(0.8 * predicted_ms(plan))
+
+
+def test_cost_constants_are_the_fit_of_the_sweeps():
+    """The constants of predicted_ms and each group's largest error are what
+    scripts/fit_b1_plan.py fits to the committed sweeps (to 1e-3: another
+    scipy may round a constant the other way), SWEPT_SHAPES are the shapes
+    they timed, and with the constants every swept shape of every call
+    picks within 5% of the fastest candidate timed in that call but one (2
+    rows of P 36 at K 700 in f32, a 0.6 ms launch, in the calls that swept
+    it: PERF.md)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "fit_b1_plan.py"
+    spec = importlib.util.spec_from_file_location("fit_b1_plan", path)
+    fit = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fit)
+    rows = fit.load([path.parent / "b1_tier_sweeps.jsonl"])
+    table = fit.fit(rows)
+    assert table.keys() == ista_cuda._COST_US.keys() == ista_cuda._FIT_ERROR.keys()
+    for key, (coef, worst, _) in table.items():
+        assert coef == pytest.approx(ista_cuda._COST_US[key], rel=1e-3, abs=1e-6)
+        assert worst == pytest.approx(ista_cuda._FIT_ERROR[key], abs=1e-3)
+    assert ista_cuda.SWEPT_SHAPES == {(p.nB, p.P, p.K, p.bf16) for _, p in rows}
+    assert {miss[0][1:] for miss in fit.misses(rows)} == {(2, 36, 700, False)}
+
+
+@pytest.mark.parametrize("shape", list(TIER_PICKS) + [(13, 48, 32, False), (240, 1600, 512, False)], ids=_shape_id)
+def test_share_plan_keeps_each_rows_tiling(shape):
+    """One rank's share of the rows under {patch: 2} (share_plan of the
+    plan over all rows): the whole's tier, cluster size, slices, segments,
+    stages and register tiles, every share row in a cluster, at most the
+    whole's rows per cluster, the shared memory its tier lays out."""
+    whole = plan_ista(*shape)
+    for n in (-(-shape[0] // 2), 1):
+        share = share_plan(whole, n)
+        same = ("tier", "cluster_size", "slice_rows", "seg", "resident_rows", "stage_rows", "stages", "bf16")
+        assert all(getattr(share, f) == getattr(whole, f) for f in same)
+        assert tile_rows(share) == tile_rows(whole) and share.rows <= whole.rows
+        assert [r for a, b in share.row_chunks() for r in range(a, b)] == list(range(n))
+        assert share.smem_bytes == plan_smem_bytes(share) <= MAX_SMEM
+    # the planners' own shared memory is what plan_smem_bytes lays out
+    assert all(p.smem_bytes == plan_smem_bytes(p) for p in plan_candidates(*shape))
+
+
+def test_kernel_plans_a_share_inside_shares_of():
+    """FusedIstaKernel.plan (the card's resident clusters given, so that
+    nothing is built): inside ``shares_of(144)`` 72 rows take the share of
+    the plan at 144 (at P 576 / K 1152 in f32, the column tier's clusters of
+    8, where 72 rows alone take clusters of 16); outside it, and at 144 rows
+    inside it, the plan of the shape."""
+    kernel = FusedIstaKernel()
+    kernel._resident = {False: dict(H100_RESIDENT_CLUSTERS), True: dict(H100_RESIDENT_CLUSTERS)}
+    alone = kernel.plan(72, 576, 1152, False)
+    assert (alone.tier, alone.cluster_size) == ("column", 16)
+    with kernel.shares_of(144):
+        share = kernel.plan(72, 576, 1152, False)
+        assert kernel.plan(144, 576, 1152, False) == plan_ista(144, 576, 1152, False)
+    assert share == share_plan(plan_ista(144, 576, 1152, False), 72) and share.cluster_size == 8
+    assert kernel.plan(72, 576, 1152, False) == alone and kernel._whole is None
 
 
 def _short_stages_in_fresh_slots(plan):
@@ -776,8 +973,10 @@ def test_card_cases_stream_a_short_stage_into_a_fresh_slot(P, expected):
     reach the rows of a ring slot that only the partial gradient wrote
     before: P 400 streams one stage of 2 rows per CTA into slot 0, P 529
     two stages, the second of 3 rows into slot 1 (which the partial
-    gradient's 10 rows reach past slot 0)."""
-    plan = plan_ista(144, P, 1024, True)
+    gradient's 10 rows reach past slot 0).  The plan picks the column tier
+    at both, so the card test forces this streamed tiling."""
+    assert plan_ista(144, P, 1024, True).tier == "column"
+    plan = _streamed_plan(144, P, 1024, True, H100_RESIDENT_CLUSTERS, MAX_SMEM, [])
     assert (plan.tier, plan.rows, plan.cluster_size, plan.resident_rows) == ("streamed", 10, 8, 48)
     found = _short_stages_in_fresh_slots(plan)
     assert (0, *expected) in found and all((slot, valid) == expected for c, slot, valid in found if c < 7)
