@@ -31,8 +31,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                1152 f32, P 576 / K 2048 and P 256 / K 3000 f32 and bf16) the
                same way, timed beside its bound, plain loop and yardstick,
                and once at P 256 / K 3000, nB 13 (long_k_check); then at
-               each shape of TIER_SHAPES (the main shape, nB 72, 288, 576
-               and 2304, the auto-dictionary's P 576 at nB 324 and 1296,
+               each shape of TIER_SHAPES (the main shape, nB 72, 288, 576,
+               1152 and 2304, the auto-dictionary's P 576 at nB 324 and 1296,
                blocks 40, 48 and 52, K 1024 and 1152; random problems,
                tier_problem) every tiling of plan_candidates forced in turn
                against the plain loop, with equal bits on repeat, then all
@@ -72,7 +72,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                same 2 steps with host-stepped fits, equal bits;
                inpaint_scene(variant="lrs_pnp") on a 72x72x128 scene, four
                tiles in one batch (one launch per outer step at nB 576),
-               also against the CPU; inpaint_scene(variant="dip") on it
+               also against the CPU; inpaint_scene(variant="lrs_pnp") at
+               its default tile_batch=8 on a 72x144x128 scene (eight tiles
+               in one batch: one launch per outer step at nB 1152, B1's
+               panel tier where the plan picks it), against the CPU, and
+               the same with bf16 sparse products against the CPU's f32
+               scene, and inpaint(variant="lrs_pnp") on a 144x144x128
+               cube (one launch per step at nB 2304), against the CPU
+               (default_scene); inpaint_scene(variant="dip") on it
                (solve_tiled(scan=False), fits capped at 50 and replayed)
                against host-stepped fits, equal bits; one concatenated launch of B1 against four per-lane
                launches; B1 against its plain version at nB 288 and at nB
@@ -139,7 +146,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                (equal bits, f32 and bf16, one launch counted per replay),
                on the streamed kernel (block 40 in f32, P 1296 / K 1024 in
                bf16) and on the column kernel (P 1296 / K 1152 in f32, P 576
-               / K 2048 in bf16, P 576 / K 1152 in f32 and bf16);
+               / K 2048 in bf16, P 576 / K 1152 in f32 and bf16) and on the
+               panel kernels (nB 1152, P 1296 / K 512, f32 and bf16);
                the lrs_pnp preset's step through Solver.run_scanned against
                run (equal bits), each timed per step and sustained, with the
                kernels, host launches, host syncs and device-busy share of
@@ -242,7 +250,8 @@ LONG_K_SHAPES = (
 )
 # Shapes at which B1's plan chooses between its tiers (nB, P, K, operand
 # types): the main shape, one rank's share of it under {patch: 2}, the
-# dip_tuned lanes, the four-tile scene, the 144x144 cube, the auto-dictionary
+# dip_tuned lanes, the four-tile scene, the default eight-tile scene
+# (inpaint_scene's tile_batch=8: nB 1152), the 144x144 cube, the auto-dictionary
 # (block 24) solve and scene, block 40, blocks 48 and 52, 1024 atoms at block
 # 36, 1152 atoms at block 24 and 36 (bf16).  Every candidate of plan_candidates
 # is held to the plain loop and timed at each (tier_sweep,
@@ -252,6 +261,7 @@ TIER_SHAPES = (
     (72, 1296, 512, ("float32", "bfloat16")),
     (288, 1296, 512, ("float32", "bfloat16")),
     (576, 1296, 512, ("float32", "bfloat16")),
+    (1152, 1296, 512, ("float32", "bfloat16")),
     (2304, 1296, 512, ("float32", "bfloat16")),
     (324, 576, 512, ("float32", "bfloat16")),
     (1296, 576, 512, ("float32", "bfloat16")),
@@ -714,6 +724,64 @@ def tier_sweep(peaks: dict, smi: str) -> dict:
     return out
 
 
+def panel_entries(tier_timing: dict) -> list:
+    """The kernels line's entries of B1's two panel kernels: their launches
+    on the driven paths (DRIVEN_BY_KERNEL), and at nB 1152 / P 1296 / K 512
+    (the default scene's launch; tier_sweep's problem, 100 iterations) the
+    time of the panel tiling the plan picks there (else of the faster one)
+    from the tier sweep, its max |delta| from the plain loop, the plain
+    loop's time, the bound and the yardstick; besides, at 80 iterations (the
+    default scene's launch) the resident and both panel tilings timed in
+    turns, and the plain loop at nB 1296 / P 576."""
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    entries = []
+    problem = tier_problem(1152, 1296, 512)
+    auto = tier_problem(1296, 576, 512)
+    for mm in ("float32", "bfloat16"):
+        sweep = tier_timing[f"nB1152_P1296_K512_{mm}"]
+        panel = [c for c in sweep["candidates"] if c["tier"] == "panel"]
+        row = next((c for c in panel if c["pick"]), min(panel, key=lambda c: c["ms"]))
+        cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
+        plain_ms = time_cuda(lambda: pnp_ista_blocks(*problem[:3], cfg, alpha=problem[3]), warmup=1, reps=3)
+        auto_plain_ms = time_cuda(lambda: pnp_ista_blocks(*auto[:3], cfg, alpha=auto[3]), warmup=1, reps=3)
+        # the default scene's launch runs 80 iterations (lrs_pnp): the resident
+        # tiling and both panel tilings at nB 1152, in turns
+        bf16 = mm == "bfloat16"
+        plans = [p for p in plan_candidates(1152, 1296, 512, bf16, ISTA_KERNEL.resident_clusters(bf16),
+                                            _MAX_SMEM_BYTES) if p.tier in ("resident", "panel")]
+        at80 = time_candidates(*problem[:3], problem[3], dataclasses.replace(cfg, n_iter=80), plans)
+        at80 = {f"{p.tier}_C{p.cluster_size}": ms for p, (ms, _) in zip(plans, at80)}
+        name = f"pnp_ista_panel_{'bf16' if mm == 'bfloat16' else 'f32'}"
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "lrs_pnp_dip_tpu_torch/csrc/ista_panel.cuh",
+            "replaces": "lrs_pnp_dip_tpu/ops/ista_pallas.py:179",
+            "launches": DRIVEN_BY_KERNEL.get(name, 0),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": plain_ms,
+            "bound_ms": sweep["bound_ms"],
+            "bound_by": sweep["bound_by"],
+            "library_ms": sweep["library_ms"],
+            # at nB 1152, P 1296, K 512, 100 iterations: the panel tiling timed, the plan's pick there
+            "at": dict(nB=1152, P=1296, K=512, n_iter=100, cluster_size=row["cluster_size"], rows=row["rows"],
+                       waves=row["waves"], pick=sweep["pick"], pick_ms=sweep["pick_ms"], max_ref=sweep["max_ref"]),
+            # nB 1152 at 80 iterations, in turns; the plain loop at nB 1296 / P 576 (100 iterations)
+            "at_80_iterations_ms": at80,
+            "plain_ms_at_nB1296_P576": auto_plain_ms,
+        })
+        log(f"  {name}: {entries[-1]['launches']} launches on the driven paths; at nB 1152 {row['ms']:.4f} ms "
+            f"(C{row['cluster_size']} R{row['rows']}), plain {plain_ms:.4f} ms, bound {sweep['bound_ms']:.4f} ms, "
+            f"200 torch.matmul calls {sweep['library_ms']:.4f} ms; the plan picks {sweep['pick']} there; at 80 "
+            f"iterations, in turns: {', '.join(f'{k} {v:.4f} ms' for k, v in at80.items())}; plain loop at nB 1296 / "
+            f"P 576 {auto_plain_ms:.4f} ms")
+    return entries
+
+
 def describe_plan(plan) -> str:
     text = (f"tier {plan.tier}: {plan.n_clusters} clusters of {plan.cluster_size} CTAs ({plan.resident} "
             f"resident, {plan.waves} wave(s)), {plan.rows} rows per cluster, {plan.slice_rows} rows of D and "
@@ -724,6 +792,8 @@ def describe_plan(plan) -> str:
     elif plan.tier == "column":
         text += (f"; {plan.resident_rows} of the {plan.P} rows of each CTA's columns resident, "
                  f"{plan.streamed_rows} read from L2 in each product")
+    elif plan.tier == "panel":
+        text += f"; each CTA's slice streamed as {plan.stages} stages of {plan.stage_rows} rows"
     if plan.streamed:
         text += (f", {plan.scratch_floats * 4} B of scratch, {plan.l2_bytes_per_iteration} B of D through L2 per "
                  "cluster and iteration")
@@ -851,22 +921,30 @@ def bound_ms(nB: int, P: int, K: int, n_iter: int, matmul_dtype: str, peaks: dic
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flops, io_bytes
 
 
+# B1's launches on the driven paths (drive), by the CUDA kernel each ran
+# (ista_cuda.kernel_name): what the kernels line reports for the panel kernels.
+DRIVEN_BY_KERNEL: dict = {}
+
+
 def drive(label: str, fn, launches: int, nB: int, bf16: bool = False):
-    """Run one path with B1's count set to 0 just before and read just
+    """Run one path with B1's counts set to 0 just before and read just
     after; returns (result, wall seconds).  Fails unless B1 was launched
     ``launches`` times, the last of them over ``nB`` blocks with the operand
-    type given."""
+    type given.  Adds the launches by kernel to DRIVEN_BY_KERNEL."""
     import torch
 
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL
 
     torch.cuda.synchronize()
     ISTA_KERNEL.launches = 0
+    ISTA_KERNEL.launches_by_kernel.clear()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got, plan = ISTA_KERNEL.launches, ISTA_KERNEL.last_plan
+    for name, n in ISTA_KERNEL.launches_by_kernel.items():
+        DRIVEN_BY_KERNEL[name] = DRIVEN_BY_KERNEL.get(name, 0) + n
     if got != launches:
         raise AssertionError(f"{label}: B1 launched {got} times, expected {launches}")
     if launches and (plan.nB, plan.bf16) != (nB, bf16):
@@ -874,6 +952,70 @@ def drive(label: str, fn, launches: int, nB: int, bf16: bool = False):
             f"{label}: B1's last launch took nB={plan.nB}, bf16={plan.bf16}; "
             f"expected nB={nB}, bf16={bf16}")
     return out, wall
+
+
+def default_scene(port, by_path: dict, smi: str) -> dict:
+    """inpaint_scene(variant="lrs_pnp") at its default tile_batch (8) on
+    synthetic_sample(72, 144, 128, seed=3): eight 36x36 tiles in one batch,
+    so B1 runs once per outer step at nB 1152, the launch shape of a scene's
+    default step.  The card against the same scene on the CPU (SOLVE_MATCH),
+    then the same scene with bf16 sparse products (the dip_fast products'
+    type) on the card against the CPU's f32 scene (BF16_DRIFT, as bf16
+    against f32 anywhere); then inpaint(variant="lrs_pnp") on a 144x144x128
+    cube (B1 at nB 2304), card against CPU.  Records each run's plan and
+    B1's launches by kernel."""
+    import numpy as np
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.data import synthetic_sample
+    from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, mpsnr
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    sample = synthetic_sample(72, 144, 128, seed=3)
+    scene_in = float(mpsnr(torch.from_numpy(sample.clean), torch.from_numpy(sample.noisy)))
+    out = {}
+    cpu_rec = port.inpaint_scene(sample.noisy, sample.mask, variant="lrs_pnp", device="cpu")
+    for mm in ("float32", "bfloat16"):
+        log(f"[paths] inpaint_scene(variant='lrs_pnp') at the default tile_batch on synthetic_sample(72, 144, 128, "
+            f"seed=3), {mm} sparse products: eight tiles of 36x36 in one batch")
+        sparse = SparseProxConfig(n_iter=80, alpha_mode="specnorm", h_scale=0.1, matmul_dtype=mm)
+        rec, wall = drive(f"inpaint_scene default {mm}", lambda: port.inpaint_scene(
+            sample.noisy, sample.mask, variant="lrs_pnp", sparse=sparse), launches=2, nB=1152, bf16=mm == "bfloat16")
+        by_path[f"inpaint_scene_default_{mm}"] = ISTA_KERNEL.launches
+        plan = ISTA_KERNEL.last_plan
+        kernels = dict(ISTA_KERNEL.launches_by_kernel)
+        scene_out = float(mpsnr(torch.from_numpy(sample.clean), torch.from_numpy(rec)))
+        check_recovery(f"inpaint_scene default {mm}", rec, (72, 144, 128), scene_out, scene_in)
+        err = float(np.abs(rec - cpu_rec).max()) / float(np.abs(cpu_rec).max())
+        limit = SOLVE_MATCH if mm == "float32" else BF16_DRIFT
+        log(f"  wall {wall:.2f} s, mpsnr {scene_in:.4f} -> {scene_out:.4f}; B1 launches {ISTA_KERNEL.launches} at nB "
+            f"{plan.nB} by kernel {kernels}; {describe_plan(plan)}; card vs CPU (f32) max|dX|/max|X| = {err:.3e} "
+            f"(limit {limit}); card {smi}")
+        if not err < limit:
+            raise AssertionError(f"the card's default scene ({mm}) disagrees with the CPU's")
+        out[mm] = dict(wall_s=wall, mpsnr=scene_out, tier=plan.tier, cluster_size=plan.cluster_size, rows=plan.rows,
+                       waves=plan.waves, launches_by_kernel=kernels, max_rel_err_vs_cpu=err)
+    log("[paths] inpaint(variant='lrs_pnp') on synthetic_sample(144, 144, 128, seed=4): the 144x144 cube, B1 at nB "
+        "2304, card and CPU")
+    cube = synthetic_sample(144, 144, 128, seed=4)
+    cube_in = float(mpsnr(torch.from_numpy(cube.clean), torch.from_numpy(cube.noisy)))
+    (rec, _), wall = drive("inpaint 144x144", lambda: port.inpaint(
+        cube.noisy, cube.mask, variant="lrs_pnp", clean=cube.clean), launches=2, nB=2304)
+    by_path["inpaint_144x144"] = ISTA_KERNEL.launches
+    plan = ISTA_KERNEL.last_plan
+    kernels = dict(ISTA_KERNEL.launches_by_kernel)
+    cube_out = float(mpsnr(torch.from_numpy(cube.clean), torch.from_numpy(rec)))
+    check_recovery("inpaint 144x144", rec, (144, 144, 128), cube_out, cube_in)
+    cpu_rec, _ = port.inpaint(cube.noisy, cube.mask, variant="lrs_pnp", device="cpu")
+    err = float(np.abs(rec - cpu_rec).max()) / float(np.abs(cpu_rec).max())
+    log(f"  wall {wall:.2f} s, mpsnr {cube_in:.4f} -> {cube_out:.4f}; B1 launches {ISTA_KERNEL.launches} at nB "
+        f"{plan.nB} by kernel {kernels}; {describe_plan(plan)}; card vs CPU max|dX|/max|X| = {err:.3e} (limit "
+        f"{SOLVE_MATCH}); card {smi}")
+    if not err < SOLVE_MATCH:
+        raise AssertionError("the card's 144x144 cube disagrees with the CPU's")
+    out["cube_144x144"] = dict(wall_s=wall, mpsnr=cube_out, tier=plan.tier, cluster_size=plan.cluster_size,
+                               rows=plan.rows, waves=plan.waves, launches_by_kernel=kernels, max_rel_err_vs_cpu=err)
+    return out
 
 
 def run_fits(solver, n: int, host_stepped: bool):
@@ -1609,6 +1751,35 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
         log(f"  P {blocks.shape[1]}, K {D.shape[1]} {mm:9s} (tier {graph.b1_plan.tier}) replay equals the eager "
             f"launch bit for bit; replay {ms_graph:.4f} ms, eager call {ms_eager:.4f} ms; launches counted per "
             "replay 1")
+    log("[scanned] B1's panel kernels replayed from a captured graph against an eager launch: nB 1152, P 1296, "
+        "K 512 (the default scene's launch), the plan's pick where it is the panel tier, else its panel tiling "
+        "of clusters of 8")
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
+
+    wide = tier_problem(1152, 1296, 512)
+    for mm in ("float32", "bfloat16"):
+        bf16 = mm == "bfloat16"
+        pick = ISTA_KERNEL.plan(1152, 1296, 512, bf16)
+        plan = pick if pick.tier == "panel" else next(
+            p for p in plan_candidates(1152, 1296, 512, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+            if p.tier == "panel")
+        cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
+        with ISTA_KERNEL.forcing(plan):
+            eager = pnp_ista_blocks_fused(*wide[:3], cfg, alpha=wide[3])
+            graph = Captured(lambda: pnp_ista_blocks_fused(*wide[:3], cfg, alpha=wide[3]), "cuda")
+            graph()  # the warm-up, eager
+            ISTA_KERNEL.launches = 0
+            replayed = graph()  # captured, then replayed
+            again = graph()
+            torch.cuda.synchronize()
+        if graph.b1_launches != 1 or ISTA_KERNEL.launches != 2 or graph.b1_plan != plan:
+            raise AssertionError(f"{mm}: the graph holds {graph.b1_launches} launches of B1 ({graph.b1_plan}) and two "
+                                 f"replays counted {ISTA_KERNEL.launches}; expected 1 of {plan} and 2")
+        if not (torch.equal(replayed, eager) and torch.equal(again, eager)):
+            raise AssertionError(f"{mm}: B1's panel kernel replayed from a graph differs from the eager launch")
+        log(f"  nB 1152 {mm:9s} panel C{plan.cluster_size} R{plan.rows} ({'the pick' if plan == pick else 'forced'}): "
+            "replay equals the eager launch bit for bit; launches counted per replay 1")
+    del wide
     blocks, masks, D, alpha = problem(36, 36, 0, D_np)
 
     log(f"[scanned] the lrs_pnp preset's step: Solver.run_scanned({SCAN_STEPS}) against run({SCAN_STEPS}), "
@@ -2161,6 +2332,7 @@ def main() -> int:
         f"(limit {SOLVE_MATCH})")
     if not err < SOLVE_MATCH:
         raise AssertionError("the card's scene disagrees with the CPU's")
+    scene8 = default_scene(port, by_path, smi)
 
     log(f"[paths] inpaint_scene(variant='dip', tile_batch=4, n_iters=2) on the 72x72x128 scene, DIP fit capped at "
         f"{DIP_CAP}: solve_tiled(scan=False), the host-stepped outer loop, with replayed fits, against host-stepped "
@@ -2383,7 +2555,10 @@ def main() -> int:
         # the lrs_pnp step, host-stepped against device-resident; ms per DIP iteration
         "lrs_pnp_step": scanned["lrs_pnp_step"],
         "dip_iteration_ms": scanned["dip_iteration_ms"],
+        # the default eight-tile scene (nB 1152): each run's plan and launches by kernel
+        "default_scene": scene8,
     }]
+    kernels += panel_entries(tier_timing)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

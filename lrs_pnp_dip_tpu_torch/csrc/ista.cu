@@ -156,7 +156,8 @@
 //      (f32: a float4 column by all rows of x a thread over a run of rows of
 //      D, the runs' sums added in order; bf16: mma.sync with B through
 //      ldmatrix.trans or from the transpose, split over two halves of the
-//      warps by 16-row steps where the CTA has at most 16 column tiles);
+//      warps by 16-row steps where the CTA has at most 16 column tiles, each
+//      half's chain cut every 8 steps into a rounded f32 sum);
 //                                                         -- cluster.sync --
 //   4. the halo of 4 columns either side from the neighbours' g, the NLM on
 //      the CTA's columns, the new x in place.
@@ -1335,7 +1336,7 @@ __global__ void __launch_bounds__(stream_threads<kBf16>()) pnp_ista_stream(const
 
 constexpr int kColThreadsF32 = 2 * kThreads;  // f32: 16 warps
 constexpr int kColPairs = 4;                  // bf16 product 2: 16-wide column tiles sharing an A fragment
-constexpr int kColChunk = 8;                  // bf16 product 1: k steps per mma chain (see there)
+constexpr int kColChunk = 8;                  // bf16 products 1 and 2: k steps per mma chain (see there)
 constexpr int kColSplitSteps = 32;            // bf16 product 2: the fewest p steps it splits over (see there)
 
 // Byte offsets in dynamic shared memory.  ops/ista_cuda.py:column_smem_bytes
@@ -1945,13 +1946,37 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
 #pragma unroll
         for (int i = 0; i < kColPairs; ++i)
           if (j0 + span * i < nks) np = i + 1;
-        float acc[kColPairs][2][4];
+        // As in product 1, the mma accumulates kColChunk of this half's p
+        // steps at a time into part, and each chunk is added into acc with a
+        // rounded f32 add: over P / 16 steps uncut (81 at P 1296, about 40 a
+        // half) the tensor cores' truncating accumulation flipped bf16
+        // roundings of x about twice as often as reorderings of the plain
+        // loop's sums (scripts/witness_b1_bf16.py).  -DISTA_COL_NO_CUT builds
+        // the uncut chain, to time the cut against it
+        // (scripts/check_bf16_chains.py --cut).
+        float acc[kColPairs][2][4], part[kColPairs][2][4];
 #pragma unroll
         for (int i = 0; i < kColPairs; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int v = 0; v < 4; ++v) acc[i][h][v] = 0.f;
+            for (int v = 0; v < 4; ++v) acc[i][h][v] = part[i][h][v] = 0.f;
+        int steps = 0;  // this half's p steps so far
+        auto end_of_step = [&]() {
+#ifndef ISTA_COL_NO_CUT
+          if (++steps % kColChunk == 0) {
+#pragma unroll
+            for (int i = 0; i < kColPairs; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                  acc[i][h][v] += part[i][h][v];
+                  part[i][h][v] = 0.f;
+                }
+          }
+#endif
+        };
         if (np > 0) {
 #pragma unroll 1
           for (int ps = half; ps < nrt; ps += halves) {
@@ -1963,10 +1988,11 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
               if (i < np) {
                 uint32_t bf[4];
                 ldmatrix_x4_trans(bf, b_ptr + 16 * (j0 + span * i));
-                mma_bf16(acc[i][0], af, bf[0], bf[1]);
-                mma_bf16(acc[i][1], af, bf[2], bf[3]);
+                mma_bf16(part[i][0], af, bf[0], bf[1]);
+                mma_bf16(part[i][1], af, bf[2], bf[3]);
               }
             }
+            end_of_step();
           }
           const int ps0 = halves == 2 ? nrt + ((half - nrt) & 1) : nrt;  // this half's first step from L2
           if (ps0 < npt) {
@@ -2007,13 +2033,21 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
 #pragma unroll
               for (int i = 0; i < kColPairs; ++i) {
                 if (i < np) {
-                  mma_bf16(acc[i][0], af, b[i][0][0], b[i][0][1]);
-                  mma_bf16(acc[i][1], af, b[i][1][0], b[i][1][1]);
+                  mma_bf16(part[i][0], af, b[i][0][0], b[i][0][1]);
+                  mma_bf16(part[i][1], af, b[i][1][0], b[i][1][1]);
                 }
               }
+              end_of_step();
             }
           }
         }
+        // the last, partial chunk (all of the chain in the uncut build)
+#pragma unroll
+        for (int i = 0; i < kColPairs; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[i][h][v] += part[i][h][v];
         // the odd half's sums into s_half [R][seg], then the even half adds them
 #pragma unroll
         for (int i = 0; i < kColPairs; ++i) {
@@ -2077,10 +2111,14 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
   }
 }
 
+// The panel tier: pnp_ista_panel<false> (f32) and <true> (bf16).
+#include "ista_panel.cuh"
+
 // The kernels' slots below: 0 f32, 1 bf16 (slices of D resident); streamed:
 // 3 bf16, f32 in stages of 8 or 16 rows with tiles of 16 block rows (2, 6)
-// or 12 (7, 8); column: 4, 9 f32 with tiles of 12, 4 rows, 5 bf16.
-constexpr int kKernels = 10;
+// or 12 (7, 8); column: 4, 9 f32 with tiles of 12, 4 rows, 5 bf16; panel:
+// 10 f32, 11 bf16.
+constexpr int kKernels = 12;
 
 // The attributes already set on each kernel, so that they are set by the
 // first launch of a shape and a launch recorded into a CUDA graph after it
@@ -2151,6 +2189,22 @@ long long column_scratch_floats(int bf16, int P, int K, int Pr) {
   if (!column_copies_d(bf16, K, P, Pr)) return 0;
   const long long kp = column_rows_ld(bf16, K);
   return bf16 ? (P * kp + kp * round_up(P, 16)) / 2 : P * kp;
+}
+
+// Floats of device memory that a panel launch's stage images take.
+long long panel_scratch_floats(int cluster_size, int stages) {
+  return (long long)cluster_size * stages * kPanelStageBytes / 4;
+}
+
+template <bool kBf16>
+cudaError_t launch_panel(int slot, const PanelArgs& pa, int cluster_size, int nclusters, int smem,
+                         cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      configure(pnp_ista_panel<kBf16>, slot, cluster_size, nclusters, smem, stream, &cfg, &attr, kPanelThreads);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pnp_ista_panel<kBf16>, pa);
+  return err;
 }
 
 }  // namespace
@@ -2318,6 +2372,63 @@ int lrs_pnp_ista_column_launch(const float* y, const float* m, const float* d,
   else
     err = launch_column(pnp_ista_column_f32<4>, 9, ca, cluster_size, nclusters, smem, kColThreadsF32, s);
   return finish_launch(err);
+}
+
+// The panel kernels: the same arguments, R <= 64 rows per cluster, seg
+// columns of x per CTA (a multiple of 4, in bf16 of 16), `stages` stages of
+// each CTA's Pc rows of D (Pc / 16 rounded up in f32, Pc / 32 in bf16) and
+// `copy`: lrs_pnp_ista_panel_scratch_floats of device memory into which the
+// launch first lays out the stages' images (a second kernel before the loop
+// on the same stream).  K <= 512.
+int lrs_pnp_ista_panel_launch(const float* y, const float* m, const float* d,
+                              const float* alpha, float h_coef, float* out, void* copy,
+                              int nB, int P, int K, int n_iter, int bf16, int cluster_size,
+                              int nclusters, int R, int Pc, int seg, int stages, void* stream) {
+  const int S = panel_stage_rows(bf16);
+  if (copy == nullptr || R > kPanelRows || R < 1 || round_up(K, 16) > kPanelK || seg % (bf16 ? 16 : 4) != 0 ||
+      cluster_size * seg < K || cluster_size * seg > kPanelK || stages != (Pc + S - 1) / S ||
+      (cluster_size & (cluster_size - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = panel_scratch_floats(cluster_size, stages) * (bf16 ? 2 : 1);
+  const int blocks = (int)((n + kThreads - 1) / kThreads < 1024 ? (n + kThreads - 1) / kThreads : 1024);
+  if (bf16)
+    panel_images<<<blocks, kThreads, 0, s>>>(d, static_cast<__nv_bfloat16*>(copy), P, K, Pc, stages, cluster_size);
+  else
+    panel_images<<<blocks, kThreads, 0, s>>>(d, static_cast<float*>(copy), P, K, Pc, stages, cluster_size);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const PanelArgs pa = {{y, m, d, alpha, h_coef, out, nB, P, K, n_iter, R, Pc, seg}, copy, stages};
+  const int smem = make_panel_layout(bf16, seg).total;
+  err = bf16 ? launch_panel<true>(11, pa, cluster_size, nclusters, smem, s)
+             : launch_panel<false>(10, pa, cluster_size, nclusters, smem, s);
+  return finish_launch(err);
+}
+
+// Dynamic shared memory of a panel CTA with seg columns of x.
+int lrs_pnp_ista_panel_smem_bytes(int bf16, int seg) { return make_panel_layout(bf16, seg).total; }
+
+// Floats of device-memory scratch of a panel launch (its stage images).
+long long lrs_pnp_ista_panel_scratch_floats(int cluster_size, int stages) {
+  return panel_scratch_floats(cluster_size, stages);
+}
+
+// Clusters of cluster_size panel CTAs that the card keeps resident at the
+// panel's shared memory (seg columns of x), or minus the cudaError_t.
+int lrs_pnp_ista_panel_max_clusters(int bf16, int cluster_size, int seg) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int n = 0;
+  const int smem = make_panel_layout(bf16, seg).total;
+  cudaError_t err = bf16 ? configure(pnp_ista_panel<true>, 11, cluster_size, 1, smem, nullptr, &cfg, &attr,
+                                     kPanelThreads)
+                         : configure(pnp_ista_panel<false>, 10, cluster_size, 1, smem, nullptr, &cfg, &attr,
+                                     kPanelThreads);
+  if (err == cudaSuccess) {
+    err = bf16 ? cudaOccupancyMaxActiveClusters(&n, pnp_ista_panel<true>, &cfg)
+               : cudaOccupancyMaxActiveClusters(&n, pnp_ista_panel<false>, &cfg);
+  }
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 #ifdef ISTA_PROFILE

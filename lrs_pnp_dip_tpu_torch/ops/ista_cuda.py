@@ -7,13 +7,16 @@ rows for the whole loop, CTA c owns the slice ``D[p_c, :]`` and the columns
 ``k_c`` of x in step 3 (see the note in the source).  Three tiers take the
 shapes of the TPU kernel's range: ``"resident"`` (each slice of D in shared
 memory), ``"streamed"`` (the first rows of each slice resident, the rest
-read once per iteration through a ring of stages) and ``"column"`` (the
+read once per iteration through a ring of stages), ``"column"`` (the
 long-K tail: CTA c owns the columns ``k_c`` of D and x for all P, the
-products' partial pred summed through the cluster).  :func:`plan_ista`
+products' partial pred summed through the cluster) and ``"panel"`` (many
+rows: 64 per cluster, ``csrc/ista_panel.cuh``).  :func:`plan_ista`
 chooses the tier, C, R, the slices and the shared-memory bytes from (nB, P,
 K, operand type) in plain Python, so the tiling is testable without a card:
 of the tiers that take the shape, the one with the least predicted time,
-from constants fitted to the card's timings of every tier.
+from constants fitted to the card's timings of every tier.  A fourth tier, ``"panel"``, gives a
+cluster a panel of 64 block rows for launches with many rows (the slice of D
+streamed through a ring; bf16 on wgmma): two tilings, clusters of 8 and 16.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (into ``csrc/build/``, named by the
@@ -27,6 +30,7 @@ launch the card refuses (cluster size, shared memory) raises.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -91,10 +95,46 @@ _TPU_MIN_TILE = 8
 # per SM (cudaOccupancyMaxActiveClusters, scripts/probe_clusters.cu).  The
 # wrapper asks the card it runs on; these serve a plan made without one.
 H100_RESIDENT_CLUSTERS = {8: 15, 16: 7}
+# The panel kernels (csrc/ista_panel.cuh, pnp_ista_panel): a panel of at most
+# 64 block rows per cluster (the wgmma's m), K <= 512, the slice of D streamed
+# as stages of 16 rows (f32) or 32 (bf16) of 512 columns, 32 KB each, through
+# a ring of 2 or 3 slots; seg a multiple of 4 (f32) or 16 (bf16).  The tier
+# takes a launch only past one wave of the other tiers' largest row tile
+# (16 rows per cluster).
+_PANEL_ROWS = 64
+_PANEL_K = 512
+_PANEL_STAGE = {False: 16, True: 32}
+_PANEL_RING = {False: 2, True: 3}
+_PANEL_STAGE_BYTES = 32768
+_PANEL_SEG_ALIGN = {False: 4, True: 16}
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def panel_smem_bytes(bf16: bool, seg: int) -> int:
+    """Dynamic shared memory of one CTA of the panel kernels, as
+    ``make_panel_layout`` in csrc/ista_panel.cuh lays it out: the operand x
+    of 64 rows (f32 [K/4][65][4], bf16 [64][512]), the ring of stages, in
+    bf16 step 3's gradient segment after it (f32: in the ring's place), the
+    residual of two stages, in bf16 the two halves of pred, the carried x
+    of the CTA's columns, the rows' scalars, an mbarrier per slot and one
+    for the peers' columns of x.  The partial gradient takes x's place
+    (bf16: and the ring's) after the pass."""
+    x = _PANEL_ROWS * _PANEL_K * 2 if bf16 else (_PANEL_K // 4) * (_PANEL_ROWS + 1) * 16
+    ring = _PANEL_RING[bf16] * _PANEL_STAGE_BYTES
+    gseg = _round_up(_PANEL_ROWS * (seg + 2 * _HALO) * 4, 16) if bf16 else 0
+    res = 2 * _PANEL_STAGE[bf16] * _PANEL_ROWS * (2 if bf16 else 4)
+    pred = 2 * _PANEL_ROWS * 40 * 4 if bf16 else 0  # bf16: the warpgroups' halves of pred
+    return (x + ring + gseg + res + pred + _round_up(_PANEL_ROWS * seg * 4, 16) + 2 * _PANEL_ROWS * 4
+            + (_PANEL_RING[bf16] + 1) * 8)
+
+
+def panel_scratch_floats(cluster_size: int, stages: int) -> int:
+    """Device-memory scratch of a panel launch, in floats: the images of
+    every CTA's stages of D, 32 KB each."""
+    return cluster_size * stages * _PANEL_STAGE_BYTES // 4
 
 
 def tpu_vmem_bytes(P: int, K: int) -> int:
@@ -254,12 +294,12 @@ class IstaPlan:
     resident_rows: int  # rows of each slice kept in shared memory (column tier: of D[:, k_c], of all P)
     stage_rows: int  # rows of D per stage of the ring
     stages: int  # stages of the ring
-    tier: str = "resident"  # "resident", "streamed" (the ring) or "column" (columns of D per CTA)
+    tier: str = "resident"  # "resident", "streamed" (the ring), "column" (columns of D per CTA) or "panel"
 
     @property
     def streamed(self) -> bool:
         """Whether the launch takes one of the kernels that may stream D
-        (the streamed or the column tier)."""
+        (the streamed, the column or the panel tier)."""
         return self.tier != "resident"
 
     @property
@@ -276,6 +316,8 @@ class IstaPlan:
             return stream_scratch_floats(self.P, self.K, self.bf16, self.stages)
         if self.tier == "column":
             return column_scratch_floats(self.P, self.K, self.bf16, self.resident_rows)
+        if self.tier == "panel":
+            return panel_scratch_floats(self.cluster_size, self.stages)
         return 0
 
     @property
@@ -285,7 +327,8 @@ class IstaPlan:
         streamed rows once, each K floats of D, or kp values of its copy
         (``stream_copies_d``).  Column tier: each CTA's rows of ``D[:, k_c]``
         past its resident ones twice, once per product, its columns padded
-        to 4 floats (f32) or 16 values (bf16).  0 for the resident kernels."""
+        to 4 floats (f32) or 16 values (bf16).  Panel tier: every CTA's
+        stages, 32 KB each.  0 for the resident kernels."""
         K = self.K
         if self.tier == "streamed":
             rows = sum(max(0, b - a - self.resident_rows) for a, b in self.p_slices())
@@ -295,6 +338,8 @@ class IstaPlan:
         if self.tier == "column":
             cols = sum(_round_up(b - a, 16 if self.bf16 else 4) for a, b in self.k_segments())
             return 2 * self.streamed_rows * cols * (2 if self.bf16 else 4)
+        if self.tier == "panel":
+            return self.cluster_size * self.stages * _PANEL_STAGE_BYTES
         return 0
 
     @property
@@ -467,10 +512,47 @@ def _column_plan(nB, P, K, bf16, resident, smem_limit, reasons):
     return best[1] if best else None
 
 
+def _panel_plans(nB, P, K, bf16, resident, smem_limit, reasons):
+    """The panel tilings (many rows), one per cluster size the card keeps
+    resident, or [] (reasons appended): only for K <= 512 and past one wave
+    of 16-row clusters of the largest count the card keeps resident (nB >
+    240 on an H100).  CTA c owns the slice of P / C rows of D, streamed as
+    ``stages`` stages, and ``seg`` columns of x (K / C padded to 4 in f32,
+    16 in bf16); the rows spread over as few waves of panels of at most 64
+    as cover nB."""
+    if _round_up(K, 16) > _PANEL_K:
+        reasons.append(f"panel: K={K} is past its {_PANEL_K} columns")
+        return []
+    one_wave = _STREAM_ROWS * max(resident.values(), default=0)
+    if nB <= one_wave:
+        reasons.append(f"panel: nB={nB} fits one wave of 16-row clusters ({one_wave} rows)")
+        return []
+    plans = []
+    for C in (8, 16):
+        if resident.get(C, 0) < 1:
+            reasons.append(f"panel, cluster {C}: the card keeps no such cluster resident")
+            continue
+        seg = _round_up(-(-K // C), _PANEL_SEG_ALIGN[bf16])
+        smem = panel_smem_bytes(bf16, seg)
+        if smem > smem_limit:
+            reasons.append(f"panel, cluster {C}: {smem} B of shared memory (> {smem_limit})")
+            continue
+        slice_rows = -(-P // C)
+        rows, n_clusters = _spread(nB, _PANEL_ROWS, resident[C])
+        plans.append(IstaPlan(
+            nB=nB, P=P, K=K, bf16=bf16, cluster_size=C, rows=rows, n_clusters=n_clusters,
+            resident=resident[C], slice_rows=slice_rows, seg=seg, smem_bytes=smem, resident_rows=0,
+            stage_rows=_PANEL_STAGE[bf16], stages=-(-slice_rows // _PANEL_STAGE[bf16]), tier="panel",
+        ))
+    return plans
+
+
 def tile_rows(plan: IstaPlan) -> int:
     """Block rows of the register or mma tile each product runs on, R of
-    them real: 16 in bf16; in f32 11 (resident), 12 or 16 (streamed, 16
-    past 12 rows), 4 or 12 (column, 12 past 4 rows)."""
+    them real: 64 in the panel tier; 16 in bf16; in f32 11 (resident), 12 or
+    16 (streamed, 16 past 12 rows), 4 or 12 (column, 12 past 4 rows)."""
+    if plan.tier == "panel":
+        return _PANEL_ROWS
     if plan.bf16:
         return _BF16_ROWS
     if plan.tier == "streamed":
@@ -487,25 +569,46 @@ def iteration_counts(plan: IstaPlan) -> tuple:
     product 1 (f32: each warp an eighth of K; bf16: an mma's k of 16); the
     streamed kernel's consumer steps, one per stage of its slice and two to
     drain the pipeline; the column kernel's rounds of rows of D (64 a round
-    in f32, one per group of 8 lanes; 16 in bf16, an mma's k).  FMAs
-    as the tiles issue them, padding included: f32 resident product 1 by
-    lanes of 32 rows of the slice; f32 column product 1 by groups of 8 lanes
-    of 4 columns over 64 rows.  Exchanged: the R x K partial gradient
-    (resident, streamed) or the R x P partial prediction (column)."""
+    in f32, one per group of 8 lanes; 16 in bf16, an mma's k); the panel
+    kernels' stages of the slice.  FMAs as the tiles issue them, padding
+    included: f32 resident product 1 by lanes of 32 rows of the slice and
+    product 2 by passes of 512 columns (128 threads of 4 columns); f32
+    column product 1 by groups of 8 lanes of 4 columns over 64 rows; the
+    panel over 64 rows and whole stages (product 1 over K by float4 columns
+    in f32, by 16 in bf16; product 2 over all 512 columns of a stage).  Exchanged:
+    the R x K partial gradient (resident, streamed, panel) or the R x P
+    partial prediction (column); in the first, besides, ``_PEER_VALUES`` a
+    row for each of the C peers that step 3 pulls from."""
     t, P, K, R = tile_rows(plan), plan.P, plan.K, plan.rows
+    exchanged = R * (K + _PEER_VALUES * plan.cluster_size)
     sl, seg = plan.slice_rows, plan.seg
     l2 = plan.l2_bytes_per_iteration // plan.cluster_size
     if plan.tier == "resident":
         if plan.bf16:
-            return -(-K // 16), t * _round_up(K, 32) * 2 * _round_up(sl, 16), l2, R * K
-        return -(-K // _WARPS), t * K * (32 * -(-sl // 32) + sl), l2, R * K
+            return -(-K // 16), t * _round_up(K, 32) * 2 * _round_up(sl, 16), l2, exchanged
+        return -(-K // _WARPS), t * (K * 32 * -(-sl // 32) + sl * _round_up(K, 512)), l2, exchanged
     if plan.tier == "streamed":
         S = plan.stage_rows
-        return -(-sl // S) + 2, 2 * t * -(-sl // S) * S * (_round_up(K, 16) if plan.bf16 else K), l2, R * K
+        return -(-sl // S) + 2, 2 * t * -(-sl // S) * S * (_round_up(K, 16) if plan.bf16 else K), l2, exchanged
+    if plan.tier == "panel":
+        rows = t * plan.stages * plan.stage_rows
+        if plan.bf16:
+            return plan.stages, rows * (_round_up(K, 16) + _PANEL_K), l2, exchanged
+        return plan.stages, rows * (_round_up(K, 4) + _PANEL_K), l2, exchanged
     if plan.bf16:
         return -(-P // 16), 2 * t * _round_up(P, 16) * _round_up(seg, 16), l2, R * P
     return -(-P // 64), t * (_round_up(P, 64) * 32 * -(-seg // 32) + P * seg), l2, R * P
 
+
+# Step 3 of the resident, streamed and panel tiers pulls each CTA's columns
+# and a halo of 8 from every peer, in rounds whose latency does not shrink
+# with K: iteration_counts adds this many values a row for each peer to the
+# R x K exchanged.  12 is the least weight (of 4, 8, 12, 16, 20, 24 tried)
+# under which the fit below keeps every swept pick within 5% of the fastest
+# but the one known miss (test_cost_constants_are_the_fit_of_the_sweeps);
+# with the halo's 8 alone, nB 576 / P 1296 / K 256 in f32 stays resident,
+# 10% slower than the panel tier.
+_PEER_VALUES = 12
 
 # One wave's iteration of each tier and operand type takes a + b steps + c
 # FMAs + d bytes + e values (iteration_counts) microseconds: (a, b per step,
@@ -514,23 +617,27 @@ def iteration_counts(plan: IstaPlan) -> tuple:
 # (scripts/b1_tier_sweeps.jsonl) on an NVIDIA H100 80GB HBM3, 700.00 W; the
 # times are in PERF.md section 6, "B1 across its tiers".
 _COST_US = {
-    ("resident", False): (3.82, 0.05291, 3.486, 0.0, 0.399),
-    ("resident", True): (3.658, 0.06827, 0.5336, 0.0, 0.3622),
-    ("streamed", False): (1.301, 1.258, 5.686, 13.74, 0.4941),
-    ("streamed", True): (1.937, 0.8863, 0.38, 24.46, 0.4617),
-    ("column", False): (6.187, 0.219, 10.26, 5.098, 0.5214),
-    ("column", True): (5.351, 0.06954, 1.632, 39.05, 0.3336),
+    ("resident", False): (3.545, 0.0539, 3.426, 0.0, 0.339),
+    ("resident", True): (3.478, 0.07992, 0.5144, 0.0, 0.26),
+    ("streamed", False): (1.106, 1.248, 6.591, 9.357, 0.348),
+    ("streamed", True): (1.901, 0.8138, 0.7537, 22.39, 0.3783),
+    ("column", False): (6.158, 0.2205, 10.36, 4.347, 0.5105),
+    ("column", True): (5.37, 0.07029, 1.677, 39.95, 0.321),
+    ("panel", False): (8.419, 0.0, 7.071, 0.0, 0.2435),
+    ("panel", True): (7.63, 0.0, 1.278, 0.0, 0.1817),
 }
 # The largest relative error of each group's fit over those sweeps.
 _FIT_ERROR = {
-    ("resident", False): 0.162, ("resident", True): 0.135,
-    ("streamed", False): 0.134, ("streamed", True): 0.133,
-    ("column", False): 0.241, ("column", True): 0.173,
+    ("resident", False): 0.178, ("resident", True): 0.161,
+    ("streamed", False): 0.141, ("streamed", True): 0.145,
+    ("column", False): 0.241, ("column", True): 0.204,
+    ("panel", False): 0.059, ("panel", True): 0.133,
 }
 # The shapes (nB, P, K, operand types: f32, bf16) whose every candidate
 # those sweeps timed: the paths' shapes (chip_smoke.TIER_SHAPES), the short
 # launches of the card tests and of chip_smoke.py, the tier-named cases of
-# tests/test_torch_cuda.py and the test shapes whose pick the rule moves.
+# tests/test_torch_cuda.py, the test shapes whose pick the rule moves and
+# the panel tier's shapes of many rows.
 SWEPT_SHAPES = frozenset(
     (nB, P, K, bf16)
     for nB, P, K, types in (
@@ -545,14 +652,18 @@ SWEPT_SHAPES = frozenset(
         (144, 2704, 512, "fb"), (165, 48, 32, "f"), (166, 48, 32, "f"), (216, 36, 48, "fb"), (240, 48, 32, "fb"),
         (240, 1296, 1024, "f"), (240, 1600, 512, "fb"), (288, 1296, 512, "fb"), (324, 576, 512, "fb"),
         (576, 1296, 512, "fb"), (1296, 576, 512, "fb"), (2304, 1296, 512, "fb"),
+        # the panel tier's: the default scene's launch, and K 256 and 384 and
+        # P 2304 with many rows, so that its fit sees other widths
+        (1152, 1296, 512, "fb"), (400, 576, 384, "fb"), (576, 1296, 256, "fb"), (960, 2304, 512, "fb"),
     )
     for bf16 in (False, True)
     if "fb"[bf16] in types
 )
 # At a swept shape a later candidate of plan_candidates replaces an earlier
-# one only when it is predicted faster by more than this share: in those
-# sweeps three quarters of the candidates' medians moved by less between two
-# calls (2.7%), and the picks were held to the timings.  Elsewhere it must be
+# one only when it is predicted faster by more than this share: in the first
+# five sweeps three quarters of the candidates' medians moved by less between
+# two calls (2.7%; 3.1% over all nine), and the picks were held to the
+# timings.  Elsewhere it must be
 # predicted faster by more than the larger fit error of the two tiers' groups.
 TIE_MARGIN = 0.03
 
@@ -575,14 +686,16 @@ def plan_candidates(
 ) -> list:
     """Every tier's tiling that takes (nB, P, K, operand type), in the order
     resident (:func:`_resident_plan`), streamed (:func:`_streamed_plan`),
-    column (:func:`_column_plan`); the two streaming tiers only inside the
-    TPU kernel's range (:func:`in_tpu_range`).  Why a tier does not take the
-    shape is appended to ``reasons``."""
+    column (:func:`_column_plan`), panel (:func:`_panel_plans`: clusters of 8,
+    then of 16); the streaming tiers only inside the TPU kernel's range
+    (:func:`in_tpu_range`).  Why a tier does not take the shape is appended
+    to ``reasons``."""
     reasons = [] if reasons is None else reasons
     plans = [_resident_plan(nB, P, K, bf16, resident, smem_limit, reasons)]
     if in_tpu_range(P, K):
         plans += [_streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons),
                   _column_plan(nB, P, K, bf16, resident, smem_limit, reasons)]
+        plans += _panel_plans(nB, P, K, bf16, resident, smem_limit, reasons)
     elif plans[0] is None:
         reasons.append(
             f"past the TPU kernel's range: {tpu_vmem_bytes(P, K)} B of VMEM at its smallest tile "
@@ -624,9 +737,9 @@ def plan_ista(
     ``smem_limit`` bytes of shared memory, the most rows per cluster that
     fit beside it, then as few waves of ``resident`` clusters as cover nB,
     with the rows spread evenly over them), the streamed kernel
-    (:func:`_streamed_plan`) and the column kernel (:func:`_column_plan`):
-    between them every shape in the TPU kernel's range
-    (:func:`in_tpu_range`).  The plan is the one with the least predicted
+    (:func:`_streamed_plan`), the column kernel (:func:`_column_plan`) and,
+    for many rows, the panel kernels (:func:`_panel_plans`): between them
+    every shape in the TPU kernel's range (:func:`in_tpu_range`).  The plan is the one with the least predicted
     time (:func:`pick_plan`, :func:`predicted_ms`), a pure function of the
     shape and the card's resident clusters.  All run one CTA per SM, so the
     card keeps as many of their clusters resident.  Raises ValueError with
@@ -668,7 +781,17 @@ def plan_smem_bytes(plan: IstaPlan) -> int:
                                  plan.stage_rows)
     if plan.tier == "column":
         return column_smem_bytes(plan.bf16, plan.rows, plan.P, plan.seg, plan.resident_rows)
+    if plan.tier == "panel":
+        return panel_smem_bytes(plan.bf16, plan.seg)
     return smem_bytes(plan.bf16, plan.rows, plan.slice_rows, plan.K, plan.seg)
+
+
+def kernel_name(plan: IstaPlan) -> str:
+    """The CUDA kernel a launch of ``plan`` runs (csrc/ista.cu,
+    csrc/ista_panel.cuh)."""
+    kind = "bf16" if plan.bf16 else "f32"
+    return {"resident": f"pnp_ista_cluster_{kind}", "streamed": "pnp_ista_stream",
+            "column": f"pnp_ista_column_{kind}", "panel": f"pnp_ista_panel_{kind}"}[plan.tier]
 
 
 class FusedIstaKernel:
@@ -676,17 +799,20 @@ class FusedIstaKernel:
 
     ``launches`` counts the launches of the fused loop: one per call that
     reaches the kernel outside a CUDA graph capture, and the launches a
-    captured graph holds each time it is replayed (:meth:`replayed`).  A
-    call during a capture records a launch into the graph and adds to
-    ``captured`` instead.  ``last_plan`` is the tiling of the latest launch,
-    replays included."""
+    captured graph holds each time it is replayed (:meth:`replayed`).
+    ``launches_by_kernel`` counts the same launches by the CUDA kernel each
+    ran (:func:`kernel_name`).  A call during a capture records a launch
+    into the graph and adds to ``captured`` instead.  ``last_plan`` is the
+    tiling of the latest launch, replays included."""
 
     source = _CSRC / "ista.cu"
+    sources = (_CSRC / "ista.cu", _CSRC / "ista_panel.cuh")  # ista.cu includes the panel kernels
     build_dir = _CSRC / "build"
 
     def __init__(self, extra_flags: tuple = ()):
         self.flags = _NVCC_FLAGS + tuple(extra_flags)
         self.launches = 0
+        self.launches_by_kernel = collections.Counter()
         self.captured = 0
         self.last_plan: Optional[IstaPlan] = None
         self.build_log = ""
@@ -698,7 +824,7 @@ class FusedIstaKernel:
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(self.flags).encode()
+            b"".join(path.read_bytes() for path in self.sources) + " ".join(self.flags).encode()
         ).hexdigest()[:16]
         return self.build_dir / f"libista_{digest}.so"
 
@@ -729,6 +855,15 @@ class FusedIstaKernel:
         lib.lrs_pnp_ista_column_launch.argtypes = (
             [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 11 + [ptr])
         lib.lrs_pnp_ista_column_launch.restype = c_int
+        lib.lrs_pnp_ista_panel_launch.argtypes = (
+            [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 11 + [ptr])
+        lib.lrs_pnp_ista_panel_launch.restype = c_int
+        lib.lrs_pnp_ista_panel_smem_bytes.argtypes = [c_int] * 2
+        lib.lrs_pnp_ista_panel_smem_bytes.restype = c_int
+        lib.lrs_pnp_ista_panel_scratch_floats.argtypes = [c_int] * 2
+        lib.lrs_pnp_ista_panel_scratch_floats.restype = ctypes.c_longlong
+        lib.lrs_pnp_ista_panel_max_clusters.argtypes = [c_int] * 3
+        lib.lrs_pnp_ista_panel_max_clusters.restype = c_int
         lib.lrs_pnp_ista_smem_bytes.argtypes = [c_int] * 5
         lib.lrs_pnp_ista_smem_bytes.restype = c_int
         lib.lrs_pnp_ista_stream_smem_bytes.argtypes = [c_int] * 7
@@ -839,6 +974,9 @@ class FusedIstaKernel:
             elif plan.tier == "column":
                 laid_out = lib.lrs_pnp_ista_column_smem_bytes(int(bf16), plan.rows, P, plan.seg, plan.resident_rows)
                 scratch = lib.lrs_pnp_ista_column_scratch_floats(int(bf16), P, K, plan.resident_rows)
+            elif plan.tier == "panel":
+                laid_out = lib.lrs_pnp_ista_panel_smem_bytes(int(bf16), plan.seg)
+                scratch = lib.lrs_pnp_ista_panel_scratch_floats(plan.cluster_size, plan.stages)
             else:
                 laid_out = lib.lrs_pnp_ista_smem_bytes(int(bf16), plan.rows, plan.slice_rows, K, plan.seg)
                 scratch = 0
@@ -853,7 +991,8 @@ class FusedIstaKernel:
             tail = (nB, P, K, int(n_iter), int(bf16), plan.cluster_size, plan.n_clusters, plan.rows,
                     plan.slice_rows, plan.seg)
             # the streaming tiers first copy D into this scratch (stream_copies_d,
-            # column_copies_d); allocated inside a capture, it stays the graph's
+            # column_copies_d, the panel's stage images); allocated inside a
+            # capture, it stays the graph's
             copy = None
             if plan.scratch_floats:
                 copy = (torch.empty(2 * plan.scratch_floats, dtype=torch.bfloat16, device=device) if bf16
@@ -864,6 +1003,8 @@ class FusedIstaKernel:
                     *head, copy_ptr, *tail, plan.resident_rows, plan.stages, plan.stage_rows, stream)
             elif plan.tier == "column":
                 err = lib.lrs_pnp_ista_column_launch(*head, copy_ptr, *tail, plan.resident_rows, stream)
+            elif plan.tier == "panel":
+                err = lib.lrs_pnp_ista_panel_launch(*head, copy_ptr, *tail, plan.stages, stream)
             else:
                 err = lib.lrs_pnp_ista_launch(*head, *tail, stream)
         if err != 0:
@@ -875,6 +1016,7 @@ class FusedIstaKernel:
             self.captured += 1
         else:
             self.launches += 1
+            self.launches_by_kernel[kernel_name(plan)] += 1
         self.last_plan = plan
         return out
 
@@ -884,6 +1026,8 @@ class FusedIstaKernel:
         self.launches += n
         if n:
             self.last_plan = plan
+            if plan is not None:
+                self.launches_by_kernel[kernel_name(plan)] += n
 
 
 ISTA_KERNEL = FusedIstaKernel()

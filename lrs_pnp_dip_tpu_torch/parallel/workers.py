@@ -64,9 +64,11 @@ def svt_case(device: str, axis_sizes: dict, X: np.ndarray, tau: float) -> tuple:
     return whole, fully_replicate(piece, spec, mesh)
 
 
-def prox_case(device: str, axis_sizes: dict, blocks, mask, D, cfg, alpha=None) -> dict:
+def prox_case(device: str, axis_sizes: dict, blocks, mask, D, cfg, alpha=None, forced_plan=None) -> dict:
     """The sharded sparse prox (2-D when the mesh has ``band``): its whole
-    output and what this rank launched."""
+    output and what this rank launched; with ``forced_plan`` (an
+    ``IstaPlan`` of the whole launch) B1 takes that tiling for all the rows,
+    each rank its share of it."""
     from .collectives import make_sharded_sparse_prox, make_sharded_sparse_prox_2d
 
     mesh = make_mesh(axis_sizes, device)
@@ -75,7 +77,8 @@ def prox_case(device: str, axis_sizes: dict, blocks, mask, D, cfg, alpha=None) -
     prox = make(mesh, cfg)
     args = [torch.as_tensor(a, device=dev) for a in (blocks, mask, D)]
     a = None if alpha is None else torch.as_tensor(alpha, device=dev)
-    out, launches, nB, moved, seconds = _counted(dev, lambda: prox(*args, alpha=a))
+    with ISTA_KERNEL.forcing(*(() if forced_plan is None else (forced_plan,))):
+        out, launches, nB, moved, seconds = _counted(dev, lambda: prox(*args, alpha=a))
     return dict(out=out.cpu().numpy(), launches=launches, nB=nB, bytes=moved, seconds=seconds)
 
 

@@ -3,6 +3,7 @@
 beside its floors, and the times they cost.
 
     python scripts/check_bf16_chains.py [--reps 7] [--sweep]
+    python scripts/check_bf16_chains.py --cut [--reps 7]
 
 - The resident bf16 kernel (``pnp_ista_cluster_bf16``) sums product 1 over
   all of K in one mma chain per tile: 40 k steps at K 640, its widest.  At
@@ -23,6 +24,14 @@ beside its floors, and the times they cost.
   production build and a build with ``-DISTA_COL_NO_SPLIT`` (never split:
   one chain over all of P per tile) are timed in turns (production, no
   split, no split, production) and their errors measured the same way.
+- ``--cut`` (alone): the column bf16 kernel's product-2 chains, cut every 8
+  steps of 16 rows, against a build with ``-DISTA_COL_NO_CUT`` (the
+  uncut chains of the kernel before the cut), at every bf16 shape of
+  ``chip_smoke.TIER_SHAPES`` with the column tiling forced (random problems,
+  ``chip_smoke.tier_problem``, 100 iterations) and at the card case that the uncut chains failed (nB
+  72, P 1296, K 512, 12 iterations, ``tests/test_torch_cuda.py``'s problem):
+  timed in turns (cut, uncut, uncut, cut), max |delta| over max|ref| from the
+  bf16 plain loop beside the card test's limit.
 
 Prints one JSON line per row, with the card's name and power limit.
 """
@@ -62,6 +71,57 @@ def floors(blocks, masks, D, alpha, cfg) -> dict:
                 limit=max(1e-5, 4.0 * max(order, tc)))
 
 
+def cut_against_uncut(production, uncut, reps: int, emit) -> int:
+    """The ``--cut`` rows (module docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from lrs_pnp_dip_tpu_torch.ops import ista
+    from lrs_pnp_dip_tpu_torch.ops.ista import compute_alpha
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
+    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
+
+    uncut.build()
+    cases = [(nB, P, K, 100) for nB, P, K, types in chip_smoke.TIER_SHAPES if "bfloat16" in types]
+    cases.append((72, 1296, 512, 12))
+    for nB, P, K, n_iter in cases:
+        if n_iter == 100:
+            blocks, masks, D, alpha = chip_smoke.tier_problem(nB, P, K)
+        else:  # tests/test_torch_cuda.py:_problem, seed P + K
+            rng = np.random.default_rng(P + K)
+            D = rng.standard_normal((P, K)).astype(np.float32)
+            D /= np.linalg.norm(D, axis=0, keepdims=True)
+            Y = rng.standard_normal((nB, P)).astype(np.float32)
+            M = (rng.random((nB, P)) > 0.12).astype(np.float32)
+            M[1] = 0.0
+            blocks, masks, D = (torch.from_numpy(a).cuda() for a in (Y, M, D))
+            alpha = compute_alpha(D, masks, SparseProxConfig(n_iter=n_iter, matmul_dtype="bfloat16"))
+        cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype="bfloat16")
+        plans = [p for p in plan_candidates(nB, P, K, True, production.resident_clusters(True), _MAX_SMEM_BYTES)
+                 if p.tier == "column"]
+        if not plans:
+            continue
+        plan = plans[0]
+        f = floors(blocks, masks, D, alpha, cfg)
+        for label in ("cut", "uncut", "uncut", "cut"):
+            kernel = production if label == "cut" else uncut
+            ista.ISTA_KERNEL = kernel
+            try:
+                with kernel.forcing(plan):
+                    got = ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
+                    ms = chip_smoke.time_cuda(lambda: ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha),
+                                              reps=reps)
+            finally:
+                ista.ISTA_KERNEL = production
+            err = float((got - f["ref"]).abs().max()) / f["scale"]
+            emit(kernel="column bf16", build=label, nB=nB, P=P, K=K, n_iter=n_iter, cluster_size=plan.cluster_size,
+                 rows=plan.rows, seg=plan.seg, ms=ms, max_rel_err=err, max_abs_ref=f["scale"],
+                 order_floor=f["order_floor"], tensor_core_floor=f["tensor_core_floor"], limit=f["limit"],
+                 passes=err < f["limit"])
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -80,6 +140,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--sweep", action="store_true", help="more column shapes where the split is taken")
+    ap.add_argument("--cut", action="store_true", help="only the product-2 cut against the uncut build")
     args = ap.parse_args()
     resolve_device("cuda")
     smi = subprocess.run(
@@ -88,11 +149,14 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     production = ista.ISTA_KERNEL
     production.build()
-    no_split = FusedIstaKernel(extra_flags=("-DISTA_COL_NO_SPLIT",))
-    no_split.build()
 
     def emit(**row):
         print(json.dumps(dict(row, card=smi)), flush=True)
+
+    if args.cut:
+        return cut_against_uncut(production, FusedIstaKernel(extra_flags=("-DISTA_COL_NO_CUT",)), args.reps, emit)
+    no_split = FusedIstaKernel(extra_flags=("-DISTA_COL_NO_SPLIT",))
+    no_split.build()
 
     # the resident bf16 kernel at K 640
     D_np = load_trained_dictionary(512)

@@ -34,7 +34,7 @@ sys.path.insert(0, str(HERE))
 from lrs_pnp_dip_tpu_torch.ops import ista_cuda  # noqa: E402
 from lrs_pnp_dip_tpu_torch.ops.ista_cuda import IstaPlan, iteration_counts, pick_plan  # noqa: E402
 
-TIERS = ("resident", "streamed", "column")
+TIERS = ("resident", "streamed", "column", "panel")
 
 
 def load(paths) -> list:

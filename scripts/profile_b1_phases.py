@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where kernel B1's time goes inside one iteration, on the card.
 
-    python scripts/profile_b1_phases.py [--n-iter 100] [--cluster 8|16] [--stage-rows 8|16] [--shapes main|long|all]
+    python scripts/profile_b1_phases.py [--n-iter 100] [--cluster 8|16] [--stage-rows 8|16] [--shapes main|long|all|panel]
 
 Builds csrc/ista.cu a second time with -DISTA_PROFILE, which makes thread 0
 of CTA 0 add up the clock cycles of each phase of an iteration, and prints
@@ -13,7 +13,10 @@ from CUDA events, at nB 144:
 - block 40 (P 1600, K 512) and P 1296 / K 1024 in f32 and P 576 / K 1152 in
   bf16 on the streamed kernel (chip_smoke.wide_problem's random dictionaries);
 - with ``--shapes long`` (or ``all``, both lists) instead, each shape of
-  ``chip_smoke.LONG_K_SHAPES`` on the column kernel, with its operand types.
+  ``chip_smoke.LONG_K_SHAPES`` on the column kernel, with its operand types;
+- with ``--shapes panel`` instead, nB 1152 and 2304 at P 1296 / K 512 (random
+  problems, ``chip_smoke.tier_problem``), f32 and bf16, each panel tiling
+  (clusters of 8 and of 16) forced.
 
 ``--cluster`` keeps the plan to clusters of that size (the card is told to
 keep none of the other), and ``--stage-rows`` sets the f32 streamed kernel's
@@ -49,6 +52,10 @@ PHASES = {
         "product 1 (x_c D_c^T)", "cluster.sync 1", "sum partials, residual", "cluster.sync 2",
         "product 2 (r D_c), g", "cluster.sync 3", "halo, NLM",
     ),
+    "panel": (
+        "product 1, residual, fill", "G to shared memory", "product 2 (r_s D_s)", "stage waits",
+        "pull partials, g", "NLM", "push x", "cluster syncs",
+    ),
 }
 
 
@@ -67,7 +74,7 @@ def main() -> int:
     ap.add_argument("--cluster", type=int, choices=(8, 16), default=None)
     ap.add_argument("--stage-rows", type=int, choices=(8, 16), default=None)
     ap.add_argument("--nvcc-flag", action="append", default=[], help="a further flag for the build")
-    ap.add_argument("--shapes", choices=("main", "long", "all"), default="main")
+    ap.add_argument("--shapes", choices=("main", "long", "all", "panel"), default="main")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_b1_phases: no CUDA device is available", file=sys.stderr)
@@ -88,6 +95,13 @@ def main() -> int:
         for block, K, types in chip_smoke.LONG_K_SHAPES:
             problem = chip_smoke.wide_problem(block, K)
             cases += [(problem, mm) for mm in types]
+    cases = [(problem, mm, None) for problem, mm in cases]
+    if args.shapes == "panel":
+        for nB in (1152, 2304):
+            problem = chip_smoke.tier_problem(nB, 1296, 512)
+            for mm in ("float32", "bfloat16"):
+                cases += [(problem, mm, plan) for plan in ista_cuda.plan_candidates(nB, 1296, 512, mm == "bfloat16")
+                          if plan.tier == "panel"]
 
     kernel = FusedIstaKernel(extra_flags=("-DISTA_PROFILE", *args.nvcc_flag))
     lib = kernel.build()
@@ -107,9 +121,12 @@ def main() -> int:
     khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 1980000)
     ista.ISTA_KERNEL, production = kernel, ista.ISTA_KERNEL
     try:
-        for (blocks, masks, D, alpha), mm in cases:
+        for (blocks, masks, D, alpha), mm, forced in cases:
             cfg = SparseProxConfig(n_iter=args.n_iter, matmul_dtype=mm)
-            run = lambda: ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)  # noqa: E731
+
+            def run():
+                with kernel.forcing(*(() if forced is None else (forced,))):
+                    return ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
             run()
             torch.cuda.synchronize()
             lib.lrs_pnp_ista_phase_cycles(cycles)  # zero
@@ -119,7 +136,7 @@ def main() -> int:
                 raise RuntimeError("reading the phase counters failed")
             ms = chip_smoke.time_cuda(run)
             err = float((run() - ista.pnp_ista_blocks(blocks, masks, D, cfg, alpha=alpha)).abs().max())
-            plan = kernel.plan(blocks.shape[0], blocks.shape[1], D.shape[1], mm == "bfloat16")
+            plan = forced or kernel.plan(blocks.shape[0], blocks.shape[1], D.shape[1], mm == "bfloat16")
             print(f"P {plan.P}, K {plan.K}, {mm}: {ms:.4f} ms per call, max|delta| {err:.3e} from the plain "
                   f"loop; {chip_smoke.describe_plan(plan)}")
             names = PHASES[plan.tier]

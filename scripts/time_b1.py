@@ -2,7 +2,7 @@
 """Time kernel B1 through its wrapper on the card, for any tree of the port.
 
     python scripts/time_b1.py [--root DIR] [--label NAME] [--reps 7] [--shapes main|wide|long|all]
-    python scripts/time_b1.py --tiers [--library]
+    python scripts/time_b1.py --tiers [--library] [--shapes panel]
 
 Times ``pnp_ista_blocks_fused`` (100 iterations, trace4 alpha) as the median
 of ``--reps`` CUDA-event timings after 2 warm-ups, and prints one JSON line
@@ -29,15 +29,16 @@ versions of the kernel are timed by one command on one card:
     python scripts/time_b1.py --label change
 
 ``--tiers`` times every candidate tiling of ``plan_candidates`` (one per
-tier that takes the shape) at each shape of ``ista_cuda.SWEPT_SHAPES``
+tier that takes the shape, two of the panel tier) at each shape of ``ista_cuda.SWEPT_SHAPES``
 (random problems from ``chip_smoke.tier_problem``, 100 iterations): the
 candidates take turns, 2 warm-ups and ``--reps`` rounds each (``chip_smoke.time_candidates``), and each line gives the
 candidate's tiling, its median and all its times, its max |delta| from the
 plain loop, whether ``plan_ista`` picks it, its predicted time
 (``ista_cuda.predicted_ms``), the bound and, with ``--library``, the
-yardstick.  The plan's constants are fitted to these lines
-(``scripts/fit_b1_plan.py``); a shape added to ``SWEPT_SHAPES`` is swept
-before the sweeps are committed.
+yardstick.  With ``--shapes panel`` only the shapes where the panel tier
+is a candidate (many rows) are swept, every tier there in turns.  The
+plan's constants are fitted to these lines (``scripts/fit_b1_plan.py``); a
+shape added to ``SWEPT_SHAPES`` is swept before the sweeps are committed.
 """
 
 from __future__ import annotations
@@ -95,6 +96,8 @@ def _tiers(here, args, smi: str) -> int:
             mm = "bfloat16" if bf16 else "float32"
             cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
             plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+            if args.shapes == "panel" and not any(p.tier == "panel" for p in plans):
+                continue
             pick = ISTA_KERNEL.plan(nB, P, K, bf16)
             ref = pnp_ista_blocks(*problem[:3], cfg, alpha=problem[3])
             errs = []
@@ -121,7 +124,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--shapes", choices=("main", "wide", "long", "all"), default="main")
+    ap.add_argument("--shapes", choices=("main", "wide", "long", "all", "panel"), default="main",
+                    help="panel: with --tiers, only the shapes the panel tier takes")
     ap.add_argument("--library", action="store_true", help="also time the 200 torch.matmul yardstick")
     ap.add_argument("--tiers", action="store_true", help="time every tier's tiling at ista_cuda.SWEPT_SHAPES")
     args = ap.parse_args()

@@ -292,8 +292,9 @@ def test_svt_gram_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize(
     "nB,P,K,matmul_dtype",
-    [(40, 48, 32, "float32"), (13, 48, 32, "float32"), (144, 576, 1152, "float32"), (144, 576, 1152, "bfloat16")],
-    ids=["40", "13", "P576-K1152-f32", "P576-K1152-bf16"],
+    [(40, 48, 32, "float32"), (13, 48, 32, "float32"), (144, 576, 1152, "float32"), (144, 576, 1152, "bfloat16"),
+     (1152, 1296, 512, "float32"), (1152, 1296, 512, "bfloat16")],
+    ids=["40", "13", "P576-K1152-f32", "P576-K1152-bf16", "panel-f32", "panel-bf16"],
 )
 def test_sharded_prox_launches_once_per_rank_with_equal_bits(cuda, nB, P, K, matmul_dtype):
     """Two ranks on the one card over gloo ({patch: 2}): each launches B1
@@ -301,7 +302,9 @@ def test_sharded_prox_launches_once_per_rank_with_equal_bits(cuda, nB, P, K, mat
     gathered rows equal one launch over all rows bit for bit.  At P 576 / K
     1152 the plan puts 144 rows on the column tier's clusters of 8 and 72
     rows alone on its clusters of 16 (f32) or the streamed tier (bf16): each
-    rank launches its share of the whole's tiling (``shares_of``)."""
+    rank launches its share of the whole's tiling (``shares_of``).  At nB
+    1152 / P 1296 / K 512 each rank's 576 rows take a share of the whole's
+    tiling, forced to the panel tier's clusters of 8."""
     from lrs_pnp_dip_tpu_torch.ops import sparse_prox
     from lrs_pnp_dip_tpu_torch.parallel.launch import spawn
     from lrs_pnp_dip_tpu_torch.parallel.workers import run_cases
@@ -314,8 +317,14 @@ def test_sharded_prox_launches_once_per_rank_with_equal_bits(cuda, nB, P, K, mat
         whole, alone = ISTA_KERNEL.plan(nB, P, K, bf16), ISTA_KERNEL.plan(nB // 2, P, K, bf16)
         assert whole.tier == "column" and (alone.tier, alone.cluster_size) != ("column", whole.cluster_size)
     case = dict(axis_sizes={"patch": 2}, blocks=Y.cpu().numpy(), mask=M.cpu().numpy(), D=D.cpu().numpy(), cfg=cfg)
+    forced = ()
+    if nB == 1152:
+        forced = (_candidate(nB, P, K, matmul_dtype == "bfloat16", "panel"),)
+        assert forced[0].cluster_size == 8
+        case["forced_plan"] = forced[0]
     ranks = spawn(run_cases, 2, args=("cuda", [("prox_case", case)]), device="cuda")
-    ref = sparse_prox(Y, M, D, cfg).cpu().numpy()
+    with ISTA_KERNEL.forcing(*forced):
+        ref = sparse_prox(Y, M, D, cfg).cpu().numpy()
     for (got,) in ranks:
         assert (got["launches"], got["nB"]) == (1, -(-nB // 2))
         np.testing.assert_array_equal(got["out"], ref)
@@ -536,20 +545,14 @@ TIER_SHAPES = [
         (144, 1296, 512, "fb"), (72, 1296, 512, "fb"), (288, 1296, 512, "fb"), (576, 1296, 512, "fb"),
         (2304, 1296, 512, "fb"), (324, 576, 512, "fb"), (1296, 576, 512, "fb"), (132, 1600, 512, "fb"),
         (144, 2304, 512, "fb"), (144, 2704, 512, "fb"), (144, 1296, 1024, "fb"), (144, 576, 1152, "fb"),
-        (144, 1296, 1152, "b"),
+        (144, 1296, 1152, "b"), (1152, 1296, 512, "fb"),
     )
     for mm in (("float32",) if "f" in types else ()) + (("bfloat16",) if "b" in types else ())
 ]
 
 
 # Every candidate at 12 iterations too, at nB 72 (one rank's share of the main
-# shape under {patch: 2}).  In bf16 the column tier misses there: its output
-# leaves the plain loop's in one jump at iteration 6 in one row, by 1.57e-5
-# of max|ref| (one flipped bf16 rounding), where none of 32 orders of the
-# plain loop's sums flips a rounding that far (PERF.md section 6;
-# scripts/witness_b1_bf16.py).  The plan never picks that tier at this
-# shape; the failure stands until the column kernel's sums flip no more
-# often than the plain loop's (ROADMAP.md, C9).
+# shape under {patch: 2}).
 CANDIDATE_CASES = [shape + (100,) for shape in TIER_SHAPES] + [
     (72, 1296, 512, "float32", 12), (72, 1296, 512, "bfloat16", 12)]
 
@@ -729,6 +732,73 @@ def test_column_kernel_matches_plain(cuda, nB, P, K, matmul_dtype):
     _assert_bf16_tracks(got, ref, f32_ref, floor)
     f32_gap = float((pnp_ista_blocks_fused(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha) - ref).abs().max())
     assert f32_gap >= max(1e-5 * float(ref.abs().max()), 4.0 * floor)
+
+
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nB,cluster_size", [(2304, 8), (2304, 16), (1153, 8), (1153, 16)],
+                         ids=["nB2304-C8", "nB2304-C16", "nB1153-C8", "nB1153-C16"])
+def test_panel_kernel_matches_plain(cuda, nB, cluster_size, matmul_dtype):
+    """The panel tier's tilings at P 1296 / K 512, 12 iterations: nB 2304
+    (45 clusters of 52 rows at C 8) and a ragged nB 1153, whose last panel
+    is partly masked: against the plain loop at the limits of the module
+    docstring, two launches equal, a fully missing block stays 0.  A launch
+    through the library with an output one panel longer, filled with NaN,
+    leaves the rows past nB untouched and gives the wrapper's bits."""
+    import ctypes
+
+    bf16 = matmul_dtype == "bfloat16"
+    Y, M, D = _problem(cuda, nB, P=1296, K=512, seed=nB + cluster_size)
+    cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
+    alpha = compute_alpha(D, M, cfg)
+    plan = next(p for p in plan_candidates(nB, 1296, 512, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+                if p.tier == "panel" and p.cluster_size == cluster_size)
+    assert plan.rows <= 64 and plan.n_clusters * plan.rows >= nB
+    with ISTA_KERNEL.forcing(plan):
+        got = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+        torch.matmul(Y, D)  # other work in between
+        again = pnp_ista_blocks_fused(Y, M, D, cfg, alpha=alpha)
+        torch.cuda.synchronize()
+        assert ISTA_KERNEL.last_plan == plan and torch.equal(got, again)
+    ref = pnp_ista_blocks(Y, M, D, cfg, alpha=alpha)
+    if bf16:
+        floor = max(_order_sensitivity(Y, M, D, cfg, ref, alpha), _tensor_core_sensitivity(Y, M, D, cfg, ref, alpha))
+        _assert_bf16_tracks(got, ref, pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=12), alpha=alpha), floor)
+    else:
+        _assert_f32_tracks(got, ref)
+    assert torch.all(got[1] == 0.0)
+    lib = ISTA_KERNEL.build()
+    out = torch.full((nB + 64, 512), float("nan"), device=cuda)
+    copy = torch.empty(plan.scratch_floats, device=cuda)
+    h_coef = float(cfg.h_scale * cfg.lambda_ista)
+    err = lib.lrs_pnp_ista_panel_launch(
+        Y.data_ptr(), M.data_ptr(), D.data_ptr(), alpha.data_ptr(), h_coef, out.data_ptr(), copy.data_ptr(),
+        nB, 1296, 512, cfg.n_iter, int(bf16), plan.cluster_size, plan.n_clusters, plan.rows, plan.slice_rows,
+        plan.seg, plan.stages, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.isnan(out[nB:]).all() and torch.equal(out[:nB], got)
+
+
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_panel_kernel_replayed_from_a_graph(cuda, matmul_dtype):
+    """The panel tier (nB 1152, P 1296, K 512: the default scene's launch)
+    replayed from a graph gives its eager bits; the capture counts no
+    launch, each of the two replays one of the panel kernel."""
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import kernel_name
+    from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
+
+    bf16 = matmul_dtype == "bfloat16"
+    Y, M, D = _problem(cuda, 1152, P=1296, K=512, seed=1152)
+    cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
+    plan = _candidate(1152, 1296, 512, bf16, "panel")
+    with ISTA_KERNEL.forcing(plan):
+        eager = pnp_ista_blocks_fused(Y, M, D, cfg)
+        graph = Captured(lambda: pnp_ista_blocks_fused(Y, M, D, cfg), cuda)
+        graph()
+        before = ISTA_KERNEL.launches_by_kernel[kernel_name(plan)]
+        assert torch.equal(graph(), eager) and torch.equal(graph(), eager)
+    assert graph.b1_launches == 1 and graph.b1_plan == plan
+    assert ISTA_KERNEL.launches_by_kernel[kernel_name(plan)] == before + 2
 
 
 def test_streamed_kernel_replayed_from_a_graph(cuda):

@@ -282,7 +282,8 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
     assert [k for a, b in plan.k_segments() for k in range(a, b)] == list(range(K))
     assert all(b - a <= plan.slice_rows for a, b in plan.p_slices())
     assert plan.seg % 4 == 0 and all(a % 4 == 0 for a, b in plan.k_segments() if b > a)
-    assert plan.rows <= (16 if bf16 or plan.tier == "streamed" else 12 if plan.tier == "column" else 11)
+    assert plan.rows <= (64 if plan.tier == "panel" else 16 if bf16 or plan.tier == "streamed"
+                         else 12 if plan.tier == "column" else 11)
     assert plan.smem_bytes <= MAX_SMEM
     assert 0 <= plan.resident_rows <= (P if plan.tier == "column" else plan.slice_rows)
     if plan.tier == "streamed":
@@ -325,6 +326,15 @@ def test_plan_covers_every_row_and_column_once(nB, P, K, bf16):
                 assert reasons and all(r.startswith("streamed") for r in reasons)
             else:
                 assert predicted_ms(plan) < (1.0 - TIE_MARGIN) * predicted_ms(streamed)
+    elif plan.tier == "panel":
+        # 64-row panels past one wave of 16-row clusters, K <= 512, each
+        # CTA's slice streamed in stages of 16 (f32) or 32 (bf16) rows from
+        # images of 32 KB that the launch lays out
+        assert nB > 16 * max(H100_RESIDENT_CLUSTERS.values()) and K <= 512
+        assert plan.stage_rows == (32 if bf16 else 16) and plan.resident_rows == 0
+        assert plan.stages == -(-plan.slice_rows // plan.stage_rows) and plan.seg % (16 if bf16 else 4) == 0
+        assert plan.scratch_floats == plan.cluster_size * plan.stages * 8192
+        assert plan.smem_bytes == ista_cuda.panel_smem_bytes(bf16, plan.seg)
     else:
         assert plan.tier == "resident"
         assert plan.resident_rows == plan.slice_rows and plan.scratch_floats == 0
@@ -541,7 +551,13 @@ def _column_step(plan, x, Ym, M, D, ia, nih, rnd):
             groups = [torch.arange(P)]
         s = torch.zeros((x.shape[0], b - a))
         for rows in groups:
-            s = s + resid[:, rows] @ rnd(D[rows, a:b])
+            if plan.bf16:  # each half's mma chains cut every 8 steps of 16 rows
+                part = torch.zeros_like(s)
+                for c in range(0, len(rows), 128):
+                    part = part + resid[:, rows[c:c + 128]] @ rnd(D[rows[c:c + 128], a:b])
+                s = s + part
+            else:
+                s = s + resid[:, rows] @ rnd(D[rows, a:b])
         g[:, a:b] = x[:, a:b] + s * ia[:, None]
     x_new = torch.zeros_like(x)
     for a, b in segments:
@@ -551,7 +567,55 @@ def _column_step(plan, x, Ym, M, D, ia, nih, rnd):
     return x_new
 
 
-_STEPS = {"resident": _resident_step, "streamed": _streamed_step, "column": _column_step}
+def _panel_product1(x, Ds, bf16):
+    """pred = x Ds^T as the panel kernels sum it.  f32: eight shares of K,
+    share s the float4 columns q with q % 8 == s, each share's columns in
+    order, then the shares added by the butterfly (xor 1, 2, 4); bf16: the
+    two warpgroups' wgmma chains over the halves of the k steps of 16, their
+    sums added."""
+    K = x.shape[1]
+    if bf16:
+        c = 16 * -(-K // 32)  # the two warpgroups' halves of the k steps of 16
+        return x[:, :c] @ Ds[:, :c].T + x[:, c:] @ Ds[:, c:].T
+    shares = []
+    for sh in range(8):
+        acc = torch.zeros((x.shape[0], Ds.shape[0]))
+        for q in range(sh, -(-K // 4), 8):
+            for k in range(4 * q, min(K, 4 * q + 4)):
+                acc = acc + x[:, k:k + 1] * Ds[None, :, k]
+        shares.append(acc)
+    s = shares
+    return ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]))
+
+
+def _panel_step(plan, x, Ym, M, D, ia, nih, rnd):
+    """One iteration of the panel kernels on the rows of one cluster (a
+    panel): per CTA slice, stage by stage (``stage_rows`` rows, the last
+    stages padded with zero rows of D), product 1 of the stage in the
+    kernel's order (_panel_product1), its residual (bf16: rounded) and its
+    product 2 added into the slice's partial gradient (f32: row by row of
+    the stage; bf16: the stage's wgmma steps, not cut); then step 3, the
+    partials summed in ring order from each CTA's successor."""
+    S = plan.stage_rows
+    partial = []
+    for pa, pb in plan.p_slices():
+        g = torch.zeros_like(x)
+        for p in range(pa, pa + plan.stages * S, S):
+            rows = slice(p, min(pb, p + S))
+            if rows.stop <= rows.start:
+                continue  # zero rows of D: nothing added
+            Ds = rnd(D[rows])
+            resid = rnd(Ym[:, rows] - M[:, rows] * _panel_product1(rnd(x), Ds, plan.bf16))
+            if plan.bf16:
+                g = g + resid @ Ds
+            else:
+                for j in range(Ds.shape[0]):
+                    g = g + resid[:, j:j + 1] * Ds[j]
+        partial.append(g)
+    return _reduce_and_denoise(plan, x, partial, ia, nih)
+
+
+_STEPS = {"resident": _resident_step, "streamed": _streamed_step, "column": _column_step, "panel": _panel_step}
 
 
 def _emulate_plan(plan, blocks, masks, D, cfg, alpha):
@@ -699,7 +763,8 @@ def test_column_emulation_matches_pallas(bf16):
 # shape, the auto-dictionary's, chip_smoke.WIDE_SHAPES, nB 240, 2304 and 13;
 # since the plan picks the least predicted time, P 1296 / K 1024 in f32 and
 # P 576 / K 1152 in both types take the column tier, and block 40 at nB 240
-# in bf16 the streamed tier (one wave of clusters of 8 against three).
+# in bf16 the streamed tier (one wave of clusters of 8 against three); since
+# the panel tier, nB 2304 takes 3 waves of 64-row panels in clusters of 8.
 FIXED_PLANS = {
     (144, 1296, 512, False): ("resident", 16, 11, 14, 81, 32, 225056, 81, 0, 0),
     (144, 1296, 512, True): ("resident", 8, 10, 15, 162, 64, 231616, 162, 0, 0),
@@ -719,8 +784,8 @@ FIXED_PLANS = {
     (240, 1600, 512, True): ("streamed", 8, 16, 15, 200, 64, 225968, 128, 16, 3),
     (240, 1296, 1024, False): ("streamed", 8, 16, 15, 162, 128, 231344, 8, 8, 3),
     (240, 1296, 1024, True): ("streamed", 8, 16, 15, 162, 128, 199600, 16, 16, 3),
-    (2304, 1296, 512, False): ("resident", 16, 11, 210, 81, 32, 225056, 81, 0, 0),
-    (2304, 1296, 512, True): ("resident", 8, 10, 231, 162, 64, 231616, 162, 0, 0),
+    (2304, 1296, 512, False): ("panel", 8, 52, 45, 162, 64, 223768, 0, 16, 11),
+    (2304, 1296, 512, True): ("panel", 8, 52, 45, 162, 64, 227872, 0, 32, 6),
     (13, 1296, 512, False): ("resident", 16, 2, 7, 81, 32, 199424, 81, 0, 0),
     (13, 1296, 512, True): ("resident", 8, 1, 13, 162, 64, 208288, 162, 0, 0),
 }
@@ -800,22 +865,26 @@ def test_plan_tiers_at_the_streamed_shapes():
 # chip_smoke.TIER_SHAPES -> (the tiers of plan_candidates, in order; the
 # pick of plan_ista on an H100 as (tier, C, R, waves)).  The sweeps of
 # scripts/time_b1.py --tiers timed every candidate; the pick was within 5% of
-# the fastest in every call (PERF.md section 6, "B1 across its tiers").
+# the fastest in every call (PERF.md section 6, "B1 across its tiers").  Past
+# 240 rows the panel tier offers clusters of 8 and of 16; it takes nB 576,
+# 1152 and 2304 at P 1296 in both types and nB 1296 at P 576 in bf16.
 TIER_PICKS = {
     (144, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 2)),
     (144, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 10, 1)),
     (72, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 1)),
     (72, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 5, 1)),
-    (288, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 4)),
-    (288, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 10, 2)),
-    (576, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 8)),
-    (576, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 10, 4)),
-    (2304, 1296, 512, False): (("resident", "streamed", "column"), ("resident", 16, 11, 30)),
-    (2304, 1296, 512, True): (("resident", "streamed", "column"), ("resident", 8, 10, 16)),
-    (324, 576, 512, False): (("resident", "streamed", "column"), ("resident", 8, 11, 2)),
-    (324, 576, 512, True): (("resident", "streamed", "column"), ("resident", 8, 11, 2)),
-    (1296, 576, 512, False): (("resident", "streamed", "column"), ("resident", 8, 11, 8)),
-    (1296, 576, 512, True): (("resident", "streamed", "column"), ("resident", 8, 15, 6)),
+    (288, 1296, 512, False): (("resident", "streamed", "column", "panel", "panel"), ("resident", 16, 11, 4)),
+    (288, 1296, 512, True): (("resident", "streamed", "column", "panel", "panel"), ("resident", 8, 10, 2)),
+    (576, 1296, 512, False): (("resident", "streamed", "column", "panel", "panel"), ("panel", 8, 39, 1)),
+    (576, 1296, 512, True): (("resident", "streamed", "column", "panel", "panel"), ("panel", 8, 39, 1)),
+    (1152, 1296, 512, False): (("resident", "streamed", "column", "panel", "panel"), ("panel", 16, 55, 3)),
+    (1152, 1296, 512, True): (("resident", "streamed", "column", "panel", "panel"), ("panel", 8, 39, 2)),
+    (2304, 1296, 512, False): (("resident", "streamed", "column", "panel", "panel"), ("panel", 8, 52, 3)),
+    (2304, 1296, 512, True): (("resident", "streamed", "column", "panel", "panel"), ("panel", 8, 52, 3)),
+    (324, 576, 512, False): (("resident", "streamed", "column", "panel", "panel"), ("resident", 8, 11, 2)),
+    (324, 576, 512, True): (("resident", "streamed", "column", "panel", "panel"), ("resident", 8, 11, 2)),
+    (1296, 576, 512, False): (("resident", "streamed", "column", "panel", "panel"), ("resident", 8, 11, 8)),
+    (1296, 576, 512, True): (("resident", "streamed", "column", "panel", "panel"), ("panel", 8, 44, 2)),
     (132, 1600, 512, False): (("streamed", "column"), ("streamed", 8, 9, 1)),
     (132, 1600, 512, True): (("resident", "streamed", "column"), ("resident", 16, 10, 2)),
     (144, 2304, 512, False): (("streamed", "column"), ("streamed", 8, 10, 1)),
@@ -1050,3 +1119,132 @@ def test_loop_without_a_group_is_the_loop_before_the_hook(alpha_mode):
             v = u / (torch.linalg.norm(u, dim=1, keepdim=True) + 1e-30)
         before = torch.sum(v * ((M_t * (v @ D_t.T)) @ D_t), dim=1)
     assert torch.equal(tista.compute_alpha(D_t, M_t, cfg), torch.clamp(before, min=1e-12))
+
+
+# ---------------------------------------------------------------------------
+# Kernel B1's panel tier (csrc/ista_panel.cuh): many rows, 64 per cluster
+
+
+def _panels(nB, P, K, bf16, resident=H100_RESIDENT_CLUSTERS, smem_limit=MAX_SMEM, reasons=None):
+    return [p for p in plan_candidates(nB, P, K, bf16, resident, smem_limit, reasons) if p.tier == "panel"]
+
+
+def test_panel_tilings_at_many_rows():
+    """nB 2304, P 1296, K 512 on an H100: the panel tier offers clusters of
+    8 (45 clusters of 52 rows, 3 waves of 15) and of 16 (42 of 55, 6 waves
+    of 7), after the other tiers; each CTA streams its 162 (81) rows of D as
+    stages of 16 rows in f32, 32 in bf16, each stage an image of 32 KB in
+    device memory, once per iteration; each CTA owns 64 (32) columns of x."""
+    got = {}
+    for bf16 in (False, True):
+        assert [p.tier for p in plan_candidates(2304, 1296, 512, bf16)][-2:] == ["panel", "panel"]
+        for p in _panels(2304, 1296, 512, bf16):
+            got[bf16, p.cluster_size] = (p.rows, p.n_clusters, p.waves, p.slice_rows, p.seg, p.stage_rows, p.stages,
+                                         p.smem_bytes, p.resident_rows)
+            assert p.scratch_floats == p.cluster_size * p.stages * 8192 == ista_cuda.panel_scratch_floats(
+                p.cluster_size, p.stages)
+            assert p.l2_bytes_per_iteration == 4 * p.scratch_floats and tile_rows(p) == 64 and p.streamed
+            assert p.smem_bytes == ista_cuda.panel_smem_bytes(bf16, p.seg) == plan_smem_bytes(p) <= MAX_SMEM
+            assert ista_cuda.kernel_name(p) == f"pnp_ista_panel_{'bf16' if bf16 else 'f32'}"
+    assert got == {
+        (False, 8): (52, 45, 3, 162, 64, 16, 11, 223768, 0),
+        (False, 16): (55, 42, 6, 81, 32, 16, 6, 215576, 0),
+        (True, 8): (52, 45, 3, 162, 64, 32, 6, 227872, 0),
+        (True, 16): (55, 42, 6, 81, 32, 32, 3, 211488, 0),
+    }
+
+
+def test_panel_waves_follow_the_resident_clusters():
+    """The panels spread the rows over as few waves of at most 64 rows as
+    cover nB, for the clusters the card keeps resident: nB 1152 takes 2
+    waves of 15 clusters of 8 (39 rows each) or 3 of 7 clusters of 16 (55);
+    a card that keeps 16 clusters of 8 and 8 of 16 takes 1152 rows in 2
+    waves of 36 rows a cluster, or 3 of 48."""
+    got = [(p.cluster_size, p.rows, p.n_clusters, p.waves) for p in _panels(1152, 1296, 512, False)]
+    assert got == [(8, 39, 30, 2), (16, 55, 21, 3)]
+    other = _panels(1152, 1296, 512, False, resident={8: 16, 16: 8})
+    assert [(p.rows, p.n_clusters, p.waves) for p in other] == [(36, 32, 2), (48, 24, 3)]
+    for plan in _panels(1153, 1296, 512, True):
+        assert [r for a, b in plan.row_chunks() for r in range(a, b)] == list(range(1153))
+        assert plan.row_chunks()[-1][1] - plan.row_chunks()[-1][0] < plan.rows <= 64  # the last panel partly masked
+
+
+@pytest.mark.parametrize(
+    "nB,P,K,bf16,resident,smem_limit,reason",
+    [
+        (240, 1296, 512, False, H100_RESIDENT_CLUSTERS, MAX_SMEM,
+         r"panel: nB=240 fits one wave of 16-row clusters \(240 rows\)"),
+        (2304, 1296, 640, True, H100_RESIDENT_CLUSTERS, MAX_SMEM, "panel: K=640 is past its 512 columns"),
+        (2304, 576, 1152, False, H100_RESIDENT_CLUSTERS, MAX_SMEM, "panel: K=1152 is past its 512 columns"),
+        (2304, 1296, 512, False, {8: 15, 16: 0}, MAX_SMEM, "panel, cluster 16: the card keeps no such cluster"),
+        (2304, 1296, 512, False, H100_RESIDENT_CLUSTERS, 220000,
+         r"panel, cluster 8: 223768 B of shared memory \(> 220000\)"),
+    ],
+    ids=["one-wave", "bf16-K640", "K1152", "no-clusters-of-16", "shared-memory"],
+)
+def test_panel_refuses_with_the_reason(nB, P, K, bf16, resident, smem_limit, reason):
+    """Where the panel tier offers no tiling (or not every cluster size) the
+    reasons say why: a launch that fits one wave of the other tiers' 16-row
+    clusters, K past 512, a cluster size the card does not keep, shared
+    memory."""
+    import re
+
+    reasons = []
+    panels = _panels(nB, P, K, bf16, resident, smem_limit, reasons)
+    assert any(re.match(reason, r) for r in reasons), reasons
+    if reason.startswith("panel, cluster"):
+        assert len(panels) == 1
+    else:
+        assert panels == []
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_panel_share_plan(bf16):
+    """Under {patch: 2} each rank launches its 576 of 1152 rows as a share
+    of the whole launch's panel tiling: the same clusters, slices, segments
+    and stages, at most the whole's rows per cluster, over 64-row tiles."""
+    for whole in _panels(1152, 1296, 512, bf16):
+        share = share_plan(whole, 576)
+        same = ("tier", "cluster_size", "slice_rows", "seg", "stage_rows", "stages", "smem_bytes", "bf16")
+        assert all(getattr(share, f) == getattr(whole, f) for f in same)
+        assert share.rows <= whole.rows and tile_rows(share) == 64 and share.scratch_floats == whole.scratch_floats
+        assert [r for a, b in share.row_chunks() for r in range(a, b)] == list(range(576))
+
+
+# (nB, P, K, resident clusters, C): two panels of 20 rows in clusters of 8
+# (each CTA 13 rows of D, one stage); one panel of 41 of 64 rows in a
+# cluster of 16 with K not a multiple of 4; P 7 under clusters of 8 (the
+# eighth CTA owns no row of D) in two panels of 35.  A card that keeps 2
+# clusters of 8 resident: the panel tier takes nB past 32.
+PANEL_CASES = [(40, 100, 64, 8), (41, 48, 30, 16), (70, 7, 20, 8)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nB,P,K,C", PANEL_CASES, ids=["C8", "C16-K30", "P7"])
+def test_panel_emulation_matches_pallas(nB, P, K, C, bf16):
+    """The panel kernels' order of sums (_panel_step: the P split, each
+    stage's product 1 in eight shares added by a butterfly in f32 or in
+    two wgmma chains over the halves of K in bf16, product 2 into the slice's partial
+    gradient, the partials summed in ring order) against the TPU kernel in
+    interpret mode and the JAX package's XLA loop, 10 iterations, at the
+    module's f32 tolerance (rtol 1e-4 / atol 1e-6); in bf16 the port's plain
+    loop at it and the emulation within BF16_MATCH of max|ref|, as for the
+    column tier.  A fully missing block stays 0."""
+    Y, M, D = _problem(nB + P + K, P=P, K=K, nB=nB, missing_block=True)
+    cfg = SparseProxConfig(n_iter=10, matmul_dtype="bfloat16" if bf16 else "float32")
+    plan = next(p for p in _panels(nB, P, K, bf16, resident={8: 2, 16: 1}) if p.cluster_size == C)
+    if P == 7:
+        assert plan.p_slices()[-1] == (7, 7)
+    args = (jnp.asarray(Y), jnp.asarray(M), jnp.asarray(D), _jcfg(cfg))
+    ref = np.asarray(pnp_ista_blocks_pallas(*args, interpret=True))
+    xla = np.asarray(jista.pnp_ista_blocks(*args))
+    plain = tista.pnp_ista_blocks(*_t(Y, M, D), cfg).numpy()
+    got = _emulate_plan(plan, *_t(Y, M, D), cfg, None).numpy()
+    np.testing.assert_allclose(plain, ref, rtol=RTOL, atol=ATOL)
+    if bf16:
+        assert np.abs(got - ref).max() < BF16_MATCH * np.abs(ref).max()
+        assert np.abs(got - xla).max() < BF16_MATCH * np.abs(xla).max()
+    else:
+        np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, xla, rtol=RTOL, atol=ATOL)
+    assert np.all(got[1] == 0.0)
