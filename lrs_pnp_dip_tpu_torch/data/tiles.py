@@ -18,6 +18,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import annotate
+
 
 def tile_origins(
     height: int, width: int, tile_h: int, tile_w: int,
@@ -101,7 +103,8 @@ class TileLoader:
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
             future = pool.submit(self._extract, self.cube, batch_list[0], self.th, self.tw)
             for j, origins in enumerate(batch_list):
-                cur = future.result()
+                with annotate("tiles.wait"):
+                    cur = future.result()
                 if j + 1 < len(batch_list):
                     future = pool.submit(
                         self._extract, self.cube, batch_list[j + 1], self.th, self.tw

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from .shrinkage import soft_threshold
 
 
@@ -60,7 +61,9 @@ def svt_from_eigh(X: torch.Tensor, w: torch.Tensor, V: torch.Tensor, tau) -> tor
 
 def svt_gram(X: torch.Tensor, tau) -> torch.Tensor:
     """Gram + eigh route: exact SVT for any X with a small trailing axis."""
-    w, V = torch.linalg.eigh(gram(X))
+    G = gram(X)
+    with annotate("svt.eigh"):
+        w, V = torch.linalg.eigh(G)
     return svt_from_eigh(X, w, V, tau)
 
 

@@ -39,6 +39,7 @@ from ..ops.ssim import ssim
 from ..ops.svt import svt_gram
 from ..utils.config import SolverConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate
 from .dip import FIT_CHUNK, make_dip_fit
 
 
@@ -250,8 +251,11 @@ def single_step(stages: OuterStages) -> Callable[[SolverState, ProblemConsts], t
     """The outer step of one problem through ``stages``."""
 
     def step(state: SolverState, consts: ProblemConsts):
-        phi = stages.sparse(state, consts)
-        return stages.finish(state, consts, phi, *stages.low_rank(state, consts))
+        with annotate("step.sparse"):
+            phi = stages.sparse(state, consts)
+        low_rank = stages.low_rank(state, consts)
+        with annotate("step.finish"):
+            return stages.finish(state, consts, phi, *low_rank)
 
     return step
 
@@ -357,26 +361,27 @@ class Solver:
         for i in range(n):
             t0 = time.perf_counter()
             state, aux = self.step(state)
-            for k in keys:
-                hist[k].append(float(getattr(aux, k)))
-            hist["seconds"].append(time.perf_counter() - t0)
-            # x_dist is log||dX||: NaN/+inf means a non-finite iterate, -inf
-            # an exactly stalled one, which a healthy DIP step never gives and
-            # the deterministic lrs_pnp only at a degenerate fixed point
-            # (an all-zero X, say)
-            if not np.isfinite(hist["x_dist"][-1]):
-                kind = (
-                    "exactly-stalled (||dX|| == 0)"
-                    if hist["x_dist"][-1] == -np.inf
-                    else "non-finite"
-                )
-                raise SolverDiverged(
-                    f"{kind} iterate at outer iteration {i} "
-                    f"(variant={self.config.variant}); last finite MPSNR "
-                    f"{best[0]:.3f} — checkpoint and inspect duals/step sizes"
-                )
-            if hist["mpsnr"][-1] > best[0]:
-                best = (hist["mpsnr"][-1], state.X.detach().cpu().numpy())
+            with annotate("step.read"):
+                for k in keys:
+                    hist[k].append(float(getattr(aux, k)))
+                hist["seconds"].append(time.perf_counter() - t0)
+                # x_dist is log||dX||: NaN/+inf means a non-finite iterate, -inf
+                # an exactly stalled one, which a healthy DIP step never gives and
+                # the deterministic lrs_pnp only at a degenerate fixed point
+                # (an all-zero X, say)
+                if not np.isfinite(hist["x_dist"][-1]):
+                    kind = (
+                        "exactly-stalled (||dX|| == 0)"
+                        if hist["x_dist"][-1] == -np.inf
+                        else "non-finite"
+                    )
+                    raise SolverDiverged(
+                        f"{kind} iterate at outer iteration {i} "
+                        f"(variant={self.config.variant}); last finite MPSNR "
+                        f"{best[0]:.3f} — checkpoint and inspect duals/step sizes"
+                    )
+                if hist["mpsnr"][-1] > best[0]:
+                    best = (hist["mpsnr"][-1], state.X.detach().cpu().numpy())
             if callback is not None:
                 callback(i, state, aux)
         hist["best_mpsnr"] = best[0]

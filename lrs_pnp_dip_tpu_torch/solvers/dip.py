@@ -60,6 +60,7 @@ from torch import nn
 
 from ..utils.config import DipConfig
 from ..utils.device import deterministic_cudnn, resolve_device
+from ..utils.profiling import annotate
 from .early_stop import init_early_stop, reset_early_stop, update_early_stop
 from .graphs import Captured
 
@@ -262,33 +263,35 @@ class DipFit:
             ft = self._tensors = _FitTensors(key, cfg, dip_input, target, mask, self.bf16)
             self._graph = None
         self.model.train()
-        ft.input.copy_(dip_input)
-        ft.target_masked.copy_(target * mask)
-        ft.mask.copy_(mask)
-        self._start(ft, init, generator)
-        if chunk is not None and self._graph is None:
-            # the graph holds the fit weakly: a fit dropped by its solver is
-            # freed, its graph's memory pool with it, without waiting for
-            # the garbage collector
-            me = weakref.proxy(self)
-            self._graph = Captured(lambda: me._iteration(ft), target.device)
-        i = stop = count = reads = 0
-        if cfg.num_iter > 0:
-            step = (lambda: self._iteration(ft)) if chunk is None else self._graph
-            while not stop and i < cfg.num_iter:
-                for _ in range(chunk or 1):
-                    step()
-                i, stop, count = ft.status.tolist()
-                reads += 1
-        self.flag_reads = reads
-        out = ft.out.clone()
-        if cfg.return_mode == "window_mean":
-            n_seen = min(count, cfg.buffer_size)
-            if n_seen > 0:
-                out = torch.mean(ft.es.window, dim=0).reshape(target.shape) * (
-                    cfg.buffer_size / n_seen
-                )
-        return DipResult(out=out, loss=ft.loss.clone(), n_iters=i, stopped=bool(stop))
+        with annotate("dip.fit"):
+            ft.input.copy_(dip_input)
+            ft.target_masked.copy_(target * mask)
+            ft.mask.copy_(mask)
+            self._start(ft, init, generator)
+            if chunk is not None and self._graph is None:
+                # the graph holds the fit weakly: a fit dropped by its solver
+                # is freed, its graph's memory pool with it, without waiting
+                # for the garbage collector
+                me = weakref.proxy(self)
+                self._graph = Captured(lambda: me._iteration(ft), target.device)
+            i = stop = count = reads = 0
+            if cfg.num_iter > 0:
+                step = (lambda: self._iteration(ft)) if chunk is None else self._graph
+                while not stop and i < cfg.num_iter:
+                    for _ in range(chunk or 1):
+                        step()
+                    with annotate("dip.flag_read"):
+                        i, stop, count = ft.status.tolist()
+                    reads += 1
+            self.flag_reads = reads
+            out = ft.out.clone()
+            if cfg.return_mode == "window_mean":
+                n_seen = min(count, cfg.buffer_size)
+                if n_seen > 0:
+                    out = torch.mean(ft.es.window, dim=0).reshape(target.shape) * (
+                        cfg.buffer_size / n_seen
+                    )
+            return DipResult(out=out, loss=ft.loss.clone(), n_iters=i, stopped=bool(stop))
 
 
 def make_dip_fit(model: nn.Module, cfg: DipConfig = DipConfig()) -> DipFit:

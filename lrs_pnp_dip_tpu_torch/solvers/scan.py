@@ -38,6 +38,7 @@ import torch
 from ..ops.metrics import mpsnr
 from ..ops.ssim import ssim
 from ..ops.svt import gram, svt_from_eigh, svt_gram
+from ..utils.profiling import annotate
 from .admm import OuterStages, ProblemConsts, SolverState
 from .batch import _lane_consts, _lane_state, lockstep_finish, lockstep_sparse
 from .dip import DipFit
@@ -102,9 +103,10 @@ class ScannedSolve:
     def _mid(self, generator, itr: int) -> None:
         stages, st = self.stages, self._state(generator, itr)
         if self.split_svt:
-            w, V = torch.linalg.eigh(self._pre_out[1])
-            self.w.copy_(w)
-            self.V.copy_(V)
+            with annotate("svt.eigh"):
+                w, V = torch.linalg.eigh(self._pre_out[1])
+                self.w.copy_(w)
+                self.V.copy_(V)
         elif not self.dip:
             self.U.copy_(stages.svt(stages.low_rank_input(st)))
         elif not self.lanes:
@@ -163,10 +165,13 @@ class ScannedSolve:
         while done < n:
             length = n if chunk is None else min(chunk, n - done)
             for k in range(done, done + length):
-                self._pre_out = self._pre()
+                with annotate("step.graph_a"):
+                    self._pre_out = self._pre()
                 self._mid(state.generator, state.itr + k)
-                self._post()
-            rows.append(self.hist[done : done + length].cpu().numpy())
+                with annotate("step.graph_b"):
+                    self._post()
+            with annotate("step.history_read"):
+                rows.append(self.hist[done : done + length].cpu().numpy())
             done += length
         final = SolverState(
             self.X.clone(), self.lambda1.clone(), self.lambda2.clone(), state.generator, state.itr + n

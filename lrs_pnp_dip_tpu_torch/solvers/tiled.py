@@ -25,6 +25,7 @@ from ..data.io import HsiSample
 from ..data.tiles import TileLoader
 from ..utils.config import SolverConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate
 from .admm import OuterStages, init_state, make_consts
 from .batch import lockstep_step, stack_consts, stack_states
 from .scan import ScannedSolve
@@ -115,22 +116,26 @@ def solve_tiled(
         if pad_final:
             while len(samples) < tile_batch:
                 samples.append(samples[-1])
-        consts_list = [make_consts(s, dictionary, config, device=device) for s in samples]
-        consts = stack_consts(consts_list)
-        # X starts at the observed image, already on the device in consts.Y
-        state = stack_states(
-            [init_state(c.Y, config.seed + i, device=device) for i, c in enumerate(consts_list)]
-        )
+        with annotate("tiles.consts"):
+            consts_list = [make_consts(s, dictionary, config, device=device) for s in samples]
+            consts = stack_consts(consts_list)
+            # X starts at the observed image, already on the device in consts.Y
+            state = stack_states(
+                [init_state(c.Y, config.seed + i, device=device) for i, c in enumerate(consts_list)]
+            )
         if scan:
             state, _ = engine.scanned(consts).run(state, n)
         else:
             for _ in range(n):
                 state, _ = engine.step(state, consts)
-        cubes = state.X.detach().cpu().numpy().reshape(-1, th, tw, b)[:n_real]
-        for cube, (h0, w0) in zip(cubes, origins):
-            out[h0 : h0 + th, w0 : w0 + tw] += cube
-            weight[h0 : h0 + th, w0 : w0 + tw] += 1.0
+        with annotate("tiles.readback"):
+            cubes = state.X.detach().cpu().numpy().reshape(-1, th, tw, b)[:n_real]
+        with annotate("tiles.stitch"):
+            for cube, (h0, w0) in zip(cubes, origins):
+                out[h0 : h0 + th, w0 : w0 + tw] += cube
+                weight[h0 : h0 + th, w0 : w0 + tw] += 1.0
         if verbose:
             print(f"solved {n_real} tiles at origin {tuple(origins[0])}", flush=True)
 
-    return (out / np.maximum(weight, 1.0)).astype(np.float32)
+    with annotate("tiles.stitch"):
+        return (out / np.maximum(weight, 1.0)).astype(np.float32)

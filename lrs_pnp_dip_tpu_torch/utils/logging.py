@@ -1,20 +1,18 @@
-"""Structured metric logging (jsonl) + stage timing (a copy of
-``lrs_pnp_dip_tpu/utils/logging.py``, which has no JAX in it).
+"""Structured metric logging (jsonl), as ``lrs_pnp_dip_tpu/utils/logging.py``
+logs.
 
 The reference's observability is stdout prints and MATLAB-style tic/toc
 globals (``main_LRS_PnP_DIP_pro.py:41-52``).  Here: a jsonl metric writer
-and a context-manager stage timer whose totals feed the same logger.  Both
-read the host's wall clock: time a stage that ends in device work only after
-``torch.cuda.synchronize()``.
+stamped with the host's wall clock.  The tic/toc stages are the spans of
+:func:`.profiling.annotate`, which a ``torch.profiler`` trace times on the
+card's clock.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import time
-from collections import defaultdict
-from typing import Dict, Optional
+from typing import Optional
 
 
 class MetricLogger:
@@ -38,31 +36,3 @@ class MetricLogger:
     def close(self):
         if self._f:
             self._f.close()
-
-
-class StageTimer:
-    """Accumulating per-stage wall-clock timer (tic/toc, but structured)."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            k: {
-                "total_s": round(self.totals[k], 4),
-                "count": self.counts[k],
-                "mean_s": round(self.totals[k] / max(self.counts[k], 1), 4),
-            }
-            for k in self.totals
-        }

@@ -5,6 +5,37 @@
 where a card is present, its kernels, and writes a Chrome trace
 (``trace_<time>_<pid>.json``, for Perfetto or chrome://tracing) into
 ``log_dir``; ``annotate(name)`` names a region of it.
+
+``annotate`` is the port's one span API.  While a ``torch.profiler``
+session records on the calling thread, a span is a record function of the
+operators' scope: a host event in the kineto trace, stamped on the clock
+that kineto maps the card's kernel timestamps onto, so a span and the
+kernels launched inside it line up.  Otherwise a span is a shared no-op
+context, and costs one check of the profiler's flag.
+
+The two private torch APIs below (``_RecordFunctionFast`` and
+``_profiler_enabled``) are a workaround.  The public ``record_function``
+records in the user scope, and on the card kineto then adds a
+``gpu_user_annotation`` over the kernels each span launched: a CUDA event
+that a trace reader which takes every CUDA event for device work counts as
+busy, which hides the card's idle time.  Once such readers keep kernels,
+copies and sets only, the public API behind the same flag check will do.
+A trace made with ``trace()`` therefore shows a span as a host row only,
+with no device-side annotation row.
+
+The port places spans at the host side of its layer boundaries, never
+inside a function that a CUDA graph captures (a span there would fire only
+at warm-up and capture).  This list is the one record of their names:
+
+  * tile pipeline: ``tiles.wait`` (the next batch of tiles from the
+    loader's thread), ``tiles.consts`` (the batch's constants and initial
+    states), ``tiles.readback``, ``tiles.stitch``;
+  * outer step: ``step.graph_a``, ``step.graph_b`` and ``step.history_read``
+    of the device-resident loop; ``step.sparse``, ``step.finish`` and
+    ``step.read`` of the host-stepped one;
+  * low-rank prox: ``svt.eigh`` (cuSOLVER's ``eigh``, which ends in a host
+    sync); ``dip.fit`` (a DIP fit, whole) and ``dip.flag_read`` (each read
+    of its stop flag).
 """
 
 from __future__ import annotations
@@ -14,7 +45,10 @@ import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch._C._profiler import _RecordFunctionFast
+from torch.profiler import ProfilerActivity, profile
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -32,5 +66,8 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """Named trace annotation for a code region (shows in the timeline)."""
-    return record_function(name)
+    """A span named ``name`` while a profiler records on this thread, else
+    a shared no-op context."""
+    if torch._C._autograd._profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _NO_SPAN

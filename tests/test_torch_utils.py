@@ -1,6 +1,6 @@
 """The port's utilities against the JAX package: checkpoint and resume,
-state carried across from a JAX solve, metric logging and stage timing,
-the profiler hooks, the figure writers, and mse / psnr_standard.
+state carried across from a JAX solve, metric logging, the profiler
+hooks, the figure writers, and mse / psnr_standard.
 
 Tolerances: a resumed solve equals the uninterrupted one bit for bit (the
 CPU step is deterministic, and the restored generator draws the same DIP
@@ -33,7 +33,7 @@ from lrs_pnp_dip_tpu_torch.utils.checkpoint import (
     SolverCheckpointer, pytree_to_state, state_from_jax_pytree,
 )
 from lrs_pnp_dip_tpu_torch.utils.checkpoint import state_to_pytree as t_state_to_pytree
-from lrs_pnp_dip_tpu_torch.utils.logging import MetricLogger, StageTimer
+from lrs_pnp_dip_tpu_torch.utils.logging import MetricLogger
 from lrs_pnp_dip_tpu_torch.utils.profiling import annotate, trace
 
 # One intra-op thread: the suite runs in several worker processes, and torch's
@@ -158,7 +158,7 @@ def test_state_to_pytree_resumes_in_the_jax_package():
     assert t_next.itr == int(j_next.itr) == 2
 
 
-def test_metric_logger_and_stage_timer(tmp_path, capsys):
+def test_metric_logger(tmp_path, capsys):
     path = str(tmp_path / "m.jsonl")
     log = MetricLogger(path, echo=True)
     log.log(iter=0, mpsnr=33.0)
@@ -167,16 +167,6 @@ def test_metric_logger_and_stage_timer(tmp_path, capsys):
     lines = [json.loads(line) for line in open(path)]
     assert lines[1]["mpsnr"] == 34.5 and "t" in lines[0]
     assert json.loads(capsys.readouterr().out.splitlines()[0])["iter"] == 0
-    timer = StageTimer()
-    for _ in range(2):
-        with timer.stage("a"):
-            pass
-    with pytest.raises(KeyError):
-        with timer.stage("b"):
-            raise KeyError("timed even when the stage raises")
-    summary = timer.summary()
-    assert summary["a"]["count"] == 2 and summary["b"]["count"] == 1
-    assert set(summary["a"]) == {"total_s", "count", "mean_s"}
 
 
 def test_trace_writes_a_chrome_trace_naming_the_label(tmp_path):
