@@ -121,19 +121,21 @@ def _gather_indices(grid: BlockGrid, device: torch.device):
 
 
 def extract_blocks(Y: torch.Tensor, grid: BlockGrid) -> torch.Tensor:
-    """Gather all blocks: (P, B) -> (n_blocks, bb*bb), band-major entries."""
+    """Gather all blocks: (..., P, B) -> (..., n_blocks, bb*bb), band-major
+    entries; leading axes stack problems of one grid."""
     bb = grid.block_size
+    lead = Y.shape[:-2]
     fast = _regular_layout(grid)
     if fast is not None:
         xs, ys = fast
         nx = len(xs)
         parts = []
         for y0 in ys:
-            seg = Y[:, y0 : y0 + bb].reshape(nx, bb, bb)  # [xblk, pix, band]
-            parts.append(seg.transpose(1, 2).reshape(nx, bb * bb))
-        return torch.cat(parts, dim=0)
+            seg = Y[..., y0 : y0 + bb].reshape(*lead, nx, bb, bb)  # [xblk, pix, band]
+            parts.append(seg.transpose(-1, -2).reshape(*lead, nx, bb * bb))
+        return torch.cat(parts, dim=-2)
     rows, cols = _gather_indices(grid, Y.device)
-    return Y[rows, cols].reshape(grid.n_blocks, bb * bb)
+    return Y[..., rows, cols].reshape(*lead, grid.n_blocks, bb * bb)
 
 
 def scatter_blocks(blocks: torch.Tensor, grid: BlockGrid) -> torch.Tensor:

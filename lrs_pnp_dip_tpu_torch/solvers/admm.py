@@ -265,29 +265,49 @@ def make_consts(
 ) -> ProblemConsts:
     """Assemble the per-problem constants on ``device``."""
     device = resolve_device(device)
-    h, w, b = sample.shape
-    noisy = torch.as_tensor(np.asarray(sample.noisy, np.float32), device=device)
-    mask_hw = torch.as_tensor(np.asarray(sample.mask, np.float32), device=device)
-    Y = noisy.reshape(h * w, b)
-    mask2d = mask_hw.reshape(h * w, 1).expand(h * w, b).contiguous()
+    clean = None
+    if sample.clean is not None:
+        clean = torch.as_tensor(np.asarray(sample.clean, np.float32), device=device)
+    return assemble_consts(
+        torch.as_tensor(np.asarray(sample.noisy, np.float32), device=device),
+        torch.as_tensor(np.asarray(sample.mask, np.float32), device=device),
+        torch.as_tensor(np.asarray(dictionary, np.float32), device=device),
+        config,
+        clean,
+    )
+
+
+def assemble_consts(
+    noisy: torch.Tensor,  # (..., H, W, B) observed cubes
+    mask_hw: torch.Tensor,  # (..., H, W) observation masks
+    D: torch.Tensor,  # (bb*bb, K) dictionary
+    config: SolverConfig,
+    clean: Optional[torch.Tensor] = None,  # (..., H, W, B), or None for a NaN cube
+) -> ProblemConsts:
+    """The constants of one problem, or of a stack of problems along the
+    leading axes, from f32 tensors on their device.  ``Y``, ``dip_target``
+    and ``dip_mask`` are views of ``noisy`` and ``mask_hw``.  The step sizes
+    of a stack come from one :func:`..ops.ista.compute_alpha` over the
+    blocks of every problem, each block's arithmetic its own."""
+    *lead, h, w, b = noisy.shape
+    Y = noisy.reshape(*lead, h * w, b)
+    mask2d = mask_hw.reshape(*lead, h * w, 1).expand(*lead, h * w, b).contiguous()
     grid = block_grid((h * w, b), config.block_size, config.stride)
     # missing entries located once from the observed blocks
     # (reference ``blocks_copy``, ``main_LRS_PnP_DIP_pro.py:347``)
     mask_blocks = (extract_blocks(Y, grid) != 0).to(torch.float32)
-    if sample.clean is not None:
-        clean = torch.as_tensor(np.asarray(sample.clean, np.float32), device=device)
-    else:
-        clean = torch.full((h, w, b), float("nan"), dtype=torch.float32, device=device)
-    D = torch.as_tensor(np.asarray(dictionary, np.float32), device=device)
+    if clean is None:
+        clean = torch.full(noisy.shape, float("nan"), dtype=torch.float32, device=noisy.device)
+    alpha = compute_alpha(D, mask_blocks.reshape(-1, grid.patch_dim), config.sparse)
     return ProblemConsts(
         Y=Y,
         mask2d=mask2d,
         mask_blocks=mask_blocks,
         D=D,
         clean=clean,
-        dip_target=noisy[None],
-        dip_mask=mask_hw[None, :, :, None],
-        alpha=compute_alpha(D, mask_blocks, config.sparse),
+        dip_target=noisy.unsqueeze(-4),
+        dip_mask=mask_hw.unsqueeze(-3).unsqueeze(-1),
+        alpha=alpha.reshape(mask_blocks.shape[:-1]),
     )
 
 

@@ -4,8 +4,9 @@ and the tiled engine's ``scan=True``, which run N outer steps as one
 ``lax.scan``.
 
 :class:`ScannedSolve` keeps the state (``X``, ``lambda1``, ``lambda2``) and
-the problem's constants in tensors of its own, whose storage stays put, and
-runs each outer step as
+reads the problem's constants in place (the caller's tensors, whose storage
+stays put: the tiled engine refills them for its next batch), and runs each
+outer step as
 
   1. graph A: the blocks, the sparse prox (kernel B1 inside the graph on
      the card), and for ``lrs_pnp`` the Gram matrix of X + lambda2/mu2;
@@ -49,8 +50,9 @@ class ScannedSolve:
     """The outer step of ``stages`` on tensors of its own, for one problem
     (``lanes=False``: ``consts`` of one problem) or stacked lanes
     (``lanes=True``; ``ensemble=True`` adds the metrics of the lanes' mean
-    cube).  :meth:`run` steps it; :meth:`set_consts` loads another problem
-    of the same shapes (the tiled engine's next batch)."""
+    cube).  :meth:`run` steps it.  ``consts`` are read in place, so the
+    caller keeps their storage and may refill them with another problem of
+    the same shapes between runs (the tiled engine's next batch)."""
 
     def __init__(
         self, stages: OuterStages, consts: ProblemConsts, lanes: bool = False, ensemble: bool = False
@@ -61,7 +63,7 @@ class ScannedSolve:
         self.device = stages.device
         self.lanes = lanes
         self.ensemble = ensemble
-        self.consts = ProblemConsts(*(t.clone() for t in consts))
+        self.consts = consts
         shape = self.consts.Y.shape  # (P, B) or (N, P, B)
         self.n_lanes = shape[0] if lanes else 1
 
@@ -83,10 +85,6 @@ class ScannedSolve:
         self._pre = Captured(self._pre_fn, self.device)
         self._post = Captured(self._post_fn, self.device)
         self._pre_out = None
-
-    def set_consts(self, consts: ProblemConsts) -> None:
-        for mine, theirs in zip(self.consts, consts):
-            mine.copy_(theirs)
 
     # -- the three parts of a step -------------------------------------------
 

@@ -7,10 +7,13 @@ built step (:func:`.batch.lockstep_step`: one sparse prox, hence one
 launch of kernel B1, per outer step over the blocks of every tile of the
 batch), and stitches the recovered tiles back with overlap averaging.  The
 tile feeder prefetches on a host thread while the device solves the
-previous batch.  With ``scan=True`` a batch's steps run on the device
-(:class:`.scan.ScannedSolve`, CUDA graphs on the card), else from the host;
-either way each DIP fit replays the engine's one captured iteration (one
-capture per net and tile shape, whatever the batch).
+previous batch.  A batch's constants and initial state are built on the
+device from one upload of its tiles and one of their masks
+(:class:`_TileBatch`: one captured graph on the card, one power iteration
+over the blocks of every tile).  With ``scan=True`` a batch's steps run on
+the device (:class:`.scan.ScannedSolve`, CUDA graphs on the card), else from
+the host; either way each DIP fit replays the engine's one captured
+iteration (one capture per net and tile shape, whatever the batch).
 """
 
 from __future__ import annotations
@@ -21,34 +24,99 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..data.io import HsiSample
 from ..data.tiles import TileLoader
 from ..utils.config import SolverConfig
 from ..utils.device import resolve_device
 from ..utils.profiling import annotate
-from .admm import OuterStages, init_state, make_consts
-from .batch import lockstep_step, stack_consts, stack_states
+from .admm import OuterStages, ProblemConsts, SolverState, assemble_consts
+from .batch import lockstep_step
+from .graphs import Captured
 from .scan import ScannedSolve
+
+
+class _TileBatch:
+    """One batch shape's constants and initial state, built on the device.
+
+    Two uploads per batch fill static buffers: the loader's stacked tiles
+    and their stacked masks.  The build reads them and the engine's
+    dictionary buffer, and writes the stacked :class:`.admm.ProblemConsts`
+    (:func:`.admm.assemble_consts`: one power iteration over the blocks of
+    every tile) and the state X = Y with zero duals into tensors it keeps:
+    the first build's, refilled in place by every later one.  On the card
+    the build is a :class:`.graphs.Captured`, so a batch after the second
+    replays one graph and launches no kernel from the host; on the CPU it
+    runs eagerly.  The batch's device-resident solve reads the kept
+    constants as its own, so loading a batch copies nothing more."""
+
+    def __init__(self, stages: OuterStages, lanes: int, D: torch.Tensor):
+        th, tw, b = stages.image_shape
+        self.stages = stages
+        self.device = stages.device
+        self.tiles = torch.empty((lanes, th, tw, b), dtype=torch.float32, device=self.device)
+        self.masks = torch.empty((lanes, th, tw), dtype=torch.float32, device=self.device)
+        self.D = D
+        self.consts: Optional[ProblemConsts] = None
+        self.state = None  # (X, lambda1, lambda2)
+        self.captured = Captured(self._assemble, self.device)
+        self._scan = None
+
+    def _assemble(self) -> None:
+        consts = assemble_consts(self.tiles, self.masks, self.D, self.stages.config)
+        if self.consts is None:
+            self.consts = consts
+            self.state = tuple(torch.empty_like(consts.Y) for _ in range(3))
+        else:
+            for kept, new in zip(self.consts, consts):
+                kept.copy_(new)  # no copy where both view the same buffer
+        X, lambda1, lambda2 = self.state
+        X.copy_(consts.Y)
+        lambda1.zero_()
+        lambda2.zero_()
+
+    def build(self, tiles: np.ndarray, masks: np.ndarray, seed: int):
+        """(consts, state) of ``tiles`` (lanes, th, tw, B) and ``masks``
+        (lanes, th, tw), both f32; lane i draws from a generator seeded
+        ``seed + i``.  Overwrites the previous batch's: the caller has read
+        that batch back first."""
+        self.tiles.copy_(torch.from_numpy(tiles))
+        self.masks.copy_(torch.from_numpy(masks))
+        self.captured()
+        generators = tuple(torch.Generator(device=self.device).manual_seed(seed + i) for i in range(len(tiles)))
+        return self.consts, SolverState(*self.state, generator=generators, itr=0)
+
+    def scanned(self) -> ScannedSolve:
+        """The device-resident solve of this batch shape, on the kept constants."""
+        if self._scan is None:
+            self._scan = ScannedSolve(self.stages, self.consts, lanes=True)
+        return self._scan
 
 
 class _TileEngine:
     """The stages of one (config, tile shape, net, device), their lockstep
-    step, which takes any number of lanes, and a device-resident solve per
-    shape of the batch's constants: its size (a final partial batch has its
-    own) and the dictionary's width (two scenes may bring two)."""
+    step, which takes any number of lanes, a dictionary buffer per
+    dictionary shape, and a :class:`_TileBatch` per batch shape: its number
+    of lanes (a final partial batch has its own) and the dictionary's width
+    (two scenes may bring two)."""
 
     def __init__(self, config: SolverConfig, tile3, net, device: torch.device):
         self.stages = OuterStages(config, tile3, net=net, device=device)
         self.step = lockstep_step(self.stages)
-        self._scans = {}
+        self._dictionaries = {}
+        self._batches = {}
 
-    def scanned(self, consts) -> ScannedSolve:
-        key = tuple(tuple(t.shape) for t in consts)
-        if key not in self._scans:
-            self._scans[key] = ScannedSolve(self.stages, consts, lanes=True)
-        else:
-            self._scans[key].set_consts(consts)
-        return self._scans[key]
+    def dictionary(self, dictionary) -> torch.Tensor:
+        """``dictionary`` on the device: one upload into the buffer of its
+        shape, made on every call (a caller may change its array in place)."""
+        host = torch.as_tensor(np.asarray(dictionary, np.float32))
+        if host.shape not in self._dictionaries:
+            self._dictionaries[host.shape] = torch.empty(host.shape, dtype=torch.float32, device=self.stages.device)
+        return self._dictionaries[host.shape].copy_(host)
+
+    def batch(self, lanes: int, D: torch.Tensor) -> _TileBatch:
+        key = (lanes, *D.shape)
+        if key not in self._batches:
+            self._batches[key] = _TileBatch(self.stages, lanes, D)
+        return self._batches[key]
 
 
 @functools.lru_cache(maxsize=16)
@@ -104,27 +172,26 @@ def solve_tiled(
     n = config.outer_iters if n_iters is None else n_iters
     engine = _tiled_engine(config, (th, tw, b), net, device)
 
+    with annotate("tiles.consts"):
+        D = engine.dictionary(dictionary)
+        mask = np.asarray(mask, np.float32)
     out = np.zeros((h, w, b), np.float64)
     weight = np.zeros((h, w, 1), np.float64)
 
     for tiles, origins in loader.batches():
         n_real = len(origins)
-        samples = [
-            HsiSample(noisy=t, mask=mask[h0 : h0 + th, w0 : w0 + tw])
-            for t, (h0, w0) in zip(tiles, origins)
-        ]
-        if pad_final:
-            while len(samples) < tile_batch:
-                samples.append(samples[-1])
         with annotate("tiles.consts"):
-            consts_list = [make_consts(s, dictionary, config, device=device) for s in samples]
-            consts = stack_consts(consts_list)
-            # X starts at the observed image, already on the device in consts.Y
-            state = stack_states(
-                [init_state(c.Y, config.seed + i, device=device) for i, c in enumerate(consts_list)]
-            )
+            masks = np.stack([mask[h0 : h0 + th, w0 : w0 + tw] for h0, w0 in origins])
+            if pad_final and n_real < tile_batch:
+                extra = tile_batch - n_real
+                tiles = np.concatenate([tiles, np.repeat(tiles[-1:], extra, axis=0)])
+                masks = np.concatenate([masks, np.repeat(masks[-1:], extra, axis=0)])
+            batch = engine.batch(len(tiles), D)
+            # refills the buffers the previous batch of this shape was solved
+            # on: safe, since its readback below waited for its solve to end
+            consts, state = batch.build(tiles, masks, config.seed)
         if scan:
-            state, _ = engine.scanned(consts).run(state, n)
+            state, _ = batch.scanned().run(state, n)
         else:
             for _ in range(n):
                 state, _ = engine.step(state, consts)

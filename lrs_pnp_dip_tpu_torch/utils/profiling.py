@@ -28,8 +28,9 @@ inside a function that a CUDA graph captures (a span there would fire only
 at warm-up and capture).  This list is the one record of their names:
 
   * tile pipeline: ``tiles.wait`` (the next batch of tiles from the
-    loader's thread), ``tiles.consts`` (the batch's constants and initial
-    states), ``tiles.readback``, ``tiles.stitch``;
+    loader's thread), ``tiles.consts`` (the call's dictionary upload, and
+    each batch's constants and initial states: two uploads and one build),
+    ``tiles.readback``, ``tiles.stitch``;
   * outer step: ``step.graph_a``, ``step.graph_b`` and ``step.history_read``
     of the device-resident loop; ``step.sparse``, ``step.finish`` and
     ``step.read`` of the host-stepped one;

@@ -863,3 +863,54 @@ def test_two_dip_fits_of_the_zoo_nets_repeat(cuda, net_key):
     gen = torch.Generator(device=cuda)
     outs = [fit(x, x, torch.ones_like(x), generator=gen.manual_seed(0), chunk=c).out for c in (None, None, 4, 4)]
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_tile_batch_build_replays_the_eager_build(cuda):
+    """The tile engine's captured constant build at the default scene's
+    shape (8 tiles of 36x36x128, nB 1152, the `lrs_pnp` preset's 50 power
+    iterations): three batches of one shape, the first eager, the second
+    captured, the third replayed.  Each gives the bits of an eager build of
+    the same tiles; the replay launches no kernel from the host, where the
+    eager build launches over six a power iteration; and ``solve_tiled``
+    twice on one scene (a full and a partial batch) gives equal answers, so
+    no buffer carries one call or batch into the next."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lrs_pnp_dip_tpu_torch.data import random_dictionary
+    from lrs_pnp_dip_tpu_torch.solvers.admm import assemble_consts
+    from lrs_pnp_dip_tpu_torch.solvers.tiled import _tiled_engine, solve_tiled
+    from lrs_pnp_dip_tpu_torch.utils.config import lrs_pnp_preset
+
+    def launches(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()]
+        return out, sum(n.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for n in names)
+
+    cfg = lrs_pnp_preset()
+    D_np = random_dictionary(1296, 512, seed=1)
+    engine = _tiled_engine(cfg, (36, 36, 128), None, cuda)
+    D = engine.dictionary(D_np)
+    batch = engine.batch(8, D)
+    for k in range(3):
+        scene = synthetic_sample(36 * 8, 36, 128, seed=40 + k)
+        tiles = np.ascontiguousarray(scene.noisy.reshape(8, 36, 36, 128))
+        masks = np.ascontiguousarray(scene.mask.astype(np.float32).reshape(8, 36, 36))
+        if k < 2:  # the warm-up and the capture run outside the profiler
+            consts, state = batch.build(tiles, masks, cfg.seed)
+        else:
+            (consts, state), n_replay = launches(lambda: batch.build(tiles, masks, cfg.seed))
+        want, n_eager = launches(lambda: assemble_consts(
+            torch.from_numpy(tiles).to(cuda), torch.from_numpy(masks).to(cuda), D, cfg))
+        for name in want._fields:
+            got, ref = getattr(consts, name), getattr(want, name)
+            assert torch.equal(got, ref) or (name == "clean" and got.isnan().all() and ref.isnan().all()), (k, name)
+        assert torch.equal(state.X, want.Y) and not state.lambda1.any() and not state.lambda2.any()
+        assert n_eager > 6 * cfg.sparse.power_iters
+    assert batch.captured.graph is not None and n_replay == 0
+    scene = synthetic_sample(108, 72, 128, seed=44)
+    kw = dict(tile_batch=4, device=cuda)
+    first = solve_tiled(scene.noisy, scene.mask, D_np, cfg, **kw)
+    second = solve_tiled(scene.noisy, scene.mask, D_np, cfg, **kw)
+    assert np.isfinite(first).all() and np.array_equal(first, second)

@@ -6,8 +6,9 @@
   * Under ``torch.profiler``, a tiled `lrs_pnp` scene (72x72x8, 36x36 tiles,
     ``tile_batch`` 2, 2 outer steps, the device-resident loop) yields each
     ``tiles.*``, ``step.*`` and ``svt.eigh`` span as often as its call site
-    runs, and every operator that ``make_consts`` issues lies inside a
-    ``tiles.consts`` span: spans and operators share one clock.
+    runs, and every operator that the batch's constant build
+    (``assemble_consts``) issues lies inside a ``tiles.consts`` span: spans
+    and operators share one clock.
   * A host-stepped `dip` step yields one ``dip.fit`` span holding as many
     ``dip.flag_read`` spans as ``DipFit.flag_reads`` counts.
   * The answers are the same bits with the profiler on and off.
@@ -117,23 +118,25 @@ def test_annotate_is_a_no_op_unless_a_profiler_records(monkeypatch):
 
 
 def test_scene_spans_count_their_call_sites_and_hold_make_consts(monkeypatch):
-    """2 batches of 2 tiles, 2 outer steps each: a wait, the constants, a
-    readback and a stitch per batch, the final divide a third stitch; graph
-    A, ``eigh`` and graph B per step; one history read per batch."""
-    real = ttiled.make_consts
+    """2 batches of 2 tiles, 2 outer steps each: the dictionary's upload in
+    a constants span of its own; a wait, the constants, a readback and a
+    stitch per batch, the final divide a third stitch; graph A, ``eigh`` and
+    graph B per step; one history read per batch.  Each batch's constants
+    are one build over its stacked tiles."""
+    real = ttiled.assemble_consts
 
     def probed(*args, **kwargs):
-        with record_function("probe.make_consts"):
+        with record_function("probe.assemble_consts"):
             return real(*args, **kwargs)
 
-    monkeypatch.setattr(ttiled, "make_consts", probed)
+    monkeypatch.setattr(ttiled, "assemble_consts", probed)
     _, events = _profiled(lambda: _solve_scene(*_scene()))
     assert _span_counts(events) == {
-        "tiles.wait": 2, "tiles.consts": 2, "tiles.readback": 2, "tiles.stitch": 3,
+        "tiles.wait": 2, "tiles.consts": 3, "tiles.readback": 2, "tiles.stitch": 3,
         "step.graph_a": 4, "svt.eigh": 4, "step.graph_b": 4, "step.history_read": 2,
     }
-    consts, probes = _intervals(events, "tiles.consts"), _intervals(events, "probe.make_consts")
-    assert len(probes) == 4
+    consts, probes = _intervals(events, "tiles.consts"), _intervals(events, "probe.assemble_consts")
+    assert len(probes) == 2
     ops = [(s, e) for n, s, e in events if n.startswith("aten::") and _inside((s, e), probes)]
     assert len(ops) > 4 * tconfig.lrs_pnp_preset().sparse.power_iters
     assert all(_inside(op, consts) for op in ops)

@@ -17,7 +17,6 @@ from lrs_pnp_dip_tpu_torch.data import (
     TileLoader, bernoulli_mask, corrupt, mmap_cube, synthetic_sample, tile_origins,
 )
 from lrs_pnp_dip_tpu_torch.ops import mpsnr
-from lrs_pnp_dip_tpu_torch.solvers import batch as tbatch
 from lrs_pnp_dip_tpu_torch.solvers import tiled as ttiled
 from lrs_pnp_dip_tpu_torch.solvers.tiled import _tiled_engine, solve_tiled
 from lrs_pnp_dip_tpu_torch.utils import config as tconfig
@@ -104,19 +103,19 @@ def test_solve_tiled_lrs_pnp_matches_jax(overlap, pad_final):
 
 
 def test_solve_tiled_final_batch_is_right_sized_unless_padded(monkeypatch):
-    """2 tiles with tile_batch 8: 2 lanes by default, 8 with pad_final, the
-    same scene either way."""
+    """2 tiles with tile_batch 8: the batched constant build receives 2
+    lanes by default, 8 with pad_final, the same scene either way."""
     clean, noisy, mask = _scene(H=32, W=16, B=8)
     D = _dictionary(64, 32, seed=4)
     cfg, _ = _lrs_cfgs(8, n_iter=4)
     sizes = []
-    real_stack = tbatch.stack_consts
+    real_assemble = ttiled.assemble_consts
 
-    def counting_stack(consts):
-        sizes.append(len(consts))
-        return real_stack(consts)
+    def counting_assemble(noisy, mask_hw, D, config):
+        sizes.append(len(noisy))
+        return real_assemble(noisy, mask_hw, D, config)
 
-    monkeypatch.setattr(ttiled, "stack_consts", counting_stack)
+    monkeypatch.setattr(ttiled, "assemble_consts", counting_assemble)
     rec = solve_tiled(noisy, mask, D, cfg, tile_shape=(16, 16), tile_batch=8, n_iters=1, device="cpu")
     rec_pad = solve_tiled(noisy, mask, D, cfg, tile_shape=(16, 16), tile_batch=8, n_iters=1,
                           pad_final=True, device="cpu")
