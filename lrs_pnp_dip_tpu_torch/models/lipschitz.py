@@ -88,6 +88,12 @@ class SNConv2d(nn.Module):
             self.register_buffer("u", torch.empty(features))
         self.reset_parameters()
 
+    @property
+    def power_products(self) -> int:
+        """Matrix-vector products a forward runs to estimate sigma: two a
+        power step and one for sigma itself; 0 without power iteration."""
+        return 2 * self.power_iters + 1 if hasattr(self, "u") else 0
+
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         _kaiming_uniform_(self.weight, generator)
         with torch.no_grad():

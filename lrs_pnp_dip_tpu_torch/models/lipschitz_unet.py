@@ -68,6 +68,14 @@ class LipschitzUNet(nn.Module):
         for i in range(13):
             self.add_module(f"SNBatchNorm2d_{i}", SNBatchNorm2d(width))
 
+    @property
+    def power_products(self) -> int:
+        """Matrix-vector products the spectral norms run per forward, summed
+        over the convolutions (238 at the `dip_1lip` preset: 14 x (2 x 8 +
+        1)); each comes with one two-norm.  A counter of
+        :mod:`..utils.profiling`."""
+        return sum(m.power_products for m in self.modules() if isinstance(m, SNConv2d))
+
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every parameter and every power-iteration vector as a
         fresh net would (conv kernels and ``u`` from ``generator``, conv

@@ -37,6 +37,14 @@ at warm-up and capture).  This list is the one record of their names:
   * low-rank prox: ``svt.eigh`` (cuSOLVER's ``eigh``, which ends in a host
     sync); ``dip.fit`` (a DIP fit, whole) and ``dip.flag_read`` (each read
     of its stop flag).
+
+Counters beside the spans, read outside any timed region:
+``DipFit.flag_reads`` (stop-flag reads of the latest fit),
+``ISTA_KERNEL.launches_by_kernel`` (kernel B1's launches by kernel), and
+``LipschitzUNet.power_products`` (the matrix-vector products its spectral
+norms run per forward, derived from its modules; inside ``dip.fit``, whose
+captured iteration no span can enter, a trace reader tells the spectral
+norm's kernels apart by name and holds their count to twice this number).
 """
 
 from __future__ import annotations
