@@ -6,7 +6,12 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
   1. build   — compile kernel B1 (csrc/ista.cu) with nvcc for sm_90a;
-  2. check   — kernel B1 against its plain PyTorch version on the card, at
+  2. check   — the spectral norm kernel (csrc/spectral_norm.cu) built, one
+               launch at the dip_1lip preset's 14 weights against the plain
+               power iteration conv by conv (sigma relative and u within
+               SN_MATCH), two launches equal bits, and a forward of each
+               timed in a CUDA graph beside the bound (sn_check); then
+               kernel B1 against its plain PyTorch version on the card, at
                the main-path shape (nB 144, P 1296, K 512, 100 iterations,
                the shipped dictionary, masks of synthetic_sample(36, 36,
                128), trace4 alpha), a ragged nB 13 and nB 2304 (the 144x144
@@ -69,7 +74,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                launch per outer step at nB 288), 2 outer steps each with the
                DIP fit capped at 50 iterations; dip_1lip, dip_fast and the
                dip_tuned lanes (SeedEnsembleSolver.run) each against the
-               same 2 steps with host-stepped fits, equal bits;
+               same 2 steps with host-stepped fits, equal bits; dip_1lip,
+               replayed and host-stepped, one launch of the spectral norm
+               kernel a forward of its net, dip_fast none, each counted
+               from 0 (sn_drive);
                inpaint_scene(variant="lrs_pnp") on a 72x72x128 scene, four
                tiles in one batch (one launch per outer step at nB 576),
                also against the CPU; inpaint_scene(variant="lrs_pnp") at
@@ -94,11 +102,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                on a 36x36x8 cube, card against CPU, no launch of B1, and two
                calls of each on the card give equal bits; every
                get_net key's forward on the card against the same weights
-               on the CPU; one `dip` outer step at 36x36x128 with each key
+               on the CPU (lipschitz_unet's with one launch of the spectral
+               norm kernel, every other key's with none); one `dip` outer
+               step at 36x36x128 with each key
                that keeps the iterate's shape (DIP fit capped at 50, each
                net's fit captured on first use), one launch of B1 at nB 144
                each, the device memory held after each and the peak, and
-               each other key failing where the JAX package fails;
+               each other key failing where the JAX package fails
+               (lipschitz_unet's step with one spectral norm launch a
+               forward);
   7. long tail — the auto-dictionary and the rest of the JAX package's
                surface, at full width: inpaint(variant="dip", block_size=24,
                stride=24, n_iters=2) without dictionary= (it learns K atoms
@@ -173,7 +185,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                yardstick of B1 at nB 72, 288, 576 and 2304 and its plain
                loop at nB 288, 576 and 2304;
  10. report  — the total time, the card's name and power limit, a
-               {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
+               {"kernels": [...]} line (B1's entries, then the spectral norm
+               kernel's: its launches by path, times, bound and errors) and,
+               last, {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 before printing any result.
@@ -952,6 +966,91 @@ def drive(label: str, fn, launches: int, nB: int, bf16: bool = False):
             f"{label}: B1's last launch took nB={plan.nB}, bf16={plan.bf16}; "
             f"expected nB={nB}, bf16={bf16}")
     return out, wall
+
+
+# The spectral norm kernel (csrc/spectral_norm.cu) against the plain power
+# iteration, at the `dip_1lip` preset's 14 weights: sigma relative and u
+# max |delta| (the sums run in another order; the card's readings are about
+# 1e-7).
+SN_MATCH = 1e-5
+
+
+def sn_check(peaks: dict, smi: str) -> dict:
+    """Phase 2's spectral norm kernel: built, one forward's launch at the
+    preset's 14 shapes against ``_sigma_max_power`` conv by conv
+    (``SN_MATCH``), two launches from the same u equal bit for bit, then
+    the kernel and the plain loop timed in CUDA graphs
+    (``scripts/time_spectral_norm.py``) beside the bound: the weights read
+    once from device memory.  Returns the kernels line's timings."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import SN_KERNEL
+
+    t0 = time.perf_counter()
+    SN_KERNEL.build()
+    log(f"[check] spectral norm kernel built in {time.perf_counter() - t0:.2f} s")
+    for line in SN_KERNEL.build_log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"  ptxas: {line.strip()}")
+    timer = _load_script("time_spectral_norm")
+    weights, us = timer._inputs(seed=1)
+    first = [u.clone() for u in us]
+    table = timer.kernel_forward(weights, first)
+    again = [u.clone() for u in us]
+    table2 = timer.kernel_forward(weights, again)
+    torch.cuda.synchronize()
+    if not (torch.equal(table, table2) and all(torch.equal(a, b) for a, b in zip(first, again))):
+        raise AssertionError("spectral norm kernel: two launches from the same u differ")
+    row = timer.measure()
+    bound_ms = row["weight_bytes"] / peaks["bytes_per_s"] * 1e3
+    log(f"  preset's 14 weights, 8 power steps: sigma max rel err {row['sigma_max_rel_err']:.3e}, u max|d| "
+        f"{row['u_max_abs_err']:.3e} (limit {SN_MATCH}); two launches give equal bits; clusters of "
+        f"{row['plan']['cluster_size']}, {row['plan']['smem_bytes']} B of shared memory a CTA")
+    log(f"  a forward in a CUDA graph: kernel {row['kernel_us']:.2f} us, plain loop {row['plain_us']:.2f} us, eager "
+        f"launch {row['kernel_eager_us']:.2f} us; bound {bound_ms * 1e3:.3f} us ({row['weight_bytes']} B of weights); "
+        f"card {smi}")
+    if not (row["sigma_max_rel_err"] <= SN_MATCH and row["u_max_abs_err"] <= SN_MATCH):
+        raise AssertionError("the spectral norm kernel disagrees with the plain power iteration")
+    return dict(ms=row["kernel_us"] / 1e3, plain_ms=row["plain_us"] / 1e3, eager_ms=row["kernel_eager_us"] / 1e3,
+                bound_ms=bound_ms, sigma_max_rel_err=row["sigma_max_rel_err"], max_abs_err=row["u_max_abs_err"],
+                weight_bytes=row["weight_bytes"], plan=row["plan"])
+
+
+def sn_drive(label: str, fn, per_forward: int, sn_by_path: dict):
+    """``fn()`` with the spectral norm kernel's count set to 0 just before
+    and read just after, against the net's forwards in the DIP fits that
+    ``fn`` ran: each fit's stop-flag reads times the iterations a read (its
+    chunk replayed, or one host-stepped; an iteration masked after the stop
+    runs its forward too).  Fails unless the kernel launched ``per_forward``
+    times a forward.  Returns ``fn()``."""
+    import torch
+
+    from lrs_pnp_dip_tpu_torch.ops import SN_KERNEL
+    from lrs_pnp_dip_tpu_torch.solvers.dip import DipFit
+
+    fit, forwards = DipFit.__call__, []
+
+    def counted(self, *args, chunk=None, **kw):
+        result = fit(self, *args, chunk=chunk, **kw)
+        replayed = chunk is not None and getattr(self.model, "capturable", True)
+        forwards.append(self.flag_reads * (chunk if replayed else 1))
+        return result
+
+    torch.cuda.synchronize()
+    SN_KERNEL.launches = 0
+    DipFit.__call__ = counted
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        DipFit.__call__ = fit
+    n = sum(forwards)
+    log(f"  {label}: spectral norm kernel launches {SN_KERNEL.launches} over {n} forwards in {len(forwards)} fits")
+    if not n or SN_KERNEL.launches != per_forward * n:
+        raise AssertionError(f"{label}: the spectral norm kernel launched {SN_KERNEL.launches} times in {n} "
+                             f"forwards, expected {per_forward} a forward")
+    sn_by_path[label] = SN_KERNEL.launches
+    return out
 
 
 def default_scene(port, by_path: dict, smi: str) -> dict:
@@ -1739,16 +1838,17 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
         replayed = graph()  # captured, then replayed
         again = graph()
         torch.cuda.synchronize()
-        if graph.b1_launches != 1 or ISTA_KERNEL.launches != 2:
-            raise AssertionError(f"the graph holds {graph.b1_launches} launches of B1 and two replays counted "
+        held, held_plan = graph.launches_of(ISTA_KERNEL)
+        if held != 1 or ISTA_KERNEL.launches != 2:
+            raise AssertionError(f"the graph holds {held} launches of B1 and two replays counted "
                                  f"{ISTA_KERNEL.launches}; expected 1 and 2")
         if not (torch.equal(replayed, eager) and torch.equal(again, eager)):
             raise AssertionError(f"{mm}: B1 replayed from a graph differs from the eager launch")
-        if graph.b1_plan.tier != tier:
-            raise AssertionError(f"B1 at P {graph.b1_plan.P}: tier {graph.b1_plan.tier}")
+        if held_plan.tier != tier:
+            raise AssertionError(f"B1 at P {held_plan.P}: tier {held_plan.tier}")
         ms_graph = time_cuda(graph)
         ms_eager = time_cuda(lambda: pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha))
-        log(f"  P {blocks.shape[1]}, K {D.shape[1]} {mm:9s} (tier {graph.b1_plan.tier}) replay equals the eager "
+        log(f"  P {blocks.shape[1]}, K {D.shape[1]} {mm:9s} (tier {held_plan.tier}) replay equals the eager "
             f"launch bit for bit; replay {ms_graph:.4f} ms, eager call {ms_eager:.4f} ms; launches counted per "
             "replay 1")
     log("[scanned] B1's panel kernels replayed from a captured graph against an eager launch: nB 1152, P 1296, "
@@ -1772,8 +1872,9 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
             replayed = graph()  # captured, then replayed
             again = graph()
             torch.cuda.synchronize()
-        if graph.b1_launches != 1 or ISTA_KERNEL.launches != 2 or graph.b1_plan != plan:
-            raise AssertionError(f"{mm}: the graph holds {graph.b1_launches} launches of B1 ({graph.b1_plan}) and two "
+        held, held_plan = graph.launches_of(ISTA_KERNEL)
+        if held != 1 or ISTA_KERNEL.launches != 2 or held_plan != plan:
+            raise AssertionError(f"{mm}: the graph holds {held} launches of B1 ({held_plan}) and two "
                                  f"replays counted {ISTA_KERNEL.launches}; expected 1 of {plan} and 2")
         if not (torch.equal(replayed, eager) and torch.equal(again, eager)):
             raise AssertionError(f"{mm}: B1's panel kernel replayed from a graph differs from the eager launch")
@@ -2022,7 +2123,7 @@ def main() -> int:
         )
         from lrs_pnp_dip_tpu_torch.models import NET_TYPES, Skip, get_net
         from lrs_pnp_dip_tpu_torch.ops import (
-            ISTA_KERNEL, bm3d_prox, compute_alpha, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused,
+            ISTA_KERNEL, SN_KERNEL, bm3d_prox, compute_alpha, mpsnr, pnp_ista_blocks, pnp_ista_blocks_fused,
             sparse_prox, ssim_matlab, svt_gram,
         )
         from lrs_pnp_dip_tpu_torch.solvers import FIT_CHUNK, SeedEnsembleSolver, Solver
@@ -2052,7 +2153,9 @@ def main() -> int:
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # 2. kernel against its plain version
+    # 2. kernels against their plain versions
+    sn_timing = sn_check(peaks, smi)
+    sn_by_path: dict = {}  # the spectral norm kernel's launches on the driven paths
     D_np = load_trained_dictionary(512)
     log("[check] kernel B1 vs plain pnp_ista_blocks, 100 iterations, trace4 alpha")
     main = problem(36, 36, 0, D_np)
@@ -2237,16 +2340,18 @@ def main() -> int:
     dip_ms = {"dip (skip-128 f32)": f32_dip_ms}
     for variant, net, bf16 in (("dip_1lip", "Lipschitz U-Net f32", False), ("dip_fast", "skip-128 bf16", True)):
         log(f"[paths] inpaint(variant={variant!r}, n_iters=2), DIP fit capped at {DIP_CAP}")
-        (cube, hist), wall = drive(variant, lambda: port.inpaint(
+        per_forward = int(variant == "dip_1lip")  # skip-128 has no spectral norm
+        (cube, hist), wall = drive(variant, lambda: sn_drive(variant, lambda: port.inpaint(
             sample.noisy, sample.mask, variant=variant, clean=sample.clean, n_iters=2, **capped(variant)),
-            launches=2, nB=144, bf16=bf16)
+            per_forward, sn_by_path), launches=2, nB=144, bf16=bf16)
         by_path[variant] = ISTA_KERNEL.launches
         step_report(variant, hist, wall)
         check_recovery(variant, cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
         b1 = timing["bfloat16" if bf16 else "float32"]["ms"]
         dip_ms[f"{variant} ({net})"] = (hist["seconds"][1] * 1e3 - b1) / max(hist["dip_iters"][1], 1)
         log(f"  mpsnr {[round(v, 4) for v in hist['mpsnr']]}, per step {[round(v, 3) for v in hist['seconds']]} s")
-        host_cube, host_hist, reads = run_fits(Solver(sample, D_np, PRESETS[variant](**capped(variant))), 2, True)
+        host_cube, host_hist, reads = sn_drive(f"{variant} host-stepped", lambda: run_fits(
+            Solver(sample, D_np, PRESETS[variant](**capped(variant))), 2, True), per_forward, sn_by_path)
         same = np.array_equal(cube, host_cube) and hist["dip_iters"] == host_hist["dip_iters"]
         log(f"  the same 2 steps with host-stepped fits ({reads} stop-flag reads): the cube "
             f"{'equals' if same else 'differs from'} the replayed fits' bit for bit, dip_iters "
@@ -2469,9 +2574,15 @@ def main() -> int:
         x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
         with torch.no_grad():
             ref = net(x)
+            SN_KERNEL.launches = 0
             out = card_net(x.cuda())
             torch.cuda.synchronize()
             worst, _ = relative_error(out, ref)
+        if SN_KERNEL.launches != int(key == "lipschitz_unet"):
+            raise AssertionError(f"get_net({key!r}): a forward launched the spectral norm kernel "
+                                 f"{SN_KERNEL.launches} times")
+        if key == "lipschitz_unet":
+            sn_by_path["zoo forward lipschitz_unet"] = SN_KERNEL.launches
         log(f"  {key:14s} forward {tuple(shape)} -> {tuple(out.shape)}: card vs CPU {worst:.3e} of max|out| "
             f"(limit {ZOO_MATCH})")
         if not (bool(torch.isfinite(out).all()) and worst < ZOO_MATCH):
@@ -2496,7 +2607,9 @@ def main() -> int:
             else:
                 raise AssertionError(f"dip_net={key!r} ran a solve; the JAX package cannot")
             continue
-        (cube, hist), wall = drive(f"dip_net={key}", one_step, launches=1, nB=144)
+        step = one_step if key != "lipschitz_unet" else (
+            lambda: sn_drive("dip_net=lipschitz_unet", one_step, 1, sn_by_path))
+        (cube, hist), wall = drive(f"dip_net={key}", step, launches=1, nB=144)
         by_path[f"dip_net={key}"] = ISTA_KERNEL.launches
         check_recovery(f"dip_net={key}", cube, (36, 36, 128), hist["mpsnr"][-1], input_mpsnr)
         iters = int(hist["dip_iters"][0])
@@ -2559,6 +2672,22 @@ def main() -> int:
         "default_scene": scene8,
     }]
     kernels += panel_entries(tier_timing)
+    kernels.append({
+        "name": "sn_power_cluster",
+        "route": "cuda",
+        "source": "lrs_pnp_dip_tpu_torch/csrc/spectral_norm.cu",
+        # the JAX package leaves the power iteration (models/lipschitz.py) to XLA
+        "replaces": "none",
+        "launches": sum(sn_by_path.values()),
+        "launches_by_path": sn_by_path,
+        # a forward at the dip_1lip preset's 14 weights (ten (128, 1152), two (128, 512), two (128, 128)):
+        # the kernel and the plain loop (_sigma_max_power conv by conv) each in a CUDA graph; the bound is
+        # the weights read once from device memory, beside a latency floor of 17 dependent cluster exchanges
+        **sn_timing,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_ms_none_because": "no single PyTorch call computes 8 power steps and sigma of a weight",
+    })
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

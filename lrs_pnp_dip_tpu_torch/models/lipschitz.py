@@ -16,18 +16,26 @@ state, not a parameter: a buffer that ``reset_parameters`` draws from a
 normal and that every forward advances in place under ``no_grad``; it is
 part of the state dict, so a transplanted init carries it.
 
+sigma depends on a conv's weight and ``u`` alone, not on its input, so a net
+takes the power iteration of all its convs in one call at the start of its
+forward (:func:`spectral_norms`, through :func:`conv_factors`) and hands each
+conv its factor.  On the CPU that call runs :func:`_sigma_max_power` conv by
+conv, the plain version; on the card it is one launch of a hand-written
+kernel (:mod:`..ops.spectral_norm_cuda`) for the whole group.
+
 The modules run NCHW inside, like :mod:`.common`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.spectral_norm_cuda import SN_KERNEL
 from .common import pad_input
 
 
@@ -44,6 +52,46 @@ def _sigma_max_power(w2d: torch.Tensor, u: torch.Tensor, n_iter: int):
         u = u / (torch.linalg.norm(u) + 1e-12)
     sigma = torch.linalg.norm(w2d.T @ u)
     return sigma, u
+
+
+def spectral_norms(
+    weights: Sequence[torch.Tensor],
+    us: Sequence[torch.Tensor],
+    ln_lambdas: Sequence[float],
+    n_iters: Sequence[int],
+) -> torch.Tensor:
+    """sigma of each weight (viewed as (out, -1), in f32) by ``n_iters``
+    power steps from its ``u``, which advances in place, and the factor
+    ``max(1, sigma / ln_lambda)``: a (2, G) f32 tensor, sigmas then factors.
+    On the CPU each weight runs :func:`_sigma_max_power` in turn; on any
+    other device the group is one launch of the kernel, or the call raises."""
+    with torch.no_grad():
+        w2ds = [w.reshape(w.shape[0], -1).to(torch.float32) for w in weights]
+        if w2ds[0].device.type != "cpu":
+            return SN_KERNEL.launch(w2ds, us, ln_lambdas, n_iters)
+        sigmas, factors = [], []
+        for w2d, u, ln_lambda, n_iter in zip(w2ds, us, ln_lambdas, n_iters):
+            sigma, new_u = _sigma_max_power(w2d, u, n_iter)
+            u.copy_(new_u)
+            sigmas.append(sigma)
+            factors.append(torch.clamp(sigma / ln_lambda, min=1.0))
+        return torch.stack([torch.stack(sigmas), torch.stack(factors)])
+
+
+def conv_factors(convs: Sequence["SNConv2d"], weights: Sequence[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+    """Each conv's factor for its weight in ``weights`` (None where the
+    constraint is off): the power-iteration convs' in one call of
+    :func:`spectral_norms`, the exact ones' by their own SVD."""
+    power = [i for i, conv in enumerate(convs) if hasattr(conv, "u")]
+    factors = [None if i in power else conv.factor(weights[i]) for i, conv in enumerate(convs)]
+    if power:
+        table = spectral_norms(
+            [weights[i] for i in power], [convs[i].u for i in power],
+            [convs[i].ln_lambda for i in power], [convs[i].power_iters for i in power],
+        )
+        for k, i in enumerate(power):
+            factors[i] = table[1, k]
+    return factors
 
 
 def _kaiming_uniform_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -102,18 +150,28 @@ class SNConv2d(nn.Module):
             if hasattr(self, "u"):
                 self.u.normal_(generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight = self.weight
-        if self.ln_lambda > 0:
-            with torch.no_grad():
-                # sigma in f32 whatever type the weight was cast to
-                w2d = weight.reshape(weight.shape[0], -1).to(torch.float32)
-                if self.sn_mode == "exact":
-                    sigma = _sigma_max_exact(w2d)
-                else:
-                    sigma, new_u = _sigma_max_power(w2d, self.u, self.power_iters)
-                    self.u.copy_(new_u)
-                factor = torch.clamp(sigma / self.ln_lambda, min=1.0)
+    def factor(self, weight: torch.Tensor) -> Optional[torch.Tensor]:
+        """``max(1, sigma / ln_lambda)`` of ``weight``, sigma in f32 whatever
+        type the weight was cast to; advances ``u`` in power mode.  None
+        without the constraint."""
+        if self.ln_lambda <= 0:
+            return None
+        if self.sn_mode == "power":
+            return spectral_norms([weight], [self.u], [self.ln_lambda], [self.power_iters])[1, 0]
+        with torch.no_grad():
+            sigma = _sigma_max_exact(weight.reshape(weight.shape[0], -1).to(torch.float32))
+            return torch.clamp(sigma / self.ln_lambda, min=1.0)
+
+    def forward(
+        self, x: torch.Tensor, weight: Optional[torch.Tensor] = None, factor: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Alone, the conv takes its own factor.  A net that took the factors
+        of all its convs at once (:func:`conv_factors`) passes the weight it
+        read and that weight's factor."""
+        if weight is None:
+            weight = self.weight
+            factor = self.factor(weight)
+        if factor is not None:
             weight = weight / factor.to(weight.dtype)
         x = pad_input(x, (self.kernel_size - 1) // 2, self.pad)
         return F.conv2d(x, weight, self.bias, stride=self.stride)

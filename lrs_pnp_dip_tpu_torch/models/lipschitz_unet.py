@@ -18,6 +18,11 @@ resized to it, sampling at ``floor((i + 0.5) * in / out)``: the rule of
 ``floor(i * in / out)`` and differs, for example in two of six indices of a
 5 -> 6 resize).  At 36x36 no resize runs.
 
+Each forward first takes the factors of all 14 convs in one call
+(:func:`.lipschitz.conv_factors`: on the card one kernel launch for every
+power iteration), then runs the layers, each conv dividing its weight by its
+factor.
+
 Submodules carry the names flax gives their counterparts (``SNConv2d_<n>``,
 ``SNBatchNorm2d_<n>``, numbered per type in call order), so a flax tree maps
 onto the state dict by renaming (:mod:`.transplant`).  Takes and returns
@@ -26,14 +31,14 @@ onto the state dict by renaming (:mod:`.transplant`).  Takes and returns
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .common import activation, upsample2x
-from .lipschitz import SNBatchNorm2d, SNConv2d
+from .lipschitz import SNBatchNorm2d, SNConv2d, conv_factors
 
 
 class LipschitzUNet(nn.Module):
@@ -86,20 +91,29 @@ class LipschitzUNet(nn.Module):
             elif isinstance(mod, SNBatchNorm2d):
                 mod.reset_parameters()
 
-    def _conv_bn_act(self, i: int, y: torch.Tensor) -> torch.Tensor:
-        conv, bn = getattr(self, f"SNConv2d_{i}"), getattr(self, f"SNBatchNorm2d_{i}")
-        return self.act(bn(conv(y)))
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        convs = [getattr(self, f"SNConv2d_{i}") for i in range(14)]
+        weights = [conv.weight for conv in convs]  # read once: a parametrization computes it per read
+        factors = conv_factors(convs, weights)
+        return self.layers(x, lambda i, y: convs[i](y, weights[i], factors[i]))
+
+    def layers(self, x: torch.Tensor, conv: Callable[[int, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """The net on ``x`` with ``conv(i, y)`` as its conv ``i``: the forward
+        passes each conv the factor it took for the group; with
+        ``self.SNConv2d_<i>(y)`` each conv takes its own."""
+
+        def conv_bn_act(i: int, y: torch.Tensor) -> torch.Tensor:
+            return self.act(getattr(self, f"SNBatchNorm2d_{i}")(conv(i, y)))
+
         y = x.permute(0, 3, 1, 2)
         down_sizes = []
         for d in range(4):
             down_sizes.append(tuple(y.shape[2:]))
-            y = self._conv_bn_act(2 * d + 1, self._conv_bn_act(2 * d, y))
+            y = conv_bn_act(2 * d + 1, conv_bn_act(2 * d, y))
         for j, target in enumerate(reversed(down_sizes)):
-            y = self._conv_bn_act(8 + j, upsample2x(y, "nearest"))
+            y = conv_bn_act(8 + j, upsample2x(y, "nearest"))
             if tuple(y.shape[2:]) != target:
                 y = F.interpolate(y, size=target, mode="nearest-exact")
-        y = self._conv_bn_act(12, y)
-        y = self.act(self.SNConv2d_13(y))
+        y = conv_bn_act(12, y)
+        y = self.act(conv(13, y))
         return y.permute(0, 2, 3, 1)

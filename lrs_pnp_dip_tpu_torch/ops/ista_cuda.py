@@ -59,6 +59,28 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+def build_library(sources, flags, stem: str, build_dir: Path = _CSRC / "build"):
+    """Compile ``sources[0]`` (which includes the rest) with ``nvcc`` and
+    ``flags`` into ``build_dir/lib<stem>_<hash>.so``, the hash of the
+    sources and flags, unless that library is there; then load it with
+    ``ctypes``.  Returns the library and nvcc's output ("" where the
+    library was built already)."""
+    digest = hashlib.sha256(
+        b"".join(path.read_bytes() for path in sources) + " ".join(flags).encode()
+    ).hexdigest()[:16]
+    lib_path = build_dir / f"lib{stem}_{digest}.so"
+    log = ""
+    if not lib_path.exists():
+        build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(sources[0])], capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) building {sources[0]}:\n{log}")
+        os.replace(tmp, lib_path)
+    return ctypes.CDLL(str(lib_path)), log
+
+
 # Limits of the kernel's register tiles (csrc/ista.cu).
 _F32_ROWS = 11  # kRowsF32: rows per cluster in f32 mode
 _BF16_ROWS = 16  # kRowsBf16: the mma tile's rows
@@ -805,9 +827,7 @@ class FusedIstaKernel:
     into the graph and adds to ``captured`` instead.  ``last_plan`` is the
     tiling of the latest launch, replays included."""
 
-    source = _CSRC / "ista.cu"
     sources = (_CSRC / "ista.cu", _CSRC / "ista_panel.cuh")  # ista.cu includes the panel kernels
-    build_dir = _CSRC / "build"
 
     def __init__(self, extra_flags: tuple = ()):
         self.flags = _NVCC_FLAGS + tuple(extra_flags)
@@ -822,30 +842,11 @@ class FusedIstaKernel:
         self._share_plans: dict = {}
         self._whole: Optional[int] = None
 
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(
-            b"".join(path.read_bytes() for path in self.sources) + " ".join(self.flags).encode()
-        ).hexdigest()[:16]
-        return self.build_dir / f"libista_{digest}.so"
-
     def build(self) -> ctypes.CDLL:
         """Compile the source if its library is not built yet, then load it."""
         if self._lib is not None:
             return self._lib
-        lib_path = self.library_path()
-        if not lib_path.exists():
-            self.build_dir.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {self.source}:\n"
-                    f"{self.build_log}"
-                )
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
+        lib, self.build_log = build_library(self.sources, self.flags, "ista")
         ptr, c_int = ctypes.c_void_p, ctypes.c_int
         lib.lrs_pnp_ista_launch.argtypes = [ptr] * 4 + [ctypes.c_float, ptr] + [c_int] * 10 + [ptr]
         lib.lrs_pnp_ista_launch.restype = c_int

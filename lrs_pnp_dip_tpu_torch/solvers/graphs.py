@@ -10,19 +10,24 @@ The second call captures the function into a ``torch.cuda.CUDAGraph``, and
 that call and every later one replays the graph and returns the tensors the
 capture returned, which the replay refills.  On the CPU every call runs the
 function eagerly: the plain version, which the tests hold to the JAX
-package.  A capture that fails raises; nothing falls back to eager
+package.  Each replay adds the launches the graph holds of each
+hand-written kernel to that kernel's count (``ops.HAND_WRITTEN_KERNELS``).
+A capture that fails raises; nothing falls back to eager
 execution on the card.  The warm-up and the capture run with cuDNN's
 deterministic algorithms, as every DIP fit does, so that a replay gives the
-bits of the eager run.
+bits of the eager run.  The capture runs with Python's cyclic garbage
+collector paused: a dead graph that the collector frees during a capture
+makes CUDA calls that a capture forbids, and the capture fails.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
 
-from ..ops.ista_cuda import ISTA_KERNEL
+from ..ops import HAND_WRITTEN_KERNELS
 from ..utils.device import deterministic_cudnn
 
 
@@ -34,8 +39,7 @@ class Captured:
         self.device = torch.device(device)
         self.graph = None
         self.out = None
-        self.b1_launches = 0  # launches of kernel B1 the graph holds
-        self.b1_plan = None  # the tiling of the last of them
+        self.held = {}  # hand-written kernel -> (its launches the graph holds, the tiling of the last)
         self._warm = False
 
     def __call__(self):
@@ -47,8 +51,14 @@ class Captured:
                 return self._on_side_stream()
             self._capture()
         self.graph.replay()
-        ISTA_KERNEL.replayed(self.b1_launches, self.b1_plan)
+        for kernel, (n, plan) in self.held.items():
+            kernel.replayed(n, plan)
         return self.out
+
+    def launches_of(self, kernel) -> tuple:
+        """(launches of the hand-written ``kernel`` the graph holds, the
+        tiling of the last of them): (0, None) for one it does not hold."""
+        return self.held.get(kernel, (0, None))
 
     @deterministic_cudnn()
     def _on_side_stream(self):
@@ -63,12 +73,20 @@ class Captured:
     @deterministic_cudnn()
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
-        before = ISTA_KERNEL.captured
-        with torch.cuda.graph(graph):
-            out = self.fn()
+        before = [kernel.captured for kernel in HAND_WRITTEN_KERNELS]
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self.out = graph, out
-        self.b1_launches = ISTA_KERNEL.captured - before
-        self.b1_plan = ISTA_KERNEL.last_plan if self.b1_launches else None
+        self.held = {
+            kernel: (kernel.captured - n, kernel.last_plan)
+            for kernel, n in zip(HAND_WRITTEN_KERNELS, before) if kernel.captured > n
+        }
 
     def reset(self) -> None:
         """Drop the graph (the function's tensors changed): the next call

@@ -40,11 +40,13 @@ at warm-up and capture).  This list is the one record of their names:
 
 Counters beside the spans, read outside any timed region:
 ``DipFit.flag_reads`` (stop-flag reads of the latest fit),
-``ISTA_KERNEL.launches_by_kernel`` (kernel B1's launches by kernel), and
+``ISTA_KERNEL.launches_by_kernel`` (kernel B1's launches by kernel),
+``SN_KERNEL.launches`` (launches of the spectral norm kernel,
+``ops/spectral_norm_cuda.py``: one a forward of the 1-Lip U-Net on the
+card, replays of a captured fit included), and
 ``LipschitzUNet.power_products`` (the matrix-vector products its spectral
-norms run per forward, derived from its modules; inside ``dip.fit``, whose
-captured iteration no span can enter, a trace reader tells the spectral
-norm's kernels apart by name and holds their count to twice this number).
+norms run per forward, derived from its modules, inside that one launch on
+the card).
 """
 
 from __future__ import annotations

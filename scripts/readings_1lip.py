@@ -19,6 +19,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "portbench"))
 
 import control  # noqa: E402
+import torch  # noqa: E402
 import faults  # noqa: E402
 from lrs_pnp_dip_tpu_torch.models import lipschitz  # noqa: E402
 
@@ -26,13 +27,13 @@ from lrs_pnp_dip_tpu_torch.models import lipschitz  # noqa: E402
 def sn_omitted(patch) -> None:
     """The spectral norm left out: sigma's factor held at 1 in every
     ``SNConv2d`` (the power iteration still runs and advances u)."""
-    power = lipschitz._sigma_max_power
+    norms = lipschitz.spectral_norms
 
-    def unit(w2d, u, n_iter):
-        sigma, new_u = power(w2d, u, n_iter)
-        return sigma * 0.0, new_u
+    def unit(weights, us, ln_lambdas, n_iters):
+        table = norms(weights, us, ln_lambdas, n_iters)
+        return torch.stack([table[0] * 0.0, torch.ones_like(table[1])])
 
-    patch(lipschitz, "_sigma_max_power", unit)
+    patch(lipschitz, "spectral_norms", unit)
 
 
 faults.FAULTS["sn_omitted"] = sn_omitted

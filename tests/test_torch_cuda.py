@@ -345,7 +345,7 @@ def test_b1_replayed_from_a_graph_gives_the_eager_bits(cuda, matmul_dtype):
     warm = graph()  # the first call runs eagerly
     assert graph.graph is None and ISTA_KERNEL.launches == 1
     first = graph()  # the second captures, then replays
-    assert graph.b1_launches == 1 and ISTA_KERNEL.launches == 2
+    assert graph.launches_of(ISTA_KERNEL)[0] == 1 and ISTA_KERNEL.launches == 2
     pnp_ista_blocks_fused(Y[:13], M[:13], D, cfg)  # another launch between two replays
     second = graph()
     torch.cuda.synchronize()
@@ -377,6 +377,30 @@ def test_a_capture_that_fails_raises(cuda):
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert "raised" in proc.stdout and "True" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_the_capture_pauses_the_garbage_collector(cuda):
+    """A dead graph that Python's cyclic collector frees during another
+    capture makes CUDA calls that a capture forbids, and that capture fails
+    (``chip_smoke.py``'s DIP scene failed so, after earlier phases'
+    solvers were dropped): a Captured pauses the collector while it
+    captures, and only then."""
+    import gc
+
+    from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
+
+    y = torch.zeros(4, device=cuda)
+    collecting = []
+
+    def fn():
+        collecting.append(gc.isenabled())
+        return y.add_(1)
+
+    graph = Captured(fn, cuda)
+    for _ in range(3):  # eager, captured and replayed, replayed
+        graph()
+    torch.cuda.synchronize()
+    assert collecting == [True, False] and gc.isenabled() and float(y.sum()) == 12.0
 
 
 def test_run_scanned_on_the_card_equals_run(cuda):
@@ -797,7 +821,7 @@ def test_panel_kernel_replayed_from_a_graph(cuda, matmul_dtype):
         graph()
         before = ISTA_KERNEL.launches_by_kernel[kernel_name(plan)]
         assert torch.equal(graph(), eager) and torch.equal(graph(), eager)
-    assert graph.b1_launches == 1 and graph.b1_plan == plan
+    assert graph.launches_of(ISTA_KERNEL) == (1, plan)
     assert ISTA_KERNEL.launches_by_kernel[kernel_name(plan)] == before + 2
 
 
@@ -820,7 +844,8 @@ def test_streamed_kernel_replayed_from_a_graph(cuda):
             graph = Captured(lambda: pnp_ista_blocks_fused(Y, M, D, cfg), cuda)
             graph()
             assert torch.equal(graph(), eager) and torch.equal(graph(), eager)
-        assert graph.b1_launches == 1 and graph.b1_plan.tier == tier
+        n, last = graph.launches_of(ISTA_KERNEL)
+        assert n == 1 and last.tier == tier
 
 
 def test_captures_run_under_deterministic_cudnn(cuda):
@@ -914,3 +939,165 @@ def test_tile_batch_build_replays_the_eager_build(cuda):
     first = solve_tiled(scene.noisy, scene.mask, D_np, cfg, **kw)
     second = solve_tiled(scene.noisy, scene.mask, D_np, cfg, **kw)
     assert np.isfinite(first).all() and np.array_equal(first, second)
+
+
+# -- the spectral norm kernel (csrc/spectral_norm.cu) -------------------------
+
+# (m, n) of the `dip_1lip` preset's 14 convs (128 bands, width 128)
+SN_PRESET = [(128, 1152)] * 8 + [(128, 512)] * 2 + [(128, 1152)] * 2 + [(128, 128)] * 2
+
+
+def _sn_inputs(cuda, shapes, seed):
+    """Weights as a fresh net draws them (U(+-sqrt(6 / n))) and u ~ N(0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    weights = [((torch.rand((m, n), generator=gen) * 2 - 1) * (6.0 / n) ** 0.5).to(cuda) for m, n in shapes]
+    us = [torch.randn(m, generator=gen).to(cuda) for m, _ in shapes]
+    return weights, us
+
+
+def _sn_plain(weights, us, ln_lambda, n_iter):
+    """The plain version on the card, conv by conv: sigma, factor, new u."""
+    from lrs_pnp_dip_tpu_torch.models.lipschitz import _sigma_max_power
+
+    rows = []
+    for w, u in zip(weights, us):
+        sigma, new_u = _sigma_max_power(w, u.clone(), n_iter)
+        rows.append((sigma, torch.clamp(sigma / ln_lambda, min=1.0), new_u))
+    return rows
+
+
+@pytest.mark.parametrize(
+    "shapes,ln_lambda,n_iter",
+    [
+        (SN_PRESET, 1.0, 8),
+        ([(19, 27), (5, 7), (33, 300), (128, 130), (300, 150)], 0.5, 8),
+        ([(16, 144)] * 7 + [(16, 72), (16, 64), (16, 16), (8, 16)], 1.0, 8),
+        ([(300, 2000), (128, 1152), (7, 2001)], 2.0, 8),
+        ([(128, 1152), (19, 27)], 1.0, 0),
+    ],
+    ids=["preset", "odd", "width16", "cluster16", "no_steps"],
+)
+def test_spectral_norm_kernel_matches_plain(cuda, shapes, ln_lambda, n_iter):
+    """sigma within 1e-5 relative and u within 1e-5 of the plain power
+    iteration on the card (the sums run in another order), the factor from
+    that sigma, one launch, and a second launch from the same u gives equal
+    bits (no atomics, fixed order)."""
+    from lrs_pnp_dip_tpu_torch.ops.spectral_norm_cuda import SN_KERNEL
+
+    weights, us = _sn_inputs(cuda, shapes, seed=len(shapes))
+    u0 = [u.clone() for u in us]
+    want = _sn_plain(weights, us, ln_lambda, n_iter)
+    before = SN_KERNEL.launches
+    table = SN_KERNEL.launch(weights, us, [ln_lambda] * len(shapes), [n_iter] * len(shapes))
+    torch.cuda.synchronize()
+    assert SN_KERNEL.launches == before + 1 and table.shape == (2, len(shapes))
+    for g, (sigma, factor, new_u) in enumerate(want):
+        assert abs(float(table[0, g]) - float(sigma)) <= 1e-5 * float(sigma), g
+        assert float(table[1, g]) == max(1.0, float(table[0, g]) / ln_lambda), g
+        assert float((us[g] - new_u).abs().max()) <= 1e-5, g
+    again = [u.clone() for u in u0]
+    table2 = SN_KERNEL.launch(weights, again, [ln_lambda] * len(shapes), [n_iter] * len(shapes))
+    torch.cuda.synchronize()
+    assert torch.equal(table2, table) and all(torch.equal(a, b) for a, b in zip(again, us))
+
+
+def test_spectral_norm_kernel_replayed_from_a_graph(cuda):
+    """The preset's group captured in a CUDA graph: each replay equals the
+    eager launch from the same u bit for bit, the capture counts in
+    ``captured``, and each replay counts the launch it holds."""
+    from lrs_pnp_dip_tpu_torch.ops.spectral_norm_cuda import SN_KERNEL
+    from lrs_pnp_dip_tpu_torch.solvers.graphs import Captured
+
+    weights, us = _sn_inputs(cuda, SN_PRESET, seed=3)
+    u0 = [u.clone() for u in us]
+    eager_us = [u.clone() for u in us]
+    eager = []
+    for _ in range(3):  # u advances each call
+        eager.append((SN_KERNEL.launch(weights, eager_us, [1.0] * 14, [8] * 14).clone(),
+                      [u.clone() for u in eager_us]))
+    for u, first in zip(us, u0):
+        u.copy_(first)
+    graph = Captured(lambda: SN_KERNEL.launch(weights, us, [1.0] * 14, [8] * 14), cuda)
+    launches, captured = SN_KERNEL.launches, SN_KERNEL.captured
+    for k in range(3):  # eager, captured and replayed, replayed
+        table = graph()
+        torch.cuda.synchronize()
+        assert torch.equal(table, eager[k][0]) and all(torch.equal(a, b) for a, b in zip(us, eager[k][1])), k
+    assert graph.launches_of(SN_KERNEL) == (1, SN_KERNEL.last_plan) and graph.launches_of(ISTA_KERNEL) == (0, None)
+    assert (SN_KERNEL.launches, SN_KERNEL.captured) == (launches + 3, captured + 1)
+
+
+def test_lipschitz_fit_launches_the_kernel_once_a_forward(cuda):
+    """A 1-Lip U-Net forward launches the kernel once; a replayed fit of n
+    iterations counts n launches (the warm-up, the captured one and the
+    replays), and a second fit n more; host-stepped, one a forward too."""
+    from lrs_pnp_dip_tpu_torch.models import LipschitzUNet
+    from lrs_pnp_dip_tpu_torch.ops.spectral_norm_cuda import SN_KERNEL
+    from lrs_pnp_dip_tpu_torch.solvers import DipFit
+    from lrs_pnp_dip_tpu_torch.utils.config import DipConfig
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.random((1, 36, 36, 8), dtype=np.float32)).to(cuda)
+    net = LipschitzUNet(8, num_output_channels=8, width=16).to(cuda)
+    before = SN_KERNEL.launches
+    net(x)
+    torch.cuda.synchronize()
+    assert SN_KERNEL.launches == before + 1 and len(SN_KERNEL.last_plan.shapes) == 14
+    fit = DipFit(net, DipConfig(num_iter=12, patience=10**9, learning_rate=0.01))
+    gen = torch.Generator(device=cuda)
+    for chunk in (4, 4, None):
+        before = SN_KERNEL.launches
+        result = fit(x, x, torch.ones_like(x), generator=gen.manual_seed(0), chunk=chunk)
+        torch.cuda.synchronize()
+        assert result.n_iters == 12 and SN_KERNEL.launches == before + 12, chunk
+
+
+def test_lipschitz_unet_on_the_card_tracks_the_plain_power_iteration(cuda):
+    """The preset's net at 36x36x128 in f32, TF32 off as the `dip_1lip`
+    configuration runs it: the forward with the kernel's factors against
+    the same net with each factor from the plain power iteration (the
+    per-module path with ``_sigma_max_power``): the output within 1e-5 of
+    its largest value, every u within 1e-5.  (With TF32 convolutions a
+    factor one ulp away rounds some weights to the neighbouring TF32 value,
+    and the outputs part by some 2.5e-3 of their largest.)"""
+    from lrs_pnp_dip_tpu_torch.models import LipschitzUNet
+    from lrs_pnp_dip_tpu_torch.models.lipschitz import _sigma_max_power
+
+    net = LipschitzUNet(128, num_output_channels=128, width=128, pad="reflection").to(cuda)
+    net.reset_parameters(torch.Generator(device=cuda).manual_seed(1))
+    x = torch.from_numpy(np.random.default_rng(9).random((1, 36, 36, 128), dtype=np.float32)).to(cuda)
+    convs = [getattr(net, f"SNConv2d_{i}") for i in range(14)]
+    u0 = [c.u.clone() for c in convs]
+    plain = []
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for c, u in zip(convs, u0):
+            sigma, new_u = _sigma_max_power(c.weight.reshape(c.weight.shape[0], -1), u, 8)
+            plain.append((torch.clamp(sigma, min=1.0), new_u))
+        ref = net.layers(x, lambda i, y: convs[i](y, convs[i].weight, plain[i][0]))
+        got = net(x)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    for c, (_, new_u) in zip(convs, plain):
+        assert float((c.u - new_u).abs().max()) <= 1e-5
+
+
+def test_spectral_norm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from lrs_pnp_dip_tpu_torch.ops.spectral_norm_cuda import SN_KERNEL
+
+    w, u = torch.zeros((8, 16), device=cuda), torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        SN_KERNEL.launch([w.double()], [u], [1.0], [8])
+    with pytest.raises(TypeError, match="float32"):
+        SN_KERNEL.launch([w], [u.bfloat16()], [1.0], [8])
+    with pytest.raises(ValueError, match="CUDA device"):
+        SN_KERNEL.launch([w], [u.cpu()], [1.0], [8])
+    with pytest.raises(ValueError, match="contiguous"):
+        SN_KERNEL.launch([torch.zeros((16, 8), device=cuda).T], [u], [1.0], [8])
+    with pytest.raises(ValueError, match=r"\(m, n\)"):
+        SN_KERNEL.launch([w], [torch.zeros(9, device=cuda)], [1.0], [8])
+    with pytest.raises(ValueError, match="ln_lambda"):
+        SN_KERNEL.launch([w], [u], [0.0], [8])
+    with pytest.raises(ValueError, match="shared memory"):
+        SN_KERNEL.launch([torch.zeros((512, 16384), device=cuda)], [torch.zeros(512, device=cuda)], [1.0], [8])
+    with pytest.raises(ValueError, match="1 to 64"):
+        SN_KERNEL.launch([w] * 65, [u] * 65, [1.0] * 65, [8] * 65)
