@@ -589,7 +589,8 @@ def wide_tiles_of_16(peaks: dict, smi: str) -> dict:
     import torch
 
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, _streamed_plan
+    from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import MAX_SMEM_BYTES
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _streamed_plan
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
     out = {}
@@ -602,7 +603,7 @@ def wide_tiles_of_16(peaks: dict, smi: str) -> dict:
         err = check_kernel(*wide, "float32")
         check_same_bits(*wide, "float32")
         t = time_b1(*wide, "float32", peaks)
-        twelve = _streamed_plan(240, P, K, False, {8: 10, 16: 0}, _MAX_SMEM_BYTES, [])
+        twelve = _streamed_plan(240, P, K, False, {8: 10, 16: 0}, MAX_SMEM_BYTES, [])
         if twelve is None or twelve.rows != 12:
             raise AssertionError(f"nB 240, P {P}, K {K}: no tiling of 12 rows per cluster")
         cfg = SparseProxConfig(n_iter=100)
@@ -680,7 +681,8 @@ def tier_sweep(peaks: dict, smi: str) -> dict:
     import torch
 
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates, predicted_ms
+    from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import MAX_SMEM_BYTES
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import plan_candidates, predicted_ms
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
     out = {}
@@ -695,7 +697,7 @@ def tier_sweep(peaks: dict, smi: str) -> dict:
                 limit, _, _ = bf16_limit(*problem, f"nB {nB}, P {P}, K {K}")
                 f32_ref = pnp_ista_blocks(*problem[:3], dataclasses.replace(cfg, matmul_dtype="float32"),
                                           alpha=problem[3])
-            plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+            plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), MAX_SMEM_BYTES)
             pick = ISTA_KERNEL.plan(nB, P, K, bf16)
             rows = []
             for plan in plans:
@@ -748,7 +750,8 @@ def panel_entries(tier_timing: dict) -> list:
     default scene's launch) the resident and both panel tilings timed in
     turns, and the plain loop at nB 1296 / P 576."""
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
+    from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import MAX_SMEM_BYTES
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import plan_candidates
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
     entries = []
@@ -765,7 +768,7 @@ def panel_entries(tier_timing: dict) -> list:
         # tiling and both panel tilings at nB 1152, in turns
         bf16 = mm == "bfloat16"
         plans = [p for p in plan_candidates(1152, 1296, 512, bf16, ISTA_KERNEL.resident_clusters(bf16),
-                                            _MAX_SMEM_BYTES) if p.tier in ("resident", "panel")]
+                                            MAX_SMEM_BYTES) if p.tier in ("resident", "panel")]
         at80 = time_candidates(*problem[:3], problem[3], dataclasses.replace(cfg, n_iter=80), plans)
         at80 = {f"{p.tier}_C{p.cluster_size}": ms for p, (ms, _) in zip(plans, at80)}
         name = f"pnp_ista_panel_{'bf16' if mm == 'bfloat16' else 'f32'}"
@@ -1854,14 +1857,15 @@ def scanned_phase(port, sample, input_mpsnr, D_np, scene, by_path, smi, peaks, d
     log("[scanned] B1's panel kernels replayed from a captured graph against an eager launch: nB 1152, P 1296, "
         "K 512 (the default scene's launch), the plan's pick where it is the panel tier, else its panel tiling "
         "of clusters of 8")
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
+    from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import MAX_SMEM_BYTES
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import plan_candidates
 
     wide = tier_problem(1152, 1296, 512)
     for mm in ("float32", "bfloat16"):
         bf16 = mm == "bfloat16"
         pick = ISTA_KERNEL.plan(1152, 1296, 512, bf16)
         plan = pick if pick.tier == "panel" else next(
-            p for p in plan_candidates(1152, 1296, 512, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+            p for p in plan_candidates(1152, 1296, 512, bf16, ISTA_KERNEL.resident_clusters(bf16), MAX_SMEM_BYTES)
             if p.tier == "panel")
         cfg = SparseProxConfig(n_iter=100, matmul_dtype=mm)
         with ISTA_KERNEL.forcing(plan):

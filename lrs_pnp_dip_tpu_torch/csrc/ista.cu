@@ -1929,14 +1929,10 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
     // warps 4-7 the odd ones, warp w of a half the tiles w, w + 4, ...; the
     // odd half's sums go through shared memory and are added to the even
     // half's.  Over fewer steps the exchange costs what the halves save (on
-    // an H100 at nB 144, scripts/check_bf16_chains.py --sweep: +8.8% at 9
-    // steps, even at 16 and 25, -8% to -22% from 36 to 57).
+    // an H100 at nB 144, timed against a column kernel that never splits:
+    // +8.8% at 9 steps, even at 16 and 25, -8% to -22% from 36 to 57).
     {
-#ifdef ISTA_COL_NO_SPLIT
-      const int halves = 1;  // a build to time product 2 without the split (scripts/check_bf16_chains.py)
-#else
       const int halves = nks <= 4 * kColPairs && npt >= kColSplitSteps ? 2 : 1;
-#endif
       const int half = halves == 2 ? warp >> 2 : 0, wq = halves == 2 ? warp & 3 : warp;
       const int span = kWarps / halves;  // warps over the tiles
       const int ngroups = (nks + span * kColPairs - 1) / (span * kColPairs);  // the same for every warp
@@ -1951,9 +1947,7 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
         // rounded f32 add: over P / 16 steps uncut (81 at P 1296, about 40 a
         // half) the tensor cores' truncating accumulation flipped bf16
         // roundings of x about twice as often as reorderings of the plain
-        // loop's sums (scripts/witness_b1_bf16.py).  -DISTA_COL_NO_CUT builds
-        // the uncut chain, to time the cut against it
-        // (scripts/check_bf16_chains.py --cut).
+        // loop's sums (scripts/witness_b1_bf16.py).
         float acc[kColPairs][2][4], part[kColPairs][2][4];
 #pragma unroll
         for (int i = 0; i < kColPairs; ++i)
@@ -1963,7 +1957,6 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
             for (int v = 0; v < 4; ++v) acc[i][h][v] = part[i][h][v] = 0.f;
         int steps = 0;  // this half's p steps so far
         auto end_of_step = [&]() {
-#ifndef ISTA_COL_NO_CUT
           if (++steps % kColChunk == 0) {
 #pragma unroll
             for (int i = 0; i < kColPairs; ++i)
@@ -1975,7 +1968,6 @@ __global__ void __launch_bounds__(kThreads, 1) pnp_ista_column_bf16(const Column
                   part[i][h][v] = 0.f;
                 }
           }
-#endif
         };
         if (np > 0) {
 #pragma unroll 1

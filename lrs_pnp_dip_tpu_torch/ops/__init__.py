@@ -16,16 +16,9 @@ from .spectral_norm_cuda import SN_KERNEL
 from .ssim import ssim, ssim_matlab
 from .svt import singular_energy_ratio, singular_values_gram, svt, svt_gram
 
-# The wrappers of the hand-written kernels.  Each counts its launches
-# (``launches``, ``captured``, ``last_plan``, ``replayed(n, plan)``); a
-# captured graph (solvers/graphs.py) counts on each replay the launches it
-# holds of every one.
-HAND_WRITTEN_KERNELS = (ISTA_KERNEL, SN_KERNEL)
-
 __all__ = [
     "BlockGrid",
     "Bm3dConfig",
-    "HAND_WRITTEN_KERNELS",
     "ISTA_KERNEL",
     "SN_KERNEL",
     "batch_mpsnr",

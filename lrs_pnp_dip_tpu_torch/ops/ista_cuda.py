@@ -4,24 +4,21 @@ Hopper (``csrc/ista.cu``), the port of the TPU kernel
 
 The kernel runs as thread block clusters: a cluster of C CTAs owns R block
 rows for the whole loop, CTA c owns the slice ``D[p_c, :]`` and the columns
-``k_c`` of x in step 3 (see the note in the source).  Three tiers take the
+``k_c`` of x in step 3 (see the note in the source).  Four tiers take the
 shapes of the TPU kernel's range: ``"resident"`` (each slice of D in shared
 memory), ``"streamed"`` (the first rows of each slice resident, the rest
 read once per iteration through a ring of stages), ``"column"`` (the
 long-K tail: CTA c owns the columns ``k_c`` of D and x for all P, the
 products' partial pred summed through the cluster) and ``"panel"`` (many
-rows: 64 per cluster, ``csrc/ista_panel.cuh``).  :func:`plan_ista`
-chooses the tier, C, R, the slices and the shared-memory bytes from (nB, P,
-K, operand type) in plain Python, so the tiling is testable without a card:
-of the tiers that take the shape, the one with the least predicted time,
-from constants fitted to the card's timings of every tier.  A fourth tier, ``"panel"``, gives a
-cluster a panel of 64 block rows for launches with many rows (the slice of D
-streamed through a ring; bf16 on wgmma): two tilings, clusters of 8 and 16.
-
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use (into ``csrc/build/``, named by the
-hash of the source and flags) and loaded with ``ctypes``.  Nothing is
-compiled or loaded when this module is imported.
+rows: a panel of 64 block rows per cluster, the slice of D streamed through
+a ring, bf16 on wgmma, clusters of 8 or 16; ``csrc/ista_panel.cuh``).
+:func:`plan_ista` chooses the tier, C, R, the slices and the shared-memory
+bytes from (nB, P, K, operand type) in plain Python, so the tiling is
+testable without a card: of the tiers that take the shape, the one with the
+least predicted time, from constants fitted to the card's timings of every
+tier.  The source is built and loaded at first use as every hand-written
+kernel is (:mod:`.cuda_kernel`); nothing is compiled or loaded when this
+module is imported.
 
 :func:`.ista.pnp_ista_blocks_fused` prepares the kernel's inputs and
 calls :meth:`FusedIstaKernel.launch`, which takes CUDA tensors only.  A
@@ -34,52 +31,11 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Mapping, Optional
 
 import torch
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
-_MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
-def build_library(sources, flags, stem: str, build_dir: Path = _CSRC / "build"):
-    """Compile ``sources[0]`` (which includes the rest) with ``nvcc`` and
-    ``flags`` into ``build_dir/lib<stem>_<hash>.so``, the hash of the
-    sources and flags, unless that library is there; then load it with
-    ``ctypes``.  Returns the library and nvcc's output ("" where the
-    library was built already)."""
-    digest = hashlib.sha256(
-        b"".join(path.read_bytes() for path in sources) + " ".join(flags).encode()
-    ).hexdigest()[:16]
-    lib_path = build_dir / f"lib{stem}_{digest}.so"
-    log = ""
-    if not lib_path.exists():
-        build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(sources[0])], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building {sources[0]}:\n{log}")
-        os.replace(tmp, lib_path)
-    return ctypes.CDLL(str(lib_path)), log
-
+from .cuda_kernel import CSRC, MAX_SMEM_BYTES, NVCC_FLAGS, HandWrittenKernel, check_operand, round_up
 
 # Limits of the kernel's register tiles (csrc/ista.cu).
 _F32_ROWS = 11  # kRowsF32: rows per cluster in f32 mode
@@ -130,9 +86,7 @@ _PANEL_RING = {False: 2, True: 3}
 _PANEL_STAGE_BYTES = 32768
 _PANEL_SEG_ALIGN = {False: 4, True: 16}
 
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float  # the C interface's types
 
 
 def panel_smem_bytes(bf16: bool, seg: int) -> int:
@@ -146,10 +100,10 @@ def panel_smem_bytes(bf16: bool, seg: int) -> int:
     (bf16: and the ring's) after the pass."""
     x = _PANEL_ROWS * _PANEL_K * 2 if bf16 else (_PANEL_K // 4) * (_PANEL_ROWS + 1) * 16
     ring = _PANEL_RING[bf16] * _PANEL_STAGE_BYTES
-    gseg = _round_up(_PANEL_ROWS * (seg + 2 * _HALO) * 4, 16) if bf16 else 0
+    gseg = round_up(_PANEL_ROWS * (seg + 2 * _HALO) * 4, 16) if bf16 else 0
     res = 2 * _PANEL_STAGE[bf16] * _PANEL_ROWS * (2 if bf16 else 4)
     pred = 2 * _PANEL_ROWS * 40 * 4 if bf16 else 0  # bf16: the warpgroups' halves of pred
-    return (x + ring + gseg + res + pred + _round_up(_PANEL_ROWS * seg * 4, 16) + 2 * _PANEL_ROWS * 4
+    return (x + ring + gseg + res + pred + round_up(_PANEL_ROWS * seg * 4, 16) + 2 * _PANEL_ROWS * 4
             + (_PANEL_RING[bf16] + 1) * 8)
 
 
@@ -175,9 +129,9 @@ def smem_bytes(bf16: bool, rows: int, slice_rows: int, K: int, seg: int) -> int:
     """Dynamic shared memory of one CTA, as ``make_layout`` in csrc/ista.cu
     lays it out."""
     if bf16:
-        kp = _round_up(K, 32)
+        kp = round_up(K, 32)
         ld = kp + 8
-        pcp = _round_up(slice_rows, 16)
+        pcp = round_up(slice_rows, 16)
         sizes = [
             pcp * ld * 2,  # the slice of D
             _BF16_ROWS * ld * 2,  # operand x
@@ -185,7 +139,7 @@ def smem_bytes(bf16: bool, rows: int, slice_rows: int, K: int, seg: int) -> int:
             max(_BF16_ROWS * (pcp + 8) * 2, rows * (seg + 2 * _HALO) * 4),  # residual / g
         ]
     else:
-        kp = _round_up(K, 4)
+        kp = round_up(K, 4)
         sizes = [
             slice_rows * (kp + 4) * 4,
             _F32_ROWS * kp * 4,
@@ -193,12 +147,12 @@ def smem_bytes(bf16: bool, rows: int, slice_rows: int, K: int, seg: int) -> int:
             max(slice_rows * 12, rows * (seg + 2 * _HALO)) * 4,
         ]
     sizes.append(2 * rows * seg * 4)  # carried x of the CTA's columns, two copies
-    return sum(_round_up(s, 16) for s in sizes) + 2 * _BF16_ROWS * 4
+    return sum(round_up(s, 16) for s in sizes) + 2 * _BF16_ROWS * 4
 
 
 def _stream_kp(bf16: bool, K: int) -> int:
     """K padded as the streamed kernel pads it: to 16 bf16 values or 8 floats."""
-    return _round_up(K, 16 if bf16 else 8)
+    return round_up(K, 16 if bf16 else 8)
 
 
 def stream_smem_bytes(bf16: bool, rows: int, K: int, seg: int, resident_rows: int, stages: int,
@@ -217,15 +171,15 @@ def stream_smem_bytes(bf16: bool, rows: int, K: int, seg: int, resident_rows: in
     ldg = kp + 8
     xr = _STREAM_ROWS if bf16 or rows > 12 else 12  # rows of x in the tiles
     x = xr * ld * esz
-    resident = _round_up(resident_rows, S) * ld * esz
+    resident = round_up(resident_rows, S) * ld * esz
     ring = max(stages * S * ld * esz, rows * ldg * 4)
     part = 2 * (_WARPS if bf16 else 2 * _WARPS) * xr * S * 4  # one sum per warp (f32: 16 warps)
     res = 2 * _STREAM_ROWS * (S + 8) * 2 if bf16 else 2 * S * _STREAM_ROWS * 4
-    small = max(_round_up(part, 16) + _round_up(res, 16), _round_up(rows * (seg + 2 * _HALO) * 4, 16))
+    small = max(round_up(part, 16) + round_up(res, 16), round_up(rows * (seg + 2 * _HALO) * 4, 16))
     xown = 2 * rows * seg * 4
     bars = 2 * _RING * 8  # two mbarriers per ring slot
-    return (_round_up(x, 16) + _round_up(resident, 16) + _round_up(ring, 16) + small
-            + _round_up(xown, 16) + 2 * _BF16_ROWS * 4 + bars)
+    return (round_up(x, 16) + round_up(resident, 16) + round_up(ring, 16) + small
+            + round_up(xown, 16) + 2 * _BF16_ROWS * 4 + bars)
 
 
 def stream_copies_d(bf16: bool, K: int) -> bool:
@@ -262,10 +216,10 @@ def column_smem_bytes(bf16: bool, rows: int, P: int, seg: int, resident_rows: in
     whose place product 2's odd half of warps takes, and the residual
     [16][P] in bf16), the gradient step with its halo and the rows'
     scalars."""
-    pp = _round_up(P, 16)
+    pp = round_up(P, 16)
     if bf16:
         ldw = seg + 8
-        sizes = [_round_up(resident_rows, 16) * ldw * 2, _BF16_ROWS * ldw * 2, rows * seg * 4,
+        sizes = [round_up(resident_rows, 16) * ldw * 2, _BF16_ROWS * ldw * 2, rows * seg * 4,
                  rows * max(pp, seg) * 4, _BF16_ROWS * (pp + 8) * 2]
     else:
         rt = 4 if rows <= 4 else 12  # column_tile_rows
@@ -273,7 +227,7 @@ def column_smem_bytes(bf16: bool, rows: int, P: int, seg: int, resident_rows: in
         sizes = [resident_rows * (seg + 4) * 4, rt * seg * 4, 0,
                  max(P * rt, groups * rows * seg if groups > 1 else 0) * 4, 0]
     sizes.append(rows * (seg + 2 * _HALO) * 4)
-    return sum(_round_up(s, 16) for s in sizes) + 2 * _BF16_ROWS * 4
+    return sum(round_up(s, 16) for s in sizes) + 2 * _BF16_ROWS * 4
 
 
 def column_copies_d(bf16: bool, K: int, P: int, resident_rows: int) -> bool:
@@ -292,9 +246,9 @@ def column_scratch_floats(P: int, K: int, bf16: bool, resident_rows: int) -> int
     if not column_copies_d(bf16, K, P, resident_rows):
         return 0
     if bf16:
-        kp = _round_up(K, 16)
-        return (P * kp + kp * _round_up(P, 16)) // 2
-    return P * _round_up(K, 8)
+        kp = round_up(K, 16)
+        return (P * kp + kp * round_up(P, 16)) // 2
+    return P * round_up(K, 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,7 +312,7 @@ class IstaPlan:
                 return rows * _stream_kp(self.bf16, K) * (2 if self.bf16 else 4)
             return rows * 4 * K
         if self.tier == "column":
-            cols = sum(_round_up(b - a, 16 if self.bf16 else 4) for a, b in self.k_segments())
+            cols = sum(round_up(b - a, 16 if self.bf16 else 4) for a, b in self.k_segments())
             return 2 * self.streamed_rows * cols * (2 if self.bf16 else 4)
         if self.tier == "panel":
             return self.cluster_size * self.stages * _PANEL_STAGE_BYTES
@@ -405,14 +359,14 @@ def _spread(nB: int, rows_max: int, resident: int):
 
 def _resident_plan(nB, P, K, bf16, resident, smem_limit, reasons):
     """The tiling with each slice of D resident, or None (reasons appended)."""
-    if bf16 and _round_up(K, 32) > _BF16_MAX_K:
+    if bf16 and round_up(K, 32) > _BF16_MAX_K:
         reasons.append(f"K={K} is past the bf16 kernel's {_BF16_MAX_K} columns")
         return None
     for C in (8, 16):
         slice_rows = -(-P // C)
-        seg = _round_up(-(-K // C), 4)
+        seg = round_up(-(-K // C), 4)
         limit = _BF16_MAX_SLICE if bf16 else _F32_MAX_SLICE
-        if (_round_up(slice_rows, 16) if bf16 else slice_rows) > limit:
+        if (round_up(slice_rows, 16) if bf16 else slice_rows) > limit:
             reasons.append(f"cluster {C}: {slice_rows} rows of D per CTA (> {limit})")
             continue
         if resident.get(C, 0) < 1:
@@ -458,7 +412,7 @@ def _streamed_plan(nB, P, K, bf16, resident, smem_limit, reasons):
             reasons.append(f"streamed, cluster {C}: the card keeps no such cluster resident")
             continue
         slice_rows = -(-P // C)
-        seg = _round_up(-(-K // C), 4)
+        seg = round_up(-(-K // C), 4)
         rows, n_clusters = _spread(nB, _STREAM_ROWS, resident[C])
         # f32 stages of 16 rows keep 4 rows of the partial gradient a thread: K <= 512
         heights = [h for h in _STAGE_ROWS[bf16] if bf16 or h == 8 or _stream_kp(bf16, K) <= 512]
@@ -514,7 +468,7 @@ def _column_plan(nB, P, K, bf16, resident, smem_limit, reasons):
         if resident.get(C, 0) < 1:
             reasons.append(f"column, cluster {C}: the card keeps no such cluster resident")
             continue
-        seg = _round_up(-(-K // C), _COL_SEG_ALIGN[bf16])
+        seg = round_up(-(-K // C), _COL_SEG_ALIGN[bf16])
         fits = [r for r in range(_COL_ROWS[bf16], 0, -1) if column_smem_bytes(bf16, r, P, seg, 0) <= smem_limit]
         if not fits:
             need = column_smem_bytes(bf16, 1, P, seg, 0)
@@ -524,7 +478,7 @@ def _column_plan(nB, P, K, bf16, resident, smem_limit, reasons):
         resident_rows = _column_resident_rows(bf16, rows, P, seg, smem_limit)
         plan = IstaPlan(
             nB=nB, P=P, K=K, bf16=bf16, cluster_size=C, rows=rows,
-            n_clusters=n_clusters, resident=resident[C], slice_rows=_round_up(-(-P // C), 4),
+            n_clusters=n_clusters, resident=resident[C], slice_rows=round_up(-(-P // C), 4),
             seg=seg, smem_bytes=column_smem_bytes(bf16, rows, P, seg, resident_rows),
             resident_rows=resident_rows, stage_rows=0, stages=0, tier="column",
         )
@@ -542,7 +496,7 @@ def _panel_plans(nB, P, K, bf16, resident, smem_limit, reasons):
     ``stages`` stages, and ``seg`` columns of x (K / C padded to 4 in f32,
     16 in bf16); the rows spread over as few waves of panels of at most 64
     as cover nB."""
-    if _round_up(K, 16) > _PANEL_K:
+    if round_up(K, 16) > _PANEL_K:
         reasons.append(f"panel: K={K} is past its {_PANEL_K} columns")
         return []
     one_wave = _STREAM_ROWS * max(resident.values(), default=0)
@@ -554,7 +508,7 @@ def _panel_plans(nB, P, K, bf16, resident, smem_limit, reasons):
         if resident.get(C, 0) < 1:
             reasons.append(f"panel, cluster {C}: the card keeps no such cluster resident")
             continue
-        seg = _round_up(-(-K // C), _PANEL_SEG_ALIGN[bf16])
+        seg = round_up(-(-K // C), _PANEL_SEG_ALIGN[bf16])
         smem = panel_smem_bytes(bf16, seg)
         if smem > smem_limit:
             reasons.append(f"panel, cluster {C}: {smem} B of shared memory (> {smem_limit})")
@@ -607,19 +561,19 @@ def iteration_counts(plan: IstaPlan) -> tuple:
     l2 = plan.l2_bytes_per_iteration // plan.cluster_size
     if plan.tier == "resident":
         if plan.bf16:
-            return -(-K // 16), t * _round_up(K, 32) * 2 * _round_up(sl, 16), l2, exchanged
-        return -(-K // _WARPS), t * (K * 32 * -(-sl // 32) + sl * _round_up(K, 512)), l2, exchanged
+            return -(-K // 16), t * round_up(K, 32) * 2 * round_up(sl, 16), l2, exchanged
+        return -(-K // _WARPS), t * (K * 32 * -(-sl // 32) + sl * round_up(K, 512)), l2, exchanged
     if plan.tier == "streamed":
         S = plan.stage_rows
-        return -(-sl // S) + 2, 2 * t * -(-sl // S) * S * (_round_up(K, 16) if plan.bf16 else K), l2, exchanged
+        return -(-sl // S) + 2, 2 * t * -(-sl // S) * S * (round_up(K, 16) if plan.bf16 else K), l2, exchanged
     if plan.tier == "panel":
         rows = t * plan.stages * plan.stage_rows
         if plan.bf16:
-            return plan.stages, rows * (_round_up(K, 16) + _PANEL_K), l2, exchanged
-        return plan.stages, rows * (_round_up(K, 4) + _PANEL_K), l2, exchanged
+            return plan.stages, rows * (round_up(K, 16) + _PANEL_K), l2, exchanged
+        return plan.stages, rows * (round_up(K, 4) + _PANEL_K), l2, exchanged
     if plan.bf16:
-        return -(-P // 16), 2 * t * _round_up(P, 16) * _round_up(seg, 16), l2, R * P
-    return -(-P // 64), t * (_round_up(P, 64) * 32 * -(-seg // 32) + P * seg), l2, R * P
+        return -(-P // 16), 2 * t * round_up(P, 16) * round_up(seg, 16), l2, R * P
+    return -(-P // 64), t * (round_up(P, 64) * 32 * -(-seg // 32) + P * seg), l2, R * P
 
 
 # Step 3 of the resident, streamed and panel tiers pulls each CTA's columns
@@ -703,7 +657,7 @@ def predicted_ms(plan: IstaPlan, n_iter: int = 100) -> float:
 def plan_candidates(
     nB: int, P: int, K: int, bf16: bool,
     resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
-    smem_limit: int = _MAX_SMEM_BYTES,
+    smem_limit: int = MAX_SMEM_BYTES,
     reasons: Optional[list] = None,
 ) -> list:
     """Every tier's tiling that takes (nB, P, K, operand type), in the order
@@ -749,7 +703,7 @@ def pick_plan(plans: list) -> IstaPlan:
 def plan_ista(
     nB: int, P: int, K: int, bf16: bool,
     resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS,
-    smem_limit: int = _MAX_SMEM_BYTES,
+    smem_limit: int = MAX_SMEM_BYTES,
 ) -> IstaPlan:
     """Choose the tiling for (nB, P, K, operand type).
 
@@ -816,69 +770,41 @@ def kernel_name(plan: IstaPlan) -> str:
             "column": f"pnp_ista_column_{kind}", "panel": f"pnp_ista_panel_{kind}"}[plan.tier]
 
 
-class FusedIstaKernel:
-    """Builds, loads and launches ``csrc/ista.cu``.
+class FusedIstaKernel(HandWrittenKernel):
+    """Builds, loads and launches ``csrc/ista.cu``.  ``launches_by_kernel``
+    counts its launches by the CUDA kernel each ran (:func:`kernel_name`)."""
 
-    ``launches`` counts the launches of the fused loop: one per call that
-    reaches the kernel outside a CUDA graph capture, and the launches a
-    captured graph holds each time it is replayed (:meth:`replayed`).
-    ``launches_by_kernel`` counts the same launches by the CUDA kernel each
-    ran (:func:`kernel_name`).  A call during a capture records a launch
-    into the graph and adds to ``captured`` instead.  ``last_plan`` is the
-    tiling of the latest launch, replays included."""
-
-    sources = (_CSRC / "ista.cu", _CSRC / "ista_panel.cuh")  # ista.cu includes the panel kernels
+    sources = (CSRC / "ista.cu", CSRC / "ista_panel.cuh")  # ista.cu includes the panel kernels
+    signatures = {
+        "lrs_pnp_ista_launch": ([_P] * 4 + [_F, _P] + [_I] * 10 + [_P], _I),
+        "lrs_pnp_ista_stream_launch": ([_P] * 4 + [_F, _P, _P] + [_I] * 13 + [_P], _I),
+        "lrs_pnp_ista_column_launch": ([_P] * 4 + [_F, _P, _P] + [_I] * 11 + [_P], _I),
+        "lrs_pnp_ista_panel_launch": ([_P] * 4 + [_F, _P, _P] + [_I] * 11 + [_P], _I),
+        "lrs_pnp_ista_panel_smem_bytes": ([_I] * 2, _I),
+        "lrs_pnp_ista_panel_scratch_floats": ([_I] * 2, ctypes.c_longlong),
+        "lrs_pnp_ista_panel_max_clusters": ([_I] * 3, _I),
+        "lrs_pnp_ista_smem_bytes": ([_I] * 5, _I),
+        "lrs_pnp_ista_stream_smem_bytes": ([_I] * 7, _I),
+        "lrs_pnp_ista_stream_copy_stride": ([_I] * 2, _I),
+        "lrs_pnp_ista_column_smem_bytes": ([_I] * 5, _I),
+        "lrs_pnp_ista_column_scratch_floats": ([_I] * 4, ctypes.c_longlong),
+        "lrs_pnp_ista_max_clusters": ([_I] * 3, _I),
+    }
+    label = "pnp_ista"
 
     def __init__(self, extra_flags: tuple = ()):
-        self.flags = _NVCC_FLAGS + tuple(extra_flags)
-        self.launches = 0
-        self.launches_by_kernel = collections.Counter()
-        self.captured = 0
-        self.last_plan: Optional[IstaPlan] = None
-        self.build_log = ""
-        self._lib: Optional[ctypes.CDLL] = None
+        super().__init__(NVCC_FLAGS + tuple(extra_flags))
         self._resident: dict = {}
-        self._plans: dict = {}
         self._share_plans: dict = {}
         self._whole: Optional[int] = None
 
-    def build(self) -> ctypes.CDLL:
-        """Compile the source if its library is not built yet, then load it."""
-        if self._lib is not None:
-            return self._lib
-        lib, self.build_log = build_library(self.sources, self.flags, "ista")
-        ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.lrs_pnp_ista_launch.argtypes = [ptr] * 4 + [ctypes.c_float, ptr] + [c_int] * 10 + [ptr]
-        lib.lrs_pnp_ista_launch.restype = c_int
-        lib.lrs_pnp_ista_stream_launch.argtypes = (
-            [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 13 + [ptr])
-        lib.lrs_pnp_ista_stream_launch.restype = c_int
-        lib.lrs_pnp_ista_column_launch.argtypes = (
-            [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 11 + [ptr])
-        lib.lrs_pnp_ista_column_launch.restype = c_int
-        lib.lrs_pnp_ista_panel_launch.argtypes = (
-            [ptr] * 4 + [ctypes.c_float, ptr, ptr] + [c_int] * 11 + [ptr])
-        lib.lrs_pnp_ista_panel_launch.restype = c_int
-        lib.lrs_pnp_ista_panel_smem_bytes.argtypes = [c_int] * 2
-        lib.lrs_pnp_ista_panel_smem_bytes.restype = c_int
-        lib.lrs_pnp_ista_panel_scratch_floats.argtypes = [c_int] * 2
-        lib.lrs_pnp_ista_panel_scratch_floats.restype = ctypes.c_longlong
-        lib.lrs_pnp_ista_panel_max_clusters.argtypes = [c_int] * 3
-        lib.lrs_pnp_ista_panel_max_clusters.restype = c_int
-        lib.lrs_pnp_ista_smem_bytes.argtypes = [c_int] * 5
-        lib.lrs_pnp_ista_smem_bytes.restype = c_int
-        lib.lrs_pnp_ista_stream_smem_bytes.argtypes = [c_int] * 7
-        lib.lrs_pnp_ista_stream_smem_bytes.restype = c_int
-        lib.lrs_pnp_ista_stream_copy_stride.argtypes = [c_int] * 2
-        lib.lrs_pnp_ista_stream_copy_stride.restype = c_int
-        lib.lrs_pnp_ista_column_smem_bytes.argtypes = [c_int] * 5
-        lib.lrs_pnp_ista_column_smem_bytes.restype = c_int
-        lib.lrs_pnp_ista_column_scratch_floats.argtypes = [c_int] * 4
-        lib.lrs_pnp_ista_column_scratch_floats.restype = ctypes.c_longlong
-        lib.lrs_pnp_ista_max_clusters.argtypes = [c_int] * 3
-        lib.lrs_pnp_ista_max_clusters.restype = c_int
-        self._lib = lib
-        return lib
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.launches_by_kernel = collections.Counter()
+
+    def _count(self, n: int, plan: IstaPlan) -> None:
+        super()._count(n, plan)
+        self.launches_by_kernel[kernel_name(plan)] += n
 
     def resident_clusters(self, bf16: bool) -> dict:
         """Clusters of 8 and of 16 CTAs that the current card keeps resident
@@ -886,7 +812,7 @@ class FusedIstaKernel:
         if bf16 not in self._resident:
             lib = self.build()
             self._resident[bf16] = {
-                C: lib.lrs_pnp_ista_max_clusters(int(bf16), C, _MAX_SMEM_BYTES) for C in (8, 16)
+                C: lib.lrs_pnp_ista_max_clusters(int(bf16), C, MAX_SMEM_BYTES) for C in (8, 16)
             }
         return self._resident[bf16]
 
@@ -953,14 +879,7 @@ class FusedIstaKernel:
         for name, t, shape in (
             ("y", y, (nB, P)), ("m", m, (nB, P)), ("d", d, (P, K)), ("alpha", alpha, (nB,)),
         ):
-            if t.device != device or t.device.type != "cuda":
-                raise ValueError(f"{name} must be on the CUDA device {device}, got {t.device}")
-            if t.dtype != torch.float32:
-                raise TypeError(f"{name} must be float32, got {t.dtype}")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
+            check_operand(name, t, device, shape)
         if n_iter < 0:
             raise ValueError(f"needs n_iter >= 0 (n_iter={n_iter})")
         bf16 = bool(bf16)
@@ -1008,27 +927,8 @@ class FusedIstaKernel:
                 err = lib.lrs_pnp_ista_panel_launch(*head, copy_ptr, *tail, plan.stages, stream)
             else:
                 err = lib.lrs_pnp_ista_launch(*head, *tail, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"pnp_ista kernel launch refused: cudaError_t {err} for {plan.n_clusters} clusters "
-                f"of {plan.cluster_size} CTAs with {plan.smem_bytes} B of shared memory each"
-            )
-        if torch.cuda.is_current_stream_capturing():
-            self.captured += 1
-        else:
-            self.launches += 1
-            self.launches_by_kernel[kernel_name(plan)] += 1
-        self.last_plan = plan
+        self.launched(plan, err, plan.n_clusters)
         return out
-
-    def replayed(self, n: int, plan: Optional[IstaPlan] = None) -> None:
-        """Count the ``n`` launches of a captured graph that was just
-        replayed, the last of them with the tiling ``plan``."""
-        self.launches += n
-        if n:
-            self.last_plan = plan
-            if plan is not None:
-                self.launches_by_kernel[kernel_name(plan)] += n
 
 
 ISTA_KERNEL = FusedIstaKernel()

@@ -11,11 +11,10 @@ cluster's shared memory for all its steps (see the note in the source).
 
 :func:`plan_spectral_norm` picks the cluster size and the shared memory
 from the (m, n) of the group's weights in plain Python, so the tiling is
-testable without a card.  The source is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface at the first
-spectral norm on the card (into ``csrc/build/``, named by the hash of the
-source and flags) and loaded with ``ctypes``, as kernel B1 is; nothing is
-compiled or loaded when this module is imported.
+testable without a card.  The source is built and loaded at the first
+spectral norm on the card, as every hand-written kernel is
+(:mod:`.cuda_kernel`); nothing is compiled or loaded when this module is
+imported.
 :meth:`SpectralNormKernel.launch` takes CUDA tensors only; a shape the plan
 does not take raises, and so does a launch the card refuses.
 """
@@ -24,11 +23,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
-from .ista_cuda import _CSRC, _MAX_SMEM_BYTES, _NVCC_FLAGS, build_library
+from .cuda_kernel import CSRC, MAX_SMEM_BYTES, HandWrittenKernel, check_operand, round_up
 
 # Limits of csrc/spectral_norm.cu.
 _THREADS = 256  # kThreads
@@ -37,19 +36,15 @@ MAX_CLUSTER = 16
 _COLS_PER_CTA = 144  # the plan's target: columns of W a CTA owns
 
 
-def _round_up(x: int, k: int) -> int:
-    return -(-x // k) * k
-
-
 def _seg(n: int, cluster_size: int) -> int:
     """Columns of W a CTA owns (``sn_seg``)."""
-    return _round_up(-(-n // cluster_size), 4)
+    return round_up(-(-n // cluster_size), 4)
 
 
 def _ld(seg: int) -> int:
     """Row stride of the slice in shared memory, an odd number of float4s
     (``sn_ld``)."""
-    ld = _round_up(seg, 4)
+    ld = round_up(seg, 4)
     return ld if (ld // 4) % 2 else ld + 4
 
 
@@ -59,7 +54,7 @@ def smem_bytes(m: int, n: int, cluster_size: int) -> int:
     partial of u, the two products' partials, v, a scalar and the warps'
     sums, each padded to 16 bytes."""
     ld = _ld(_seg(n, cluster_size))
-    mp = _round_up(m, 4)
+    mp = round_up(m, 4)
     return 4 * (m * ld + 2 * mp + max(mp, _THREADS) + max(ld, 4 * _THREADS) + ld + 4 + _THREADS // 32)
 
 
@@ -87,56 +82,34 @@ def plan_spectral_norm(shapes: Sequence[Tuple[int, int]]) -> SnPlan:
     while cluster_size < MAX_CLUSTER and -(-widest // cluster_size) > _COLS_PER_CTA:
         cluster_size *= 2
     smem = max(smem_bytes(m, n, cluster_size) for m, n in shapes)
-    if smem > _MAX_SMEM_BYTES:
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"a slice of {shapes} over {cluster_size} CTAs takes {smem} B of shared memory, "
-            f"over the {_MAX_SMEM_BYTES} B a CTA may use"
+            f"over the {MAX_SMEM_BYTES} B a CTA may use"
         )
     return SnPlan(shapes, cluster_size, smem)
 
 
-class SpectralNormKernel:
-    """Builds, loads and launches ``csrc/spectral_norm.cu``.
+class SpectralNormKernel(HandWrittenKernel):
+    """Builds, loads and launches ``csrc/spectral_norm.cu``."""
 
-    ``launches`` counts the launches: one per call outside a CUDA graph
-    capture, and the launches a captured graph holds each time it is
-    replayed (:meth:`replayed`).  A call during a capture records the launch
-    into the graph and adds to ``captured`` instead.  ``last_plan`` is the
-    tiling of the latest launch, replays included."""
-
-    sources = (_CSRC / "spectral_norm.cu",)
-
-    def __init__(self):
-        self.flags = _NVCC_FLAGS
-        self.launches = 0
-        self.captured = 0
-        self.last_plan: Optional[SnPlan] = None
-        self.build_log = ""
-        self._lib: Optional[ctypes.CDLL] = None
-        self._plans: dict = {}
-
-    def build(self) -> ctypes.CDLL:
-        """Compile the source if its library is not built yet, then load it."""
-        if self._lib is not None:
-            return self._lib
-        lib, self.build_log = build_library(self.sources, self.flags, "spectral_norm")
-        ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.lrs_pnp_sn_launch.argtypes = [ptr] * 6 + [c_int, ptr, c_int, c_int, ptr]
-        lib.lrs_pnp_sn_launch.restype = c_int
-        lib.lrs_pnp_sn_smem_bytes.argtypes = [c_int] * 3
-        lib.lrs_pnp_sn_smem_bytes.restype = c_int
-        lib.lrs_pnp_sn_max_group.restype = c_int
-        if lib.lrs_pnp_sn_max_group() != MAX_GROUP:
-            raise RuntimeError(f"the kernel takes {lib.lrs_pnp_sn_max_group()} weights a launch, the plan {MAX_GROUP}")
-        self._lib = lib
-        return lib
+    sources = (CSRC / "spectral_norm.cu",)
+    signatures = {
+        "lrs_pnp_sn_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
+                              + [ctypes.c_void_p], ctypes.c_int),
+        "lrs_pnp_sn_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_int),
+        "lrs_pnp_sn_max_group": ([], ctypes.c_int),
+    }
+    label = "spectral norm"
 
     def plan(self, shapes: Tuple[Tuple[int, int], ...]) -> SnPlan:
         """:func:`plan_spectral_norm`, kept per group of shapes and held to
-        the kernel's own count of shared memory once."""
+        the kernel's own counts of weights and shared memory once."""
         if shapes not in self._plans:
             plan = plan_spectral_norm(shapes)
             lib = self.build()
+            if lib.lrs_pnp_sn_max_group() != MAX_GROUP:
+                raise RuntimeError(f"the kernel takes {lib.lrs_pnp_sn_max_group()} weights a launch, the plan {MAX_GROUP}")
             laid_out = max(lib.lrs_pnp_sn_smem_bytes(m, n, plan.cluster_size) for m, n in shapes)
             if laid_out != plan.smem_bytes:
                 raise RuntimeError(f"the plan counts {plan.smem_bytes} B of shared memory, the kernel {laid_out}")
@@ -162,13 +135,8 @@ class SpectralNormKernel:
             raise ValueError("needs at least one weight")
         device = weights[0].device
         for g, (w, u) in enumerate(zip(weights, us)):
-            for name, t in ((f"weight {g}", w), (f"u {g}", u)):
-                if t.device != device or t.device.type != "cuda":
-                    raise ValueError(f"{name} must be on the CUDA device {device}, got {t.device}")
-                if t.dtype != torch.float32:
-                    raise TypeError(f"{name} must be float32, got {t.dtype}")
-                if not t.is_contiguous():
-                    raise ValueError(f"{name} must be contiguous")
+            check_operand(f"weight {g}", w, device)
+            check_operand(f"u {g}", u, device)
             if w.ndim != 2 or tuple(u.shape) != (w.shape[0],):
                 raise ValueError(f"weight {g} must be (m, n) and its u (m,), got {tuple(w.shape)}, {tuple(u.shape)}")
         if any(not ln > 0 for ln in ln_lambdas) or any(k < 0 for k in n_iters):
@@ -188,24 +156,8 @@ class SpectralNormKernel:
                 G, out.data_ptr(), plan.cluster_size, plan.smem_bytes,
                 torch.cuda.current_stream(device).cuda_stream,
             )
-        if err != 0:
-            raise RuntimeError(
-                f"spectral norm kernel launch refused: cudaError_t {err} for {G} clusters of "
-                f"{plan.cluster_size} CTAs with {plan.smem_bytes} B of shared memory each"
-            )
-        if torch.cuda.is_current_stream_capturing():
-            self.captured += 1
-        else:
-            self.launches += 1
-        self.last_plan = plan
+        self.launched(plan, err, G)
         return out
-
-    def replayed(self, n: int, plan: Optional[SnPlan] = None) -> None:
-        """Count the ``n`` launches of a captured graph that was just
-        replayed, the last of them with the tiling ``plan``."""
-        self.launches += n
-        if n:
-            self.last_plan = plan
 
 
 SN_KERNEL = SpectralNormKernel()

@@ -37,7 +37,7 @@ def _sync(device: torch.device) -> None:
 def _counted(device, fn):
     """(fn's result, B1 launches, nB of the last launch, bytes moved, seconds)."""
     _sync(device)
-    ISTA_KERNEL.launches, ISTA_KERNEL.last_plan = 0, None
+    ISTA_KERNEL.reset_counts()
     TRAFFIC.reset()
     t0 = time.perf_counter()
     out = fn()

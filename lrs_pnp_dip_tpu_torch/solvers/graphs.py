@@ -11,7 +11,7 @@ that call and every later one replays the graph and returns the tensors the
 capture returned, which the replay refills.  On the CPU every call runs the
 function eagerly: the plain version, which the tests hold to the JAX
 package.  Each replay adds the launches the graph holds of each
-hand-written kernel to that kernel's count (``ops.HAND_WRITTEN_KERNELS``).
+hand-written kernel to that kernel's count (``ops/cuda_kernel.py``).
 A capture that fails raises; nothing falls back to eager
 execution on the card.  The warm-up and the capture run with cuDNN's
 deterministic algorithms, as every DIP fit does, so that a replay gives the
@@ -27,7 +27,7 @@ from typing import Callable
 
 import torch
 
-from ..ops import HAND_WRITTEN_KERNELS
+from ..ops.cuda_kernel import capture_marks, held_since
 from ..utils.device import deterministic_cudnn
 
 
@@ -73,7 +73,7 @@ class Captured:
     @deterministic_cudnn()
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
-        before = [kernel.captured for kernel in HAND_WRITTEN_KERNELS]
+        marks = capture_marks()
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -83,10 +83,7 @@ class Captured:
             if collecting:
                 gc.enable()
         self.graph, self.out = graph, out
-        self.held = {
-            kernel: (kernel.captured - n, kernel.last_plan)
-            for kernel, n in zip(HAND_WRITTEN_KERNELS, before) if kernel.captured > n
-        }
+        self.held = held_since(marks)
 
     def reset(self) -> None:
         """Drop the graph (the function's tensors changed): the next call

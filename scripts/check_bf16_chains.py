@@ -2,8 +2,7 @@
 """Kernel B1's bf16 mma chains on the card: errors against the plain loop
 beside its floors, and the times they cost.
 
-    python scripts/check_bf16_chains.py [--reps 7] [--sweep]
-    python scripts/check_bf16_chains.py --cut [--reps 7]
+    python scripts/check_bf16_chains.py [--reps 7]
 
 - The resident bf16 kernel (``pnp_ista_cluster_bf16``) sums product 1 over
   all of K in one mma chain per tile: 40 k steps at K 640, its widest.  At
@@ -15,23 +14,12 @@ beside its floors, and the times they cost.
   the tensor cores) and the limit of ``tests/test_torch_cuda.py``
   (``_assert_bf16_tracks``: the larger of 1e-5 and 4 times the floor).  The
   main shape (K 512) in bf16 is timed too.
-- The column bf16 kernel (``pnp_ista_column_bf16``) splits product 2 over
-  two halves of the warps where a CTA has at most 16 column tiles of 16 and
-  P has at least 32 steps of 16 rows (``split_taken``: seg / 16 <= 16 and
-  ceil(P / 16) >= 32).  At P 256 / K 3000 and P 576 / K 2048
-  (``chip_smoke.wide_problem``, nB 144, 100 iterations; with ``--sweep``
-  also blocks 12, 16, 20 and 26 at K 2048 and block 30 at K 1536) the
-  production build and a build with ``-DISTA_COL_NO_SPLIT`` (never split:
-  one chain over all of P per tile) are timed in turns (production, no
-  split, no split, production) and their errors measured the same way.
-- ``--cut`` (alone): the column bf16 kernel's product-2 chains, cut every 8
-  steps of 16 rows, against a build with ``-DISTA_COL_NO_CUT`` (the
-  uncut chains of the kernel before the cut), at every bf16 shape of
-  ``chip_smoke.TIER_SHAPES`` with the column tiling forced (random problems,
-  ``chip_smoke.tier_problem``, 100 iterations) and at the card case that the uncut chains failed (nB
-  72, P 1296, K 512, 12 iterations, ``tests/test_torch_cuda.py``'s problem):
-  timed in turns (cut, uncut, uncut, cut), max |delta| over max|ref| from the
-  bf16 plain loop beside the card test's limit.
+- The column bf16 kernel (``pnp_ista_column_bf16``) cuts its mma chains
+  every 8 steps of 16 and splits product 2 over two halves of the warps
+  where a CTA has at most 16 column tiles of 16 and P has at least 32 steps
+  of 16 rows (``split_taken``: seg / 16 <= 16 and ceil(P / 16) >= 32).  At
+  P 256 / K 3000 and P 576 / K 2048 (``chip_smoke.wide_problem``, nB 144,
+  100 iterations) it is timed and its errors measured the same way.
 
 Prints one JSON line per row, with the card's name and power limit.
 """
@@ -71,57 +59,6 @@ def floors(blocks, masks, D, alpha, cfg) -> dict:
                 limit=max(1e-5, 4.0 * max(order, tc)))
 
 
-def cut_against_uncut(production, uncut, reps: int, emit) -> int:
-    """The ``--cut`` rows (module docstring)."""
-    import numpy as np
-    import torch
-
-    import chip_smoke
-    from lrs_pnp_dip_tpu_torch.ops import ista
-    from lrs_pnp_dip_tpu_torch.ops.ista import compute_alpha
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
-    from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
-
-    uncut.build()
-    cases = [(nB, P, K, 100) for nB, P, K, types in chip_smoke.TIER_SHAPES if "bfloat16" in types]
-    cases.append((72, 1296, 512, 12))
-    for nB, P, K, n_iter in cases:
-        if n_iter == 100:
-            blocks, masks, D, alpha = chip_smoke.tier_problem(nB, P, K)
-        else:  # tests/test_torch_cuda.py:_problem, seed P + K
-            rng = np.random.default_rng(P + K)
-            D = rng.standard_normal((P, K)).astype(np.float32)
-            D /= np.linalg.norm(D, axis=0, keepdims=True)
-            Y = rng.standard_normal((nB, P)).astype(np.float32)
-            M = (rng.random((nB, P)) > 0.12).astype(np.float32)
-            M[1] = 0.0
-            blocks, masks, D = (torch.from_numpy(a).cuda() for a in (Y, M, D))
-            alpha = compute_alpha(D, masks, SparseProxConfig(n_iter=n_iter, matmul_dtype="bfloat16"))
-        cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype="bfloat16")
-        plans = [p for p in plan_candidates(nB, P, K, True, production.resident_clusters(True), _MAX_SMEM_BYTES)
-                 if p.tier == "column"]
-        if not plans:
-            continue
-        plan = plans[0]
-        f = floors(blocks, masks, D, alpha, cfg)
-        for label in ("cut", "uncut", "uncut", "cut"):
-            kernel = production if label == "cut" else uncut
-            ista.ISTA_KERNEL = kernel
-            try:
-                with kernel.forcing(plan):
-                    got = ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
-                    ms = chip_smoke.time_cuda(lambda: ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha),
-                                              reps=reps)
-            finally:
-                ista.ISTA_KERNEL = production
-            err = float((got - f["ref"]).abs().max()) / f["scale"]
-            emit(kernel="column bf16", build=label, nB=nB, P=P, K=K, n_iter=n_iter, cluster_size=plan.cluster_size,
-                 rows=plan.rows, seg=plan.seg, ms=ms, max_rel_err=err, max_abs_ref=f["scale"],
-                 order_floor=f["order_floor"], tensor_core_floor=f["tensor_core_floor"], limit=f["limit"],
-                 passes=err < f["limit"])
-    return 0
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -133,14 +70,11 @@ def main() -> int:
     from lrs_pnp_dip_tpu_torch.data import load_trained_dictionary
     from lrs_pnp_dip_tpu_torch.ops import ista
     from lrs_pnp_dip_tpu_torch.ops.ista import compute_alpha
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import FusedIstaKernel
     from lrs_pnp_dip_tpu_torch.utils import resolve_device
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--sweep", action="store_true", help="more column shapes where the split is taken")
-    ap.add_argument("--cut", action="store_true", help="only the product-2 cut against the uncut build")
     args = ap.parse_args()
     resolve_device("cuda")
     smi = subprocess.run(
@@ -152,11 +86,6 @@ def main() -> int:
 
     def emit(**row):
         print(json.dumps(dict(row, card=smi)), flush=True)
-
-    if args.cut:
-        return cut_against_uncut(production, FusedIstaKernel(extra_flags=("-DISTA_COL_NO_CUT",)), args.reps, emit)
-    no_split = FusedIstaKernel(extra_flags=("-DISTA_COL_NO_SPLIT",))
-    no_split.build()
 
     # the resident bf16 kernel at K 640
     D_np = load_trained_dictionary(512)
@@ -181,28 +110,19 @@ def main() -> int:
                               reps=args.reps)
     emit(kernel="resident bf16", settings="dip", nB=144, P=1296, K=512, ms=ms)
 
-    # the column bf16 kernel with and without product 2's split
-    cfg = SparseProxConfig(n_iter=100, matmul_dtype="bfloat16")
-    shapes = [(16, 3000), (24, 2048)]
-    if args.sweep:
-        shapes += [(12, 2048), (16, 2048), (20, 2048), (26, 2048), (30, 1536)]
-    for block, K in shapes:
+    # the column bf16 kernel
+    for block, K in ((16, 3000), (24, 2048)):
         blocks, masks, D, alpha = chip_smoke.wide_problem(block, K)
         f = floors(blocks, masks, D, alpha, cfg)
-        for label in ("production", "no split", "no split", "production"):
-            ista.ISTA_KERNEL = production if label == "production" else no_split
-            try:
-                got = ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
-                plan = ista.ISTA_KERNEL.last_plan
-                ms = chip_smoke.time_cuda(lambda: ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha),
-                                          reps=args.reps)
-            finally:
-                ista.ISTA_KERNEL = production
-            err = float((got - f["ref"]).abs().max()) / f["scale"]
-            taken = label == "production" and plan.seg // 16 <= 16 and -(-plan.P // 16) >= 32
-            emit(kernel="column bf16", build=label, nB=144, P=plan.P, K=K, tier=plan.tier, seg=plan.seg,
-                 split_taken=taken, ms=ms, max_rel_err=err, max_abs_ref=f["scale"], order_floor=f["order_floor"],
-                 tensor_core_floor=f["tensor_core_floor"], limit=f["limit"], passes=err < f["limit"])
+        got = ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha)
+        plan = production.last_plan
+        ms = chip_smoke.time_cuda(lambda: ista.pnp_ista_blocks_fused(blocks, masks, D, cfg, alpha=alpha),
+                                  reps=args.reps)
+        err = float((got - f["ref"]).abs().max()) / f["scale"]
+        taken = plan.seg // 16 <= 16 and -(-plan.P // 16) >= 32
+        emit(kernel="column bf16", nB=144, P=plan.P, K=K, tier=plan.tier, seg=plan.seg,
+             split_taken=taken, ms=ms, max_rel_err=err, max_abs_ref=f["scale"], order_floor=f["order_floor"],
+             tensor_core_floor=f["tensor_core_floor"], limit=f["limit"], passes=err < f["limit"])
     return 0
 
 

@@ -40,7 +40,8 @@ def main() -> int:
     import chip_smoke
     from check_bf16_chains import floors
     from lrs_pnp_dip_tpu_torch.ops import ista, pnp_ista_blocks
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
+    from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import MAX_SMEM_BYTES
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import plan_candidates
     from lrs_pnp_dip_tpu_torch.utils import resolve_device
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
@@ -84,7 +85,7 @@ def main() -> int:
             limit = 1e-4
             if bf16:
                 limit = floors(*problem, SparseProxConfig(n_iter=args.n_iter, matmul_dtype=mm))["limit"]
-            plans = [p for p in plan_candidates(nB, P, K, bf16, kernel.resident_clusters(bf16), _MAX_SMEM_BYTES)
+            plans = [p for p in plan_candidates(nB, P, K, bf16, kernel.resident_clusters(bf16), MAX_SMEM_BYTES)
                      if p.tier == "panel"]
             for plan in plans:
                 errs, same = {}, True

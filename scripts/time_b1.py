@@ -84,7 +84,8 @@ def _tiers(here, args, smi: str) -> int:
     import dataclasses
 
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, pnp_ista_blocks, pnp_ista_blocks_fused
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import SWEPT_SHAPES, _MAX_SMEM_BYTES, plan_candidates, predicted_ms
+    from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import MAX_SMEM_BYTES
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import SWEPT_SHAPES, plan_candidates, predicted_ms
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
     n_iter = 100
@@ -95,7 +96,7 @@ def _tiers(here, args, smi: str) -> int:
                 continue
             mm = "bfloat16" if bf16 else "float32"
             cfg = SparseProxConfig(n_iter=n_iter, matmul_dtype=mm)
-            plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+            plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), MAX_SMEM_BYTES)
             if args.shapes == "panel" and not any(p.tier == "panel" for p in plans):
                 continue
             pick = ISTA_KERNEL.plan(nB, P, K, bf16)

@@ -76,7 +76,8 @@ def main() -> int:
     import torch
 
     from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, compute_alpha, pnp_ista_blocks, pnp_ista_blocks_fused
-    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
+    from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import MAX_SMEM_BYTES
+    from lrs_pnp_dip_tpu_torch.ops.ista_cuda import plan_candidates
     from lrs_pnp_dip_tpu_torch.utils.config import SparseProxConfig
 
     if not torch.cuda.is_available():
@@ -87,7 +88,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi}), flush=True)
     nB, P, K, n = args.nB, args.P, args.K, args.n_iter
-    plans = plan_candidates(nB, P, K, True, ISTA_KERNEL.resident_clusters(True), _MAX_SMEM_BYTES)
+    plans = plan_candidates(nB, P, K, True, ISTA_KERNEL.resident_clusters(True), MAX_SMEM_BYTES)
     pick = ISTA_KERNEL.plan(nB, P, K, True)
     for seed in args.seeds:
         Y, M, D = problem(nB, P, K, seed)

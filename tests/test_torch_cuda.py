@@ -26,7 +26,8 @@ from lrs_pnp_dip_tpu_torch.data import synthetic_sample
 from lrs_pnp_dip_tpu_torch.ops import (
     ISTA_KERNEL, compute_alpha, pnp_ista_blocks, pnp_ista_blocks_fused, svt_gram,
 )
-from lrs_pnp_dip_tpu_torch.ops.ista_cuda import _MAX_SMEM_BYTES, plan_candidates
+from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import MAX_SMEM_BYTES
+from lrs_pnp_dip_tpu_torch.ops.ista_cuda import plan_candidates
 from lrs_pnp_dip_tpu_torch.solvers import BatchedSolver, Solver
 from lrs_pnp_dip_tpu_torch.utils.config import SolverConfig, SparseProxConfig
 
@@ -43,7 +44,7 @@ def cuda():
 
 def _candidate(nB, P, K, bf16, tier):
     """The tiling of ``tier`` among plan_candidates on this card."""
-    plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+    plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), MAX_SMEM_BYTES)
     return next(p for p in plans if p.tier == tier)
 
 
@@ -602,7 +603,7 @@ def test_every_candidate_tier_matches_plain(cuda, nB, P, K, matmul_dtype, n_iter
     if bf16:
         floor = max(_order_sensitivity(Y, M, D, cfg, ref, alpha), _tensor_core_sensitivity(Y, M, D, cfg, ref, alpha))
         f32_ref = pnp_ista_blocks(Y, M, D, SparseProxConfig(n_iter=n_iter), alpha=alpha)
-    plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+    plans = plan_candidates(nB, P, K, bf16, ISTA_KERNEL.resident_clusters(bf16), MAX_SMEM_BYTES)
     assert len(plans) >= 2 and ISTA_KERNEL.plan(nB, P, K, bf16) in plans
     missed = []
     for plan in plans:
@@ -774,7 +775,7 @@ def test_panel_kernel_matches_plain(cuda, nB, cluster_size, matmul_dtype):
     Y, M, D = _problem(cuda, nB, P=1296, K=512, seed=nB + cluster_size)
     cfg = SparseProxConfig(n_iter=12, matmul_dtype=matmul_dtype)
     alpha = compute_alpha(D, M, cfg)
-    plan = next(p for p in plan_candidates(nB, 1296, 512, bf16, ISTA_KERNEL.resident_clusters(bf16), _MAX_SMEM_BYTES)
+    plan = next(p for p in plan_candidates(nB, 1296, 512, bf16, ISTA_KERNEL.resident_clusters(bf16), MAX_SMEM_BYTES)
                 if p.tier == "panel" and p.cluster_size == cluster_size)
     assert plan.rows <= 64 and plan.n_clusters * plan.rows >= nB
     with ISTA_KERNEL.forcing(plan):

@@ -10,7 +10,8 @@ import torch
 
 from lrs_pnp_dip_tpu_torch.models import LipschitzUNet, SNConv2d
 from lrs_pnp_dip_tpu_torch.models import lipschitz
-from lrs_pnp_dip_tpu_torch.ops import spectral_norm_cuda
+from lrs_pnp_dip_tpu_torch.ops import ISTA_KERNEL, spectral_norm_cuda
+from lrs_pnp_dip_tpu_torch.ops.cuda_kernel import capture_marks
 from lrs_pnp_dip_tpu_torch.ops.spectral_norm_cuda import SN_KERNEL, plan_spectral_norm, smem_bytes
 from lrs_pnp_dip_tpu_torch.solvers import DipFit
 from lrs_pnp_dip_tpu_torch.utils.config import DipConfig
@@ -133,6 +134,7 @@ def test_off_the_cpu_the_call_goes_to_the_kernel_and_never_falls_back():
     with pytest.raises(ValueError, match="CUDA device"):
         SN_KERNEL.launch([torch.zeros((4, 9))], [torch.zeros(4)], [1.0], [8])
     assert SN_KERNEL.launches == launches and SN_KERNEL._lib is None  # nothing built
+    assert ISTA_KERNEL._lib is None and {SN_KERNEL, ISTA_KERNEL} <= set(capture_marks())
 
 
 def _preset_shapes(width=128, bands=128):
