@@ -13,7 +13,10 @@ device from one upload of its tiles and one of their masks
 over the blocks of every tile).  With ``scan=True`` a batch's steps run on
 the device (:class:`.scan.ScannedSolve`, CUDA graphs on the card), else from
 the host; either way each DIP fit replays the engine's one captured
-iteration (one capture per net and tile shape, whatever the batch).
+iteration (one capture per net and tile shape, whatever the batch).  The
+stitch runs on the device too: each batch's tiles are added into a float64
+sum of the scene as they are solved, and the host gets one copy of the
+finished float32 scene a call.
 """
 
 from __future__ import annotations
@@ -76,8 +79,9 @@ class _TileBatch:
     def build(self, tiles: np.ndarray, masks: np.ndarray, seed: int):
         """(consts, state) of ``tiles`` (lanes, th, tw, B) and ``masks``
         (lanes, th, tw), both f32; lane i draws from a generator seeded
-        ``seed + i``.  Overwrites the previous batch's: the caller has read
-        that batch back first."""
+        ``seed + i``.  Overwrites the previous batch's: the caller has added
+        that batch into its scene first, and the device's stream runs that
+        add before this refill."""
         self.tiles.copy_(torch.from_numpy(tiles))
         self.masks.copy_(torch.from_numpy(masks))
         self.captured()
@@ -96,13 +100,17 @@ class _TileEngine:
     step, which takes any number of lanes, a dictionary buffer per
     dictionary shape, and a :class:`_TileBatch` per batch shape: its number
     of lanes (a final partial batch has its own) and the dictionary's width
-    (two scenes may bring two)."""
+    (two scenes may bring two).  Counters of the latest :func:`solve_tiled`
+    call: ``placed``, the tiles added into the scene's sum on the device,
+    and ``readbacks``, the copies of the scene to the host."""
 
     def __init__(self, config: SolverConfig, tile3, net, device: torch.device):
         self.stages = OuterStages(config, tile3, net=net, device=device)
         self.step = lockstep_step(self.stages)
         self._dictionaries = {}
         self._batches = {}
+        self.placed = 0
+        self.readbacks = 0
 
     def dictionary(self, dictionary) -> torch.Tensor:
         """``dictionary`` on the device: one upload into the buffer of its
@@ -111,6 +119,15 @@ class _TileEngine:
         if host.shape not in self._dictionaries:
             self._dictionaries[host.shape] = torch.empty(host.shape, dtype=torch.float32, device=self.stages.device)
         return self._dictionaries[host.shape].copy_(host)
+
+    def to_host(self, scene: torch.Tensor) -> np.ndarray:
+        """``scene`` as a fresh host array that the caller owns: from the
+        card, one copy into new pageable memory (faster a call than a
+        page-locked buffer and a host copy,
+        ``scripts/time_stitch_readback.py``); on the CPU, the tensor's own
+        memory."""
+        self.readbacks += 1
+        return scene.cpu().numpy()
 
     def batch(self, lanes: int, D: torch.Tensor) -> _TileBatch:
         key = (lanes, *D.shape)
@@ -149,15 +166,18 @@ def solve_tiled(
     with ``config.seed + i``.
 
     ``scan=True`` (default) runs a batch's ``n`` outer steps on the device
-    (:class:`.scan.ScannedSolve`: captured graphs on the card, the state
-    read back once per batch); ``scan=False`` steps each batch's outer loop
-    from the host, its DIP fits replayed as in ``scan=True``.  Both give the
-    same bits on the CPU.
+    (:class:`.scan.ScannedSolve`: captured graphs on the card, the step
+    history read back once per batch); ``scan=False`` steps each batch's
+    outer loop from the host, its DIP fits replayed as in ``scan=True``.
+    Both give the same bits on the CPU.
 
     A final partial batch runs at its real size by default; ``pad_final=True``
     pads it to ``tile_batch`` by duplicating its last tile (the extras are
     dropped), which here only costs the wasted lanes: the built step serves
     any batch size.
+
+    The stitch keeps the scene's float64 sum and weight on ``device`` and
+    returns a fresh float32 array, copied to the host once.
 
     Runs on ``device``: the card by default, which raises when there is none.
     """
@@ -175,8 +195,11 @@ def solve_tiled(
     with annotate("tiles.consts"):
         D = engine.dictionary(dictionary)
         mask = np.asarray(mask, np.float32)
-    out = np.zeros((h, w, b), np.float64)
-    weight = np.zeros((h, w, 1), np.float64)
+    # the overlap average, in float64 on the device: each tile added into
+    # the sum in the loader's order, uncovered pixels divided by 1
+    out = torch.zeros((h, w, b), dtype=torch.float64, device=device)
+    weight = torch.zeros((h, w, 1), dtype=torch.float64, device=device)
+    engine.placed = engine.readbacks = 0
 
     for tiles, origins in loader.batches():
         n_real = len(origins)
@@ -188,21 +211,22 @@ def solve_tiled(
                 masks = np.concatenate([masks, np.repeat(masks[-1:], extra, axis=0)])
             batch = engine.batch(len(tiles), D)
             # refills the buffers the previous batch of this shape was solved
-            # on: safe, since its readback below waited for its solve to end
+            # on: safe, since the stream runs that batch's adds below first
             consts, state = batch.build(tiles, masks, config.seed)
         if scan:
             state, _ = batch.scanned().run(state, n)
         else:
             for _ in range(n):
                 state, _ = engine.step(state, consts)
-        with annotate("tiles.readback"):
-            cubes = state.X.detach().cpu().numpy().reshape(-1, th, tw, b)[:n_real]
         with annotate("tiles.stitch"):
-            for cube, (h0, w0) in zip(cubes, origins):
-                out[h0 : h0 + th, w0 : w0 + tw] += cube
-                weight[h0 : h0 + th, w0 : w0 + tw] += 1.0
+            for cube, (h0, w0) in zip(state.X.detach().reshape(-1, th, tw, b)[:n_real], origins):
+                out[h0 : h0 + th, w0 : w0 + tw].add_(cube)
+                weight[h0 : h0 + th, w0 : w0 + tw].add_(1.0)
+            engine.placed += n_real
         if verbose:
             print(f"solved {n_real} tiles at origin {tuple(origins[0])}", flush=True)
 
     with annotate("tiles.stitch"):
-        return (out / np.maximum(weight, 1.0)).astype(np.float32)
+        scene = (out / weight.clamp_min(1.0)).to(torch.float32)
+    with annotate("tiles.readback"):
+        return engine.to_host(scene)

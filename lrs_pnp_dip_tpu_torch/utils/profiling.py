@@ -30,7 +30,9 @@ at warm-up and capture).  This list is the one record of their names:
   * tile pipeline: ``tiles.wait`` (the next batch of tiles from the
     loader's thread), ``tiles.consts`` (the call's dictionary upload, and
     each batch's constants and initial states: two uploads and one build),
-    ``tiles.readback``, ``tiles.stitch``;
+    ``tiles.stitch`` (each batch's tiles added into the scene's float64
+    sum on the device, and the call's final divide), ``tiles.readback``
+    (the call's one copy of the float32 scene to the host);
   * outer step: ``step.graph_a``, ``step.graph_b`` and ``step.history_read``
     of the device-resident loop; ``step.sparse``, ``step.finish`` and
     ``step.read`` of the host-stepped one;
@@ -39,6 +41,9 @@ at warm-up and capture).  This list is the one record of their names:
     of its stop flag).
 
 Counters beside the spans, read outside any timed region:
+``_TileEngine.placed`` and ``_TileEngine.readbacks`` (``solvers/tiled.py``:
+the tiles the latest scene solve added into its sum on the device, and its
+copies of the scene to the host, one a call),
 ``DipFit.flag_reads`` (stop-flag reads of the latest fit),
 ``ISTA_KERNEL.launches_by_kernel`` (kernel B1's launches by kernel),
 ``SN_KERNEL.launches`` (launches of the spectral norm kernel,

@@ -942,6 +942,52 @@ def test_tile_batch_build_replays_the_eager_build(cuda):
     assert np.isfinite(first).all() and np.array_equal(first, second)
 
 
+@pytest.mark.parametrize("tile, tile_batch", [((144, 144), 1), ((36, 36), 8)], ids=["one_tile", "tiles_of_36"])
+def test_device_stitch_equals_the_numpy_stitch_bit_for_bit(cuda, monkeypatch, tile, tile_batch):
+    """A 144x144x128 scene through ``solve_tiled`` at the `lrs_pnp` preset
+    (one outer step): as one tile, and as 16 tiles of 36x36 in batches of
+    8.  The float64 sum and divide on the card give the bits of the host's
+    numpy stitch of the same solved tiles; the engine counts every tile
+    placed and one readback, and two calls return arrays that share no
+    memory."""
+    from lrs_pnp_dip_tpu_torch.data import random_dictionary
+    from lrs_pnp_dip_tpu_torch.solvers import tiled
+    from lrs_pnp_dip_tpu_torch.utils.config import lrs_pnp_preset
+
+    origins, states = [], []
+    batches, run = tiled.TileLoader.batches, tiled.ScannedSolve.run
+
+    def recorded_batches(self):
+        for tiles, o in batches(self):
+            origins.append(o)
+            yield tiles, o
+
+    def recorded_run(self, state, n, chunk=None):
+        final, history = run(self, state, n, chunk)
+        states.append(final.X.cpu().numpy())
+        return final, history
+
+    monkeypatch.setattr(tiled.TileLoader, "batches", recorded_batches)
+    monkeypatch.setattr(tiled.ScannedSolve, "run", recorded_run)
+    cfg = lrs_pnp_preset()
+    scene = synthetic_sample(144, 144, 128, missing=0.05, seed=45)
+    D = random_dictionary(1296, 512, seed=1)
+    kw = dict(tile_shape=tile, tile_batch=tile_batch, n_iters=1, device=cuda)
+    rec = tiled.solve_tiled(scene.noisy, scene.mask, D, cfg, **kw)
+    (th, tw), (h, w, b) = tile, scene.noisy.shape
+    out, weight = np.zeros((h, w, b), np.float64), np.zeros((h, w, 1), np.float64)
+    for X, batch in zip(states, origins):
+        for cube, (h0, w0) in zip(X.reshape(-1, th, tw, b)[: len(batch)], batch):
+            out[h0 : h0 + th, w0 : w0 + tw] += cube
+            weight[h0 : h0 + th, w0 : w0 + tw] += 1.0
+    want = (out / np.maximum(weight, 1.0)).astype(np.float32)
+    assert rec.dtype == np.float32 and np.isfinite(rec).all() and np.array_equal(rec, want)
+    engine = tiled._tiled_engine(cfg, (th, tw, b), None, cuda)
+    assert (engine.placed, engine.readbacks) == ((144 // th) * (144 // tw), 1)
+    again = tiled.solve_tiled(scene.noisy, scene.mask, D, cfg, **kw)
+    assert np.array_equal(again, rec) and not np.shares_memory(again, rec)
+
+
 # -- the spectral norm kernel (csrc/spectral_norm.cu) -------------------------
 
 # (m, n) of the `dip_1lip` preset's 14 convs (128 bands, width 128)

@@ -119,10 +119,12 @@ def test_annotate_is_a_no_op_unless_a_profiler_records(monkeypatch):
 
 def test_scene_spans_count_their_call_sites_and_hold_make_consts(monkeypatch):
     """2 batches of 2 tiles, 2 outer steps each: the dictionary's upload in
-    a constants span of its own; a wait, the constants, a readback and a
-    stitch per batch, the final divide a third stitch; graph A, ``eigh`` and
-    graph B per step; one history read per batch.  Each batch's constants
-    are one build over its stacked tiles."""
+    a constants span of its own; a wait, the constants and a stitch (the
+    batch's tiles added into the scene's sum on the device) per batch, the
+    final divide a third stitch, and one readback of the whole scene; graph
+    A, ``eigh`` and graph B per step; one history read per batch.  Each
+    batch's constants are one build over its stacked tiles.  The engine
+    counts 4 tiles placed and 1 readback."""
     real = ttiled.assemble_consts
 
     def probed(*args, **kwargs):
@@ -130,11 +132,14 @@ def test_scene_spans_count_their_call_sites_and_hold_make_consts(monkeypatch):
             return real(*args, **kwargs)
 
     monkeypatch.setattr(ttiled, "assemble_consts", probed)
-    _, events = _profiled(lambda: _solve_scene(*_scene()))
+    noisy, mask, D, cfg = _scene()
+    _, events = _profiled(lambda: _solve_scene(noisy, mask, D, cfg))
     assert _span_counts(events) == {
-        "tiles.wait": 2, "tiles.consts": 3, "tiles.readback": 2, "tiles.stitch": 3,
+        "tiles.wait": 2, "tiles.consts": 3, "tiles.readback": 1, "tiles.stitch": 3,
         "step.graph_a": 4, "svt.eigh": 4, "step.graph_b": 4, "step.history_read": 2,
     }
+    engine = ttiled._tiled_engine(cfg, (36, 36, 8), None, torch.device("cpu"))
+    assert (engine.placed, engine.readbacks) == (4, 1)
     consts, probes = _intervals(events, "tiles.consts"), _intervals(events, "probe.assemble_consts")
     assert len(probes) == 2
     ops = [(s, e) for n, s, e in events if n.startswith("aten::") and _inside((s, e), probes)]

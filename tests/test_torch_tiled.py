@@ -197,3 +197,72 @@ def test_the_kept_engine_takes_a_dictionary_of_another_width():
         _tiled_engine.cache_clear()
         np.testing.assert_array_equal(rec, solve_tiled(s.noisy, s.mask, D, cfg, **tiles))
     np.testing.assert_array_equal(kept[2], kept[0])
+
+
+def _numpy_stitch(shape, solved, th, tw):
+    """The plain overlap average in numpy on the host, the device stitch's
+    reference: ``solved`` is [(tiles, origins)] a batch, each tile added
+    into a float64 sum in order, the sum divided by the count of tiles over
+    each pixel (at least 1), rounded to float32."""
+    h, w, b = shape
+    out = np.zeros((h, w, b), np.float64)
+    weight = np.zeros((h, w, 1), np.float64)
+    for cubes, origins in solved:
+        for cube, (h0, w0) in zip(cubes, origins):
+            out[h0 : h0 + th, w0 : w0 + tw] += cube
+            weight[h0 : h0 + th, w0 : w0 + tw] += 1.0
+    return (out / np.maximum(weight, 1.0)).astype(np.float32)
+
+
+def _record_solved_batches(monkeypatch, keep=None):
+    """Record each batch's origins and solved state X as ``solve_tiled``
+    runs, into the two lists returned; ``keep`` cuts each batch to its
+    first ``keep`` tiles, so some pixels are covered by no tile."""
+    origins, states = [], []
+    batches, run = ttiled.TileLoader.batches, ttiled.ScannedSolve.run
+
+    def recorded_batches(self):
+        for tiles, o in batches(self):
+            origins.append(o[:keep])
+            yield tiles[:keep], o[:keep]
+
+    def recorded_run(self, state, n, chunk=None):
+        final, history = run(self, state, n, chunk)
+        states.append(final.X.detach().cpu().numpy().copy())
+        return final, history
+
+    monkeypatch.setattr(ttiled.TileLoader, "batches", recorded_batches)
+    monkeypatch.setattr(ttiled.ScannedSolve, "run", recorded_run)
+    return origins, states
+
+
+@pytest.mark.parametrize(
+    "overlap, pad_final, keep",
+    [(0, False, None), (0, True, None), (8, False, None), (8, True, None), (0, False, 1), (8, True, 2)],
+    ids=["abutting", "abutting_padded", "overlapping", "overlapping_padded", "uncovered", "uncovered_padded"],
+)
+def test_device_stitch_equals_the_numpy_stitch_bit_for_bit(monkeypatch, overlap, pad_final, keep):
+    """The scene's float64 sum and divide on the device give the bits of the
+    host's numpy stitch of the same solved tiles: 6 tiles of 16x16 in
+    batches of 4 (overlap 0) or 12 in batches of 5 (overlap 8), so the last
+    batch is partial, right-sized or padded; with ``keep`` the loader
+    yields only the first tiles of each batch, and the pixels no tile
+    covers read 0.  The engine counts every tile placed and one readback a
+    call, and two calls return arrays that share no memory."""
+    clean, noisy, mask = _scene()
+    D = _dictionary(16 * 16, 48, seed=3)
+    cfg, _ = _lrs_cfgs(16, n_iter=4, alpha_mode="specnorm", h_scale=0.1)
+    origins, states = _record_solved_batches(monkeypatch, keep)
+    kw = dict(tile_shape=(16, 16), tile_batch=4 if overlap == 0 else 5, overlap=overlap, pad_final=pad_final)
+    rec = solve_tiled(noisy, mask, D, cfg, n_iters=1, device="cpu", **kw)
+    batches = [(X.reshape(-1, 16, 16, noisy.shape[2])[: len(o)], o) for X, o in zip(states, origins)]
+    want = _numpy_stitch(noisy.shape, batches, 16, 16)
+    assert rec.dtype == np.float32 and np.array_equal(rec, want)
+    n_tiles, every = sum(len(o) for o in origins), 12 if overlap else 6
+    assert n_tiles == every if keep is None else 0 < n_tiles < every
+    if keep is not None:
+        assert (rec == 0).all(axis=2).any()
+    engine = _tiled_engine(cfg, (16, 16, noisy.shape[2]), None, torch.device("cpu"))
+    assert (engine.placed, engine.readbacks) == (n_tiles, 1)
+    again = solve_tiled(noisy, mask, D, cfg, n_iters=1, device="cpu", **kw)
+    assert np.array_equal(again, rec) and not np.shares_memory(again, rec)
