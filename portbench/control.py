@@ -13,8 +13,10 @@ does; then it prints, as one JSON line per seed:
     program with that fault of ``faults.py`` planted, which sets an upper
     reading where the control sets none);
   * ``control``: for the seeds of ``--control-seeds``, the same numbers of
-    the control, the reference computed in TF32 and put in the program's
-    place (the upper readings: the smallest over three seeds or more);
+    the control, the reference in a lower precision put in the program's
+    place (TF32; for a bf16 configuration, fp8 operands: the driver's
+    ``readings(control=True)``), the upper readings: the smallest over three
+    seeds or more;
   * with ``--vary-problem`` a cell whose problem is fixed (``problem_seed``)
     takes each seed as its problem's, so the readings span a dozen problems.
 

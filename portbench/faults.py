@@ -78,4 +78,16 @@ def cut_fit(patch) -> None:
     patch(dip.DipFit, "__init__", cut)
 
 
-FAULTS = {f.__name__: f for f in (unchanged_state, altered_state, altered_scene, half_batch, frozen_fit, cut_fit)}
+def window_last(patch) -> None:
+    """The DIP fit returns its last output where the configuration asks for
+    the mean of its window (``return_mode`` left at ``last``)."""
+    init = dip.DipFit.__init__
+
+    def last(self, model, cfg=dip.DipConfig()):
+        init(self, model, dataclasses.replace(cfg, return_mode="last"))
+
+    patch(dip.DipFit, "__init__", last)
+
+
+FAULTS = {f.__name__: f for f in (unchanged_state, altered_state, altered_scene, half_batch, frozen_fit, cut_fit,
+                                  window_last)}

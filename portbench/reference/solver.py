@@ -19,7 +19,10 @@ program.  Per outer step, on the matricized image (P pixels x B bands):
   4. lambda1 += mu1 (X - IMout), lambda2 += mu2 (X - U).
 
 Every tensor is float32.  The precision of the products is the caller's:
-the benchmark runs this with TF32 off, and the control with TF32 on.
+the benchmark runs this with TF32 off, and the control with TF32 on.  A
+configuration in bfloat16, or whose DIP fit returns its window's mean, is
+:mod:`.bf16`'s: :func:`ista`, :func:`dip_fit`, :func:`step`, :func:`solve`
+and :func:`solve_scene` refuse its :class:`Setup`.
 """
 
 from __future__ import annotations
@@ -53,17 +56,18 @@ class Setup:
     dip_lr: float = 0.0
     dip_window: int = 0
     dip_patience: int = 0
+    matmul_dtype: str = "float32"  # B1's product operands: 'float32' | 'bfloat16'
+    dip_dtype: str = "float32"  # the DIP net's forward and backward: 'float32' | 'bfloat16'
+    dip_return: str = "last"  # the fit's output: 'last' | 'window_mean'
 
     @classmethod
     def from_config(cls, cfg: dict) -> "Setup":
         """From a configuration file's ``solver`` object."""
         sp, dp = cfg["sparse"], cfg.get("dip") or {}
-        if sp["denoiser"] != "nlm_fast" or sp["matmul_dtype"] != "float32":
-            raise ValueError("the reference runs nlm_fast in float32 only")
-        if dp and (dp["return_mode"] != "last" or dp["show_every"] != 1
-                   or dp["compute_dtype"] != "float32" or dp["input_mode"] != "iterate"):
-            raise ValueError("the reference's DIP fit returns the last output, checks every "
-                             "iteration, computes in float32 and takes the iterate as input")
+        if sp["denoiser"] != "nlm_fast":
+            raise ValueError("the reference runs the nlm_fast denoiser only")
+        if dp and (dp["show_every"] != 1 or dp["input_mode"] != "iterate"):
+            raise ValueError("the reference's DIP fit checks every iteration and takes the iterate as input")
         return cls(
             variant=cfg["variant"], gamma=cfg["gamma"], mu1=cfg["mu1"], mu2=cfg["mu2"],
             block_size=cfg["block_size"], stride=cfg["stride"],
@@ -71,7 +75,19 @@ class Setup:
             h_scale=sp["h_scale"], power_iters=sp["power_iters"],
             dip_num_iter=dp.get("num_iter", 0), dip_lr=dp.get("learning_rate", 0.0),
             dip_window=dp.get("buffer_size", 0), dip_patience=dp.get("patience", 0),
+            matmul_dtype=sp["matmul_dtype"], dip_dtype=dp.get("compute_dtype", "float32"),
+            dip_return=dp.get("return_mode", "last"),
         )
+
+
+def require_f32(s: Setup) -> None:
+    """Refuse a configuration that this module's float32 arithmetic does not
+    compute: bfloat16 products or fit, or a fit that returns its window's
+    mean (:mod:`.bf16` computes those)."""
+    if (s.matmul_dtype, s.dip_dtype, s.dip_return) != ("float32", "float32", "last"):
+        raise ValueError(f"the float32 reference computes float32 products and a fit that returns its "
+                         f"last output, not matmul_dtype {s.matmul_dtype!r}, dip_dtype {s.dip_dtype!r}, "
+                         f"dip_return {s.dip_return!r}")
 
 
 # -- blocks ------------------------------------------------------------------
@@ -175,6 +191,7 @@ def step_sizes(D: torch.Tensor, M: torch.Tensor, s: Setup) -> torch.Tensor:
 def ista(Y: torch.Tensor, M: torch.Tensor, D: torch.Tensor, alpha: torch.Tensor, s: Setup) -> torch.Tensor:
     """Masked PnP-ISTA from x = 0 on the rows of Y (rows, bb*bb); returns the
     coefficients (rows, K)."""
+    require_f32(s)
     Ym = M * Y
     h = s.h_scale * s.lambda_ista / (2.0 * alpha)
     x = torch.zeros((Y.shape[0], D.shape[1]), device=Y.device)
@@ -210,6 +227,7 @@ def dip_fit(params0: dict, z: torch.Tensor, target: torch.Tensor, mask: torch.Te
     mean((w - mean(w))^2) is checked, and the fit stops when it has not gone
     below its lowest for ``dip_patience`` checks, or after ``dip_num_iter``
     iterations.  ``n_iters`` runs exactly that many iterations instead."""
+    require_f32(s)
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params0.items()}
     opt = torch.optim.Adam(list(params.values()), lr=s.dip_lr, betas=(0.9, 0.999), eps=1e-8)
     x, m = z[None], mask[None, None]
@@ -323,6 +341,7 @@ def step(st: State, pr: Problem, s: Setup, dip_init: Optional[dict] = None,
     weights (``dip``, one problem), ``dip_iters`` pins the fit's length;
     ``U`` given takes the place of the low-rank prox's output (``dip``: the
     fit's)."""
+    require_f32(s)
     phi = sparse_stage(st, pr, s)
     n = 0
     if U is None and s.variant == "lrs_pnp":
@@ -337,6 +356,7 @@ def step(st: State, pr: Problem, s: Setup, dip_init: Optional[dict] = None,
 def solve(noisy: np.ndarray, mask_hw: np.ndarray, D: np.ndarray, s: Setup, n_steps: int, device) -> torch.Tensor:
     """``n_steps`` outer steps of ``lrs_pnp`` from X = Y, of each cube
     (..., H, W, B) alone; returns X as (..., H, W, B)."""
+    require_f32(s)
     pr = problem(noisy, mask_hw, D, s, device)
     st = initial_state(pr)
     for _ in range(n_steps):
@@ -349,6 +369,7 @@ def solve_scene(noisy: np.ndarray, mask_hw: np.ndarray, D: np.ndarray, s: Setup,
     """A scene cut into tiles of ``tile`` pixels (the last row and column of
     tiles pulled in to cover it), each tile solved alone, the recoveries put
     back and averaged where tiles overlap."""
+    require_f32(s)
     H, W, _ = noisy.shape
     th, tw = tile
     origins = [(h0, w0) for h0 in starts(H, th, th) for w0 in starts(W, tw, tw)]

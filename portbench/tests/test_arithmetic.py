@@ -105,6 +105,8 @@ def test_shares_stay_silent_without_their_source():
 
     r = _run([], window_s=1.0, peaks=None, flops=10, trace=None, b1_work=[], config={})
     assert shares.mfu_pct(r) is None and shares.idle_pct(r) is None and shares.b1_roofline_pct(r) is None
+    assert run.load_metric("mfu_pct.step_bf16")(r) is None
     r = _run([], window_s=2.0, peaks=peaks.H100_SXM, flops=67e12, trace=None, b1_work=[], config={})
     assert shares.mfu_pct(r) == pytest.approx(50.0)
     assert math.isfinite(shares.mfu_pct(r))
+    assert run.load_metric("mfu_pct.step_bf16")(r) == pytest.approx(100.0 * 67e12 / (2.0 * 989e12))

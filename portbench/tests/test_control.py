@@ -1,7 +1,8 @@
 """On the card: the control (the reference in TF32 put in the program's
-place) fails the cell's limits and the program passes them, at a size a
-test run holds.  The readings at the cells' own sizes, over a dozen seeds,
-come from ``control.py`` and are in PERF.md."""
+place; for ``dip_fast.cube36`` the bf16 reference with fp8 operands) fails
+the cell's limits and the program passes them, at a size a test run holds.
+The readings at the cells' own sizes, over a dozen seeds, come from
+``control.py`` and are in PERF.md."""
 
 import gc
 
@@ -15,6 +16,7 @@ pytestmark = pytest.mark.cuda
 CELLS = {
     "dip.cube36": {"cell": {"pool": 1, "steps_per_solve": 5, "checked_steps": 5}},
     "lrs_pnp.scene144": {"cell": {"height": 72, "width": 72, "pool": 1}},
+    "dip_fast.cube36": {"cell": {"pool": 1, "steps_per_solve": 3, "checked_steps": 3}},
 }
 
 

@@ -14,8 +14,8 @@ LOAD_EVERYTHING = """
 import json, sys
 sys.path.insert(0, {here!r})
 import run, control, program, faults
-import reference.solver, reference.skip128
-import traffic.base, traffic.cube_steps, traffic.scene_stream
+import reference.solver, reference.skip128, reference.lipschitz_unet, reference.bf16
+import traffic.base, traffic.cube_steps, traffic.scene_stream, traffic.cube_steps_1lip, traffic.cube_steps_fast
 import yardstick.inputs, yardstick.peaks, yardstick.b1, yardstick.flops, yardstick.trace
 import yardstick.shares
 bench = json.load(open({bench!r}))

@@ -28,10 +28,19 @@ class Trace(NamedTuple):
 
 
 def _kind(event) -> str:
+    """The event's kind as kineto names it.  A torch without
+    ``activity_type`` is told a device event by its device type; a span's
+    ``gpu_user_annotation`` (a user annotation on the device's timeline,
+    which covers the kernels its span launched and is no device work
+    itself) is never a kernel, with or without ``activity_type``."""
     kind = getattr(event, "activity_type", None)
+    on_device = "CUDA" in str(event.device_type())
+    annotation = getattr(event, "is_user_annotation", None)
+    if on_device and annotation is not None and annotation():
+        return "gpu_user_annotation"
     if kind is not None:
         return str(kind())
-    return "kernel" if "CUDA" in str(event.device_type()) else "cpu_op"
+    return "kernel" if on_device else "cpu_op"
 
 
 def from_profile(prof, window_ns: int) -> Trace:
